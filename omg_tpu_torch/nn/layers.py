@@ -1,0 +1,204 @@
+"""Core layers (port of ``omg_tpu/nn/layers.py``).
+
+Conventions:
+  * ``Linear``:  weight [out, in] (torch layout); ``Conv2d``: weight
+    OIHW over NCHW data.
+  * Norm statistics and activations that the JAX package computes in
+    fp32 are computed in fp32 here and cast back to the compute dtype;
+    matmuls and convs run in the input dtype.
+
+LoRA is a runtime input, as in JAX: a model takes one flat adapter dict
+``{module_path: {"down": [in, r], "up": [r, out], "scale": ()}}`` keyed by
+the path of the ``Linear`` it applies to (diffusers naming, e.g.
+``mid_block.attentions.0.transformer_blocks.0.attn1.to_q``). Every
+``Linear`` reads its own leaf and adds ``scale * (x @ down) @ up``, so one
+module serves the base lanes and every concept lane. A per-lane leaf has
+``down [B, in, r]``, ``up [B, r, out]`` and ``scale [B]`` (a batched
+matmul: lane b runs adapter b).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def lora_delta(leaf: dict, x: torch.Tensor) -> torch.Tensor:
+    """``scale * (x @ down) @ up`` in x's dtype; per-lane when down is 3-D."""
+    down = leaf["down"].to(x.dtype)
+    up = leaf["up"].to(x.dtype)
+    scale = leaf["scale"].to(x.dtype)
+    delta = torch.matmul(torch.matmul(x, down), up)
+    if down.dim() == 3:
+        scale = scale.reshape((-1,) + (1,) * (x.dim() - 1))
+    return delta * scale
+
+
+class Linear(nn.Module):
+    """``x @ W.T`` plus this layer's LoRA delta, then the bias."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, bias: bool = True,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.weight = _param((out_dim, in_dim), dtype, device)
+        self.bias = _param((out_dim,), dtype, device) if bias else None
+        self.lora_key = ""      # module path; set by the model root
+
+    def lora_leaf(self, lora: Optional[dict]) -> Optional[dict]:
+        return None if lora is None else lora.get(self.lora_key)
+
+    def forward(self, x: torch.Tensor, lora: Optional[dict] = None):
+        leaf = self.lora_leaf(lora)
+        if leaf is None:
+            return F.linear(x, self.weight, self.bias)
+        y = F.linear(x, self.weight) + lora_delta(leaf, x)
+        return y if self.bias is None else y + self.bias
+
+
+class Conv2d(nn.Module):
+    """NCHW conv; ``padding`` defaults to kernel // 2 (the JAX package's
+    symmetric padding)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, *,
+                 stride: int = 1, padding: Optional[int] = None,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.weight = _param((out_ch, in_ch, kernel, kernel), dtype, device)
+        self.bias = _param((out_ch,), dtype, device)
+        self.stride = stride
+        self.padding = kernel // 2 if padding is None else padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                        stride=self.stride, padding=self.padding)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over the channel axis of NCHW data, statistics in fp32."""
+
+    def __init__(self, dim: int, num_groups: int, *, eps: float = 1e-5,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.weight = _param((dim,), dtype, device)
+        self.bias = _param((dim,), dtype, device)
+        self.num_groups = num_groups
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis, statistics in fp32."""
+
+    def __init__(self, dim: int, *, eps: float = 1e-5, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.weight = _param((dim,), dtype, device)
+        self.bias = _param((dim,), dtype, device)
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+class Embedding(nn.Module):
+    def __init__(self, num: int, dim: int, *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.weight = _param((num, dim), dtype, device)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight)
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights with the JAX package's scheme: N(0, 1/fan_in)
+    linears and convs with zero biases, unit norms, N(0, 0.02²)
+    embeddings. Draws come from ``generator`` on the weights' device, in
+    module order."""
+    def normal(w, std):
+        w.copy_(torch.randn(w.shape, generator=generator, device=w.device,
+                            dtype=torch.float32) * std)
+
+    for m in model.modules():
+        if isinstance(m, (Linear, Conv2d)):
+            fan_in = m.weight[0].numel()
+            normal(m.weight, 1.0 / math.sqrt(max(fan_in, 1)))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (GroupNorm, LayerNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, Embedding):
+            normal(m.weight, 0.02)
+    return model
+
+
+def set_lora_keys(model: nn.Module) -> None:
+    """Give every Linear its module path, the key of its LoRA leaf."""
+    for name, m in model.named_modules():
+        if isinstance(m, Linear):
+            m.lora_key = name
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x)            # exact erf form
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def geglu(p: Linear, x: torch.Tensor, lora: Optional[dict] = None):
+    """diffusers GEGLU feed-forward gate: proj to 2*dim, gelu-gate."""
+    h, gate = p(x, lora).chunk(2, dim=-1)
+    return h * gelu(gate)
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int, *,
+                       flip_sin_to_cos: bool = True,
+                       downscale_freq_shift: float = 0.0,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal timestep embedding (diffusers), always fp32."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device)
+    freqs = torch.exp(exponent / (half - downscale_freq_shift))
+    args = timesteps.float()[..., None] * freqs
+    sin, cos = torch.sin(args), torch.cos(args)
+    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample on NCHW."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def nearest_resize(x: torch.Tensor, size: tuple) -> torch.Tensor:
+    """Nearest-neighbour resize of NHWC or HW data to ``size`` (H, W) with
+    torch ``F.interpolate(mode='nearest')``'s index rule,
+    ``floor(i * in / out)`` taken in fp32 as the JAX package does."""
+    axes = (0, 1) if x.dim() == 2 else (1, 2)
+    idx = []
+    for ax, n_out in zip(axes, size):
+        ratio = np.float32(x.shape[ax] / n_out)
+        rows = np.floor(np.arange(n_out, dtype=np.float32) * ratio)
+        idx.append(torch.as_tensor(rows.astype(np.int64), device=x.device))
+    return x.index_select(axes[0], idx[0]).index_select(axes[1], idx[1])

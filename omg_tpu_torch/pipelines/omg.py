@@ -1,0 +1,255 @@
+"""High-level OMG pipeline, the user-facing two-stage engine (port of
+``omg_tpu/pipelines/omg.py``).
+
+``OMG.generate`` encodes the prompts, runs stage 1, asks the mask
+provider for per-concept masks on the stage-1 image, runs stage 2 with
+region fusion and decodes. This slice runs the two-concept LoRA path
+with Euler; the ControlNet, InstantID, DeepCache and scheduler options of
+the JAX signature raise ``NotImplementedError`` until their slices land.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from omg_tpu_torch import lora as lora_lib
+from omg_tpu_torch import rewrite
+from omg_tpu_torch.control import p2p, regions as regions_lib
+from omg_tpu_torch.diffusion import schedulers
+from omg_tpu_torch.pipelines import multiconcept, sdxl
+
+# mask_provider(image_uint8 [H, W, 3], class_text) -> [H, W] {0,1} or None
+MaskProvider = Callable[[np.ndarray, str], Optional[np.ndarray]]
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    stage1: np.ndarray                  # [2, H, W, 3] uint8 (copy A, B)
+    stage2: Optional[np.ndarray]        # same, or None if no masks found
+    masks: List[Optional[np.ndarray]]   # per-concept pixel masks
+    # host-clock seconds per phase ("encode", "stage1", "masks",
+    # "stage2", "decode"); each phase ends with the device idle
+    timings: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def image(self) -> np.ndarray:
+        """The deliverable: copy B of the last stage."""
+        out = self.stage2 if self.stage2 is not None else self.stage1
+        return out[1]
+
+
+class _Clock:
+    """Phase timer on the host clock; synchronizes a CUDA device before
+    each reading, so a phase's time includes its device work."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.timings: dict = {}
+        self._t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.timings[name] = self.timings.get(name, 0.0) + now - self._t
+        self._t = now
+
+
+@dataclasses.dataclass
+class OMG:
+    """The OMG engine over one SDXL weight set (on the models' device)."""
+
+    cfg: sdxl.SDXLConfig
+    params: sdxl.SDXLParams
+    tokenizer: object                   # text.tokenizer.Tokenizer (enc 1)
+    tokenizer_2: object                 # (enc 2)
+    mask_provider: Optional[MaskProvider] = None
+    scheduler: str = "euler"
+    num_steps: int = 50
+    # Concept-LoRA strength on concept lanes (reference
+    # cross_attention_kwargs={'scale': 0.8}).
+    concept_lora_scale: float = 0.8
+    # set_adapters([char, style], [0.7, 0.5]) mix.
+    char_style_weights: tuple = (0.7, 0.5)
+
+    @property
+    def device(self) -> torch.device:
+        return self.params.unet.conv_in.weight.device
+
+    def encode(self, prompt: str, negative: str,
+               te_lora: tuple = (None, None)):
+        """``te_lora``: (encoder-1, encoder-2) LoRA dicts for region
+        prompts."""
+        def ids(tok, text):
+            return torch.as_tensor(tok([text]), dtype=torch.long,
+                                   device=self.device)
+
+        ep, pp = sdxl.encode_tokens(self.cfg, self.params,
+                                    ids(self.tokenizer, prompt),
+                                    ids(self.tokenizer_2, prompt), *te_lora)
+        en, pn = sdxl.encode_tokens(self.cfg, self.params,
+                                    ids(self.tokenizer, negative),
+                                    ids(self.tokenizer_2, negative), *te_lora)
+        return ep, pp, en, pn
+
+    def _token_in_prompt(self, word: str, prompt: str) -> bool:
+        """Detection runs for a class only if the word's token appears in
+        the global prompt (the reference's gate)."""
+        wid = self.tokenizer.encode_word(word)
+        ids = self.tokenizer.encode(prompt)
+        return wid in list(ids[1:-1])
+
+    def _predict_masks(self, image, prompt: str, n_regions: int,
+                       detection_classes) -> list:
+        """Per-concept masks from the stage-1 image, token-gated per class.
+        A provider with ``masks_for`` is asked once for all gated classes
+        and must answer each one."""
+        gated = [(k, detection_classes[k])
+                 for k in range(n_regions)
+                 if k < len(detection_classes) and detection_classes[k]
+                 and self.mask_provider is not None
+                 and self._token_in_prompt(detection_classes[k], prompt)]
+        masks: list = [None] * n_regions
+        if not gated:
+            return masks
+        mf = getattr(self.mask_provider, "masks_for", None)
+        if mf is not None:
+            found = list(mf(image, [c for _, c in gated]))
+            if len(found) != len(gated):
+                raise ValueError(
+                    f"mask provider returned {len(found)} masks for "
+                    f"{len(gated)} classes {[c for _, c in gated]}")
+            for (k, _), m in zip(gated, found):
+                masks[k] = m
+        else:
+            for k, cls in gated:
+                masks[k] = self.mask_provider(image, cls)
+        return masks
+
+    def generate(self, prompt: str, *, negative_prompt: str = "",
+                 prompt_rewrite: str = "",
+                 concept_loras: Sequence[Optional[dict]] = (),
+                 style_lora: Optional[dict] = None,
+                 seed: int = 14, height: int = 1024, width: int = 1024,
+                 guidance_scale: float = 7.5,
+                 num_steps: Optional[int] = None,
+                 detection_classes: Sequence[str] = ("man", "woman"),
+                 spatial_condition: Optional[np.ndarray] = None,
+                 controlnet_params: Optional[dict] = None,
+                 controlnet_scale: float = 1.0,
+                 control_guidance_start: float = 0.0,
+                 control_guidance_end: float = 1.0,
+                 controlnet_guess_mode: bool = False,
+                 instantid=None,
+                 face_embeddings: Sequence[Optional[np.ndarray]] = (),
+                 face_kps_image: Optional[np.ndarray] = None,
+                 face_kps_provider=None,
+                 masks: Optional[Sequence[Optional[np.ndarray]]] = None,
+                 fusion_start: Optional[int] = None,
+                 initial_noise: Optional[np.ndarray] = None,
+                 scheduler: Optional[str] = None,
+                 cache_interval: Optional[int] = None,
+                 cache_schedule: Optional[str] = None,
+                 ) -> GenerationResult:
+        if controlnet_params is not None or spatial_condition is not None:
+            raise multiconcept.not_ported("ControlNet", "ControlNet")
+        if (instantid is not None or len(face_embeddings)
+                or face_kps_image is not None
+                or face_kps_provider is not None):
+            raise multiconcept.not_ported("InstantID", "InstantID")
+        if (cache_interval or 0) > 1 or cache_schedule is not None:
+            raise multiconcept.not_ported("DeepCache", "approximate modes")
+        device = self.device
+        clock = _Clock(device)
+        steps = num_steps or self.num_steps
+        if fusion_start is None:
+            # the reference fuses after step 15 of 50; keep the fraction
+            fusion_start = round(steps * regions_lib.FUSION_START_STEP / 50)
+        sched = schedulers.make_schedule(scheduler or self.scheduler, steps)
+        generator = torch.Generator(device).manual_seed(seed)
+
+        # --- conditioning ---------------------------------------------
+        ep, pp, en, pn = self.encode(prompt, negative_prompt)
+        tids = sdxl.add_time_ids((height, width), (0, 0), (height, width),
+                                 device=device)
+        base_inputs = multiconcept.make_base_inputs(ep, pp, en, pn, tids,
+                                                    guidance_scale)
+        region_specs = rewrite.parse_rewrite(prompt_rewrite)
+        concept_inputs, loras_final = [], []
+        for k, region in enumerate(region_specs):
+            tree_k = concept_loras[k] if k < len(concept_loras) else None
+            te_lora = (None, None)
+            if tree_k is not None:
+                # region prompts encode with the concept's text-encoder
+                # adapters active (mixed with the style adapter)
+                def te_merged(key):
+                    char = tree_k.get(key)
+                    style = (style_lora.get(key)
+                             if isinstance(style_lora, dict) else None)
+                    if style is not None and char is not None:
+                        return lora_lib.merge_loras(
+                            [char, style], list(self.char_style_weights))
+                    return char if char is not None else style
+                te_lora = (te_merged("text_encoder") or None,
+                           te_merged("text_encoder_2") or None)
+            rep, rpp, ren, rpn = self.encode(region.prompt,
+                                             region.negative_prompt,
+                                             te_lora=te_lora)
+            concept_inputs.append(multiconcept.make_concept_inputs(
+                rep, rpp, ren, rpn, tids))
+            unet_tree = tree_k.get("unet", tree_k) if tree_k else None
+            style_tree = (style_lora.get("unet", style_lora)
+                          if style_lora is not None else None)
+            merged = (lora_lib.merge_loras([unet_tree, style_tree],
+                                           list(self.char_style_weights))
+                      if style_tree is not None else unet_tree)
+            loras_final.append(lora_lib.scale_lora(merged,
+                                                   self.concept_lora_scale))
+
+        controller = p2p.P2PControl.build(
+            [prompt, prompt], steps, cross_replace_steps=1.0,
+            self_replace_steps=0.4, width=width // 32, height=height // 32,
+            tokenizer=self.tokenizer, device=device)
+        clock.lap("encode")
+
+        # --- stage 1 (dedup fast path) ---------------------------------
+        lat1, cache = multiconcept.sample_stage1_cached(
+            self.cfg, sched, self.params.unet, generator=generator,
+            height=height, width=width, base_inputs=base_inputs,
+            fusion_start=fusion_start, initial_noise=initial_noise)
+        clock.lap("stage1")
+        img1 = self._decode(lat1)
+        clock.lap("decode")
+
+        # --- masks -----------------------------------------------------
+        if masks is None:
+            masks = self._predict_masks(img1[1], prompt, len(region_specs),
+                                        detection_classes)
+        masks = list(masks)
+        clock.lap("masks")
+
+        # --- stage 2 ---------------------------------------------------
+        img2 = None
+        if any(m is not None for m in masks):
+            mask_stack = regions_lib.make_concept_mask_stack(
+                masks, (height // 8, width // 8), len(region_specs),
+                device=device)
+            lat2 = multiconcept.sample_stage2_resumed(
+                self.cfg, sched, self.params.unet, cache,
+                base_inputs=base_inputs, controller=controller,
+                concept_inputs=concept_inputs, concept_loras=loras_final,
+                masks=mask_stack, fusion_start=fusion_start)
+            clock.lap("stage2")
+            img2 = self._decode(lat2)
+            clock.lap("decode")
+        return GenerationResult(stage1=img1, stage2=img2, masks=masks,
+                                timings=clock.timings)
+
+    def _decode(self, latents: torch.Tensor) -> np.ndarray:
+        img = sdxl.decode_latents(self.cfg, self.params.vae, latents)
+        return (img * 255).to(torch.uint8).cpu().numpy()
