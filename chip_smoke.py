@@ -8,21 +8,31 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      matmuls and cuDNN so the fp32 VAE decode is fp32.
   2. build   — compiles the flash-attention kernel from
      omg_tpu_torch/ops/csrc with nvcc; prints seconds and ptxas usage.
-  3. kernel  — kernel vs its plain PyTorch version on seeded bf16 inputs
+  3. kernel  — K1 vs its plain PyTorch version on seeded bf16 inputs
      at the UNet's self-attention shapes; error bound, ms per call.
+  3b. seq    — K1b (the kernel on one sequence shard's query rows against
+     the whole K/V) vs the plain version at the shapes of 2- and 4-way
+     sequence splits, data-split lanes and the 1216x832 bucket.
   4. model   — one SDXL-width UNet forward at the 7-lane stage-2 layout
      (P2P inside its self-replace window, stacked LoRA lanes) through the
      kernel and with attention forced to the plain version; 70 launches.
   5. main    — ``OMG.generate`` at SDXL widths, 1024x1024, 50 Euler steps,
      two concepts with rank-32 LoRAs, random weights from a seed;
      5880 kernel launches, finite latents, stage times, peak memory.
-The last two lines are a JSON record of the kernel and
+  6. mesh    — the multi-device latency mode, ``OMG(mesh=...)``, on 2 ranks
+     that share this card through ``gloo`` (mesh data=1, model=2): the
+     same seeded weights on both (checked), one H-split stage-1 UNet
+     forward and one lane-split 8-lane stage-2 forward against the
+     unsharded ones, then ``generate`` as in phase 5: 3500 K1b and 2380
+     K1 launches per rank, identical images on both ranks.
+The last two lines are a JSON record of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -31,10 +41,11 @@ import time
 import numpy as np
 import torch
 
+from omg_tpu_torch import lora as lora_lib
 from omg_tpu_torch.control import p2p
 from omg_tpu_torch.diffusion import schedulers
-from omg_tpu_torch.lora import stack_loras
 from omg_tpu_torch.ops import flash_attention as fa
+from omg_tpu_torch.parallel import comm, launch, mesh as mesh_lib
 from omg_tpu_torch.pipelines import multiconcept, omg as omg_lib, sdxl
 from omg_tpu_torch.text.tokenizer import ToyTokenizer
 
@@ -48,6 +59,15 @@ LAUNCHES_PER_FORWARD = 70
 # Stage 1 runs all 50 steps (2 lanes); stage 2 resumes after
 # fusion_start = 15, i.e. steps 16..49 (7 lanes).
 MAIN_PATH_LAUNCHES = STEPS * 70 + (STEPS - 16) * 70
+# The step of the forward checks: inside the self-replace window [0, 20).
+P2P_STEP = 16
+# The mesh phase: 2 ranks on this card, (data, model) = (1, 2). Stage 1
+# runs H-split, so every self-attention is K1b (50 steps x 70); stage 2
+# runs the 4+2K = 8 lanes 4 per rank, K1 on each (34 steps x 70).
+MESH_RANKS = 2
+MESH_SEQ_LAUNCHES = STEPS * LAUNCHES_PER_FORWARD
+MESH_LAUNCHES = (STEPS - 16) * LAUNCHES_PER_FORWARD
+MESH_TIMEOUT_S = 900
 
 # Kernel vs plain, bf16 in and out: bf16 keeps 8 mantissa bits. The
 # kernel rounds the unnormalized probabilities to bf16 before P.V and
@@ -65,6 +85,12 @@ KERNEL_SHAPES = [  # (B, H, N, D): main-path, bucket, D=128, ragged tiles
     (2, 20, 960, 64), (2, 20, 1008, 64), (2, 10, 3840, 64),
     (2, 10, 1024, 128), (2, 20, 1088, 64), (2, 20, 1025, 64)]
 TIMED_SHAPE = (7, 10, 4096, 64)
+SEQ_SHAPES = [  # (B, H, Nq local, Nk): q rows of a shard against all K/V
+    (2, 10, 2048, 4096), (2, 20, 512, 1024),     # 2-way seq at 1024^2
+    (2, 10, 1024, 4096), (2, 20, 256, 1024),     # 4-way seq
+    (1, 10, 2048, 4096),                         # data-split lanes
+    (2, 10, 1976, 3952), (2, 20, 494, 988)]      # the 1216x832 bucket
+SEQ_TIMED_SHAPE = (2, 10, 2048, 4096)            # the mesh phase's level 1
 
 
 def log(*args):
@@ -114,30 +140,54 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _check_kernel(kernel, name, q, k, v) -> tuple:
+    """(max abs err, kernel ms, plain ms) of ``kernel`` against the plain
+    version on q/k/v; raises on NaN or an error past the bound."""
+    out = kernel(q, k, v)
+    ref = fa.flash_attention_ref(q, k, v).float()
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name} output not finite")
+    err = (out.float() - ref).abs().max().item()
+    bound = KERNEL_ULPS * max(ref.abs().max().item(), 1.0)
+    ms = cuda_ms(lambda: kernel(q, k, v), 20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v), 5)
+    log(f"  {name} max_abs_err {err:.3e} (bound {bound:.3e})"
+        f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
+    if err > bound:
+        raise AssertionError(f"{name} disagrees: {err} > {bound}")
+    return err, ms, plain_ms
+
+
 def kernel_phase(device) -> dict:
     g = torch.Generator(device).manual_seed(0)
     worst, timed = 0.0, None
     for b, h, n, d in KERNEL_SHAPES:
         q, k, v = (torch.randn(b, h, n, d, generator=g, device=device,
                                dtype=torch.bfloat16) for _ in range(3))
-        out = fa.flash_attention(q, k, v)
-        ref = fa.flash_attention_ref(q, k, v).float()
-        torch.cuda.synchronize()
-        if not torch.isfinite(out).all():
-            raise AssertionError(f"kernel output not finite at {(b, h, n, d)}")
-        err = (out.float() - ref).abs().max().item()
-        bound = KERNEL_ULPS * max(ref.abs().max().item(), 1.0)
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
-        plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v), 5)
-        log(f"  [{b},{h},{n},{d}] max_abs_err {err:.3e} (bound {bound:.3e})"
-            f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
-        if err > bound:
-            raise AssertionError(f"kernel disagrees at {(b, h, n, d)}: "
-                                 f"{err} > {bound}")
+        err, ms, plain_ms = _check_kernel(fa.flash_attention,
+                                          f"[{b},{h},{n},{d}]", q, k, v)
         worst = max(worst, err)
         if (b, h, n, d) == TIMED_SHAPE:
             timed = (ms, plain_ms)
-        del q, k, v, out, ref
+        del q, k, v
+    return {"max_abs_err": worst, "ms": timed[0], "plain_ms": timed[1]}
+
+
+def seq_kernel_phase(device) -> dict:
+    """K1b: the wrapper ``flash_attention_seq_local`` on gathered K/V."""
+    g = torch.Generator(device).manual_seed(3)
+    worst, timed = 0.0, None
+    for b, h, nq, nk in SEQ_SHAPES:
+        q, k, v = (torch.randn(b, h, n, 64, generator=g, device=device,
+                               dtype=torch.bfloat16) for n in (nq, nk, nk))
+        err, ms, plain_ms = _check_kernel(
+            fa.flash_attention_seq_local, f"q [{b},{h},{nq},64] kv {nk}",
+            q, k, v)
+        worst = max(worst, err)
+        if (b, h, nq, nk) == SEQ_TIMED_SHAPE:
+            timed = (ms, plain_ms)
+        del q, k, v
     return {"max_abs_err": worst, "ms": timed[0], "plain_ms": timed[1]}
 
 
@@ -178,23 +228,44 @@ def plain_attention():
         fa.use_flash = gate
 
 
-def model_phase(device, cfg, params, loras) -> None:
-    g = torch.Generator(device).manual_seed(1)
+def unet_inputs(device, cfg, b: int, seed: int) -> tuple:
+    """Seeded UNet inputs at 1024x1024: (sample, ehs, pooled, time ids)."""
+    g = torch.Generator(device).manual_seed(seed)
     ucfg = cfg.unet
     h, w = HEIGHT // 8, WIDTH // 8
 
     def r(*shape):
         return torch.randn(shape, generator=g, device=device).to(ucfg.dtype)
 
-    sample, ehs, pooled = r(7, h, w, 4), r(7, 77, ucfg.cross_attention_dim), \
-        r(7, cfg.text_encoder_2.projection_dim)
+    sample, ehs, pooled = r(b, h, w, 4), r(b, 77, ucfg.cross_attention_dim), \
+        r(b, cfg.text_encoder_2.projection_dim)
     tids = sdxl.add_time_ids((HEIGHT, WIDTH), (0, 0), (HEIGHT, WIDTH),
-                             device=device).expand(7, 6)
-    lane_lora = stack_loras([None] * 3 + [loras[0]] * 2 + [loras[1]] * 2)
+                             device=device).expand(b, 6)
+    return sample, ehs, pooled, tids
+
+
+def compare_eps(name: str, eps, eps_ref) -> float:
+    """Max |eps - eps_ref|; raises past MODEL_REL_BOUND of max |eps_ref|
+    or on a non-finite value."""
+    if not (torch.isfinite(eps).all() and torch.isfinite(eps_ref).all()):
+        raise AssertionError(f"{name}: UNet eps not finite")
+    err = (eps.float() - eps_ref.float()).abs().max().item()
+    scale = eps_ref.float().abs().max().item()
+    log(f"{name}: eps {tuple(eps.shape)} max |diff| {err:.3e}, max |eps| "
+        f"{scale:.3e} (bound {MODEL_REL_BOUND} relative)")
+    if err > MODEL_REL_BOUND * scale:
+        raise AssertionError(f"{name} disagrees: {err}")
+    return err
+
+
+def model_phase(device, cfg, params, loras) -> None:
+    sample, ehs, pooled, tids = unet_inputs(device, cfg, 7, seed=1)
+    lane_lora = lora_lib.stack_loras(
+        [None] * 3 + [loras[0]] * 2 + [loras[1]] * 2)
     ctl = p2p.P2PControl.build(["a photo", "a photo"], STEPS,
                                self_replace_steps=0.4, width=WIDTH // 32,
                                height=HEIGHT // 32, device=device)
-    step = 16                                 # inside the window [0, 20)
+    step = P2P_STEP
     t = int(schedulers.make_schedule("euler", STEPS).timesteps[step])
 
     def forward():
@@ -212,15 +283,8 @@ def model_phase(device, cfg, params, loras) -> None:
     if launches != LAUNCHES_PER_FORWARD or fa.LAUNCHES != launches:
         raise AssertionError(f"kernel launches per forward: {launches}, "
                              f"want {LAUNCHES_PER_FORWARD}")
-    if not (torch.isfinite(eps).all() and torch.isfinite(eps_plain).all()):
-        raise AssertionError("UNet eps not finite")
-    err = (eps.float() - eps_plain.float()).abs().max().item()
-    scale = eps_plain.float().abs().max().item()
-    log(f"model: 7-lane UNet eps {tuple(eps.shape)} launches {launches}; "
-        f"max |kernel - plain| {err:.3e}, max |eps| {scale:.3e} "
-        f"(bound {MODEL_REL_BOUND} relative)")
-    if err > MODEL_REL_BOUND * scale:
-        raise AssertionError(f"UNet through the kernel disagrees: {err}")
+    log(f"model: 7-lane UNet, {launches} launches")
+    compare_eps("model: kernel vs plain", eps, eps_plain)
 
 
 @contextlib.contextmanager
@@ -258,29 +322,17 @@ def left_right_masks(image, cls):
     return m
 
 
-def main_phase(device, cfg, params, loras) -> int:
-    """Run ``OMG.generate`` once; returns the kernel launches it made."""
-    tok = ToyTokenizer(cfg.text_encoder.vocab_size)
-    engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok,
-                         tokenizer_2=tok, mask_provider=left_right_masks,
-                         num_steps=STEPS)
-    latents: dict = {}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = 0
-    t0 = time.perf_counter()
-    with record_latents(latents):
-        res = engine.generate(
-            "photo of the man and the woman at the beach",
-            negative_prompt="ugly",
-            prompt_rewrite="[photo of the man]-*-[ugly]|"
-                           "[photo of the woman]-*-[ugly]",
-            concept_loras=loras, seed=SEED, height=HEIGHT, width=WIDTH,
-            guidance_scale=7.5, num_steps=STEPS)
-    torch.cuda.synchronize()
-    total = time.perf_counter() - t0
-    launches = fa.LAUNCHES
-    peak = torch.cuda.max_memory_allocated()
+def generate(engine, loras):
+    return engine.generate(
+        "photo of the man and the woman at the beach",
+        negative_prompt="ugly",
+        prompt_rewrite="[photo of the man]-*-[ugly]|"
+                       "[photo of the woman]-*-[ugly]",
+        concept_loras=loras, seed=SEED, height=HEIGHT, width=WIDTH,
+        guidance_scale=7.5, num_steps=STEPS)
+
+
+def check_result(res, latents: dict) -> None:
     if res.stage2 is None or "stage2" not in latents:
         raise AssertionError("stage 2 did not run")
     for name, lat in latents.items():
@@ -291,6 +343,26 @@ def main_phase(device, cfg, params, loras) -> int:
         img = getattr(res, name)
         if img.shape != (2, HEIGHT, WIDTH, 3) or img.dtype != np.uint8:
             raise AssertionError(f"{name} image bad: {img.shape} {img.dtype}")
+
+
+def main_phase(device, cfg, params, loras) -> tuple:
+    """Run ``OMG.generate`` once; returns (kernel launches, result)."""
+    tok = ToyTokenizer(cfg.text_encoder.vocab_size)
+    engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok,
+                         tokenizer_2=tok, mask_provider=left_right_masks,
+                         num_steps=STEPS)
+    latents: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with record_latents(latents):
+        res = generate(engine, loras)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = fa.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    check_result(res, latents)
     if launches != MAIN_PATH_LAUNCHES:
         raise AssertionError(f"kernel launches in generate: {launches}, "
                              f"want {MAIN_PATH_LAUNCHES}")
@@ -301,7 +373,176 @@ def main_phase(device, cfg, params, loras) -> int:
     log(f"main: kernel launches {launches}; peak memory "
         f"{peak / 2**30:.2f} GiB; masks {[m is not None for m in res.masks]};"
         f" image mean {res.image.mean():.2f} std {res.image.std():.2f}")
-    return launches
+    return launches, res
+
+
+def weights(device):
+    """SDXL at full width with random weights from seed 0, and the two
+    rank-32 concept LoRAs (seeds 10, 11)."""
+    cfg = sdxl.sdxl_config()
+    t0 = time.perf_counter()
+    params = sdxl.init_params(torch.Generator(device).manual_seed(0), cfg,
+                              device)
+    loras = [mid_block_lora(device, 10, cfg), mid_block_lora(device, 11, cfg)]
+    torch.cuda.synchronize()
+    log(f"weights: {time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for m in params for p in m.parameters()) / 1e9:.3f}"
+        " B parameters")
+    return cfg, params, loras
+
+
+def single_card_phases(device) -> tuple:
+    """Phases 4 and 5; the weights are freed on return."""
+    with torch.inference_mode():
+        log("== weights")
+        cfg, params, loras = weights(device)
+        log("== model")
+        model_phase(device, cfg, params, loras)
+        log("== main path")
+        return main_phase(device, cfg, params, loras)
+
+
+# --------------------------------------------------------------- phase 6
+
+def _lora_checksum(loras) -> torch.Tensor:
+    return torch.stack([leaf[r].double().sum() for tree in loras
+                        for _, leaf in sorted(tree.items())
+                        for r in ("down", "up", "scale")])
+
+
+def spatial_forward(mesh, cfg, params) -> dict:
+    """One stage-1 UNet forward at b=2, H split over the model axis: 70 K1b
+    launches; rank 0 holds it against the unsharded forward (K1)."""
+    sample, ehs, pooled, tids = unet_inputs(mesh.device, cfg, 2, seed=2)
+    t = int(schedulers.make_schedule("euler", STEPS).timesteps[0])
+    seq = mesh.model_group
+    rows = sample.shape[1] // seq.size
+    fa.SEQ_LAUNCHES = 0
+    eps = params.unet(sample[:, seq.index * rows:(seq.index + 1) * rows], t,
+                      ehs, text_embeds=pooled, time_ids=tids, seq_group=seq)
+    torch.cuda.synchronize()
+    launches = fa.SEQ_LAUNCHES
+    if launches != LAUNCHES_PER_FORWARD:
+        raise AssertionError(f"K1b launches per H-split forward: {launches}, "
+                             f"want {LAUNCHES_PER_FORWARD}")
+    eps = comm.all_gather(eps, 1, seq)
+    out = {"launches": launches}
+    if mesh.rank == 0:
+        out["err"] = compare_eps(
+            "mesh: H-split stage-1 forward vs unsharded", eps,
+            params.unet(sample, t, ehs, text_embeds=pooled, time_ids=tids))
+    return out
+
+
+def lane_forward(mesh, cfg, params, loras) -> dict:
+    """One stage-2 UNet forward on the 4+2K = 8 lanes split over all ranks
+    (P2P inside its self-replace window, stacked LoRA lanes): 70 K1
+    launches per rank; rank 0 holds it against the unsharded forward."""
+    sample, ehs, pooled, tids = unet_inputs(mesh.device, cfg, 8, seed=3)
+    lane_lora = lora_lib.stack_loras(
+        [None] * 4 + [loras[0]] * 2 + [loras[1]] * 2)
+    ctl = p2p.P2PControl.build(["a photo", "a photo"], STEPS,
+                               self_replace_steps=0.4, width=WIDTH // 32,
+                               height=HEIGHT // 32, device=mesh.device)
+    step = P2P_STEP
+    t = int(schedulers.make_schedule("euler", STEPS).timesteps[step])
+    lanes = mesh_lib.Split(8, mesh.flat)
+    lo, hi = lanes.lo, lanes.hi
+    fa.LAUNCHES = 0
+    eps = params.unet(sample[lo:hi], t, ehs[lo:hi], text_embeds=pooled[lo:hi],
+                      time_ids=tids[lo:hi],
+                      lora=lora_lib.lane_slice(lane_lora, lo, hi),
+                      control=ctl.at_step(step, lanes=lanes))
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES
+    if launches != LAUNCHES_PER_FORWARD:
+        raise AssertionError(f"K1 launches per lane-split forward: "
+                             f"{launches}, want {LAUNCHES_PER_FORWARD}")
+    eps = comm.all_gather(eps, 0, mesh.flat, sizes=lanes.sizes)
+    out = {"launches": launches}
+    if mesh.rank == 0:
+        out["err"] = compare_eps(
+            "mesh: lane-split 8-lane stage-2 forward vs unsharded", eps,
+            params.unet(sample, t, ehs, text_embeds=pooled, time_ids=tids,
+                        lora=lane_lora, control=ctl.at_step(step)))
+    return out
+
+
+def mesh_generate(mesh, cfg, params, loras) -> dict:
+    """``OMG(mesh=...).generate`` as phase 5 runs it, counts zeroed just
+    before and read just after."""
+    tok = ToyTokenizer(cfg.text_encoder.vocab_size)
+    engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok,
+                         tokenizer_2=tok, mask_provider=left_right_masks,
+                         num_steps=STEPS, mesh=mesh)
+    latents: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    fa.LAUNCHES = fa.SEQ_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with record_latents(latents):
+        res = generate(engine, loras)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    seq_launches, launches = fa.SEQ_LAUNCHES, fa.LAUNCHES
+    check_result(res, latents)
+    if (seq_launches, launches) != (MESH_SEQ_LAUNCHES, MESH_LAUNCHES):
+        raise AssertionError(
+            f"rank {mesh.rank}: K1b/K1 launches in generate {seq_launches}/"
+            f"{launches}, want {MESH_SEQ_LAUNCHES}/{MESH_LAUNCHES}")
+    return {"stage1": res.stage1, "stage2": res.stage2,
+            "timings": res.timings, "total": total,
+            "peak": torch.cuda.max_memory_allocated(mesh.device),
+            "seq_launches": seq_launches, "launches": launches}
+
+
+def mesh_rank(rank: int, device) -> dict:
+    """One rank of phase 6 (``launch.spawn`` runs it in its own process)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa.build()
+    mesh = mesh_lib.make_mesh(MESH_RANKS, data=1, model=MESH_RANKS,
+                              device=device)
+    with torch.inference_mode():
+        cfg, params, loras = weights(device)
+        mesh_lib.replicated(mesh, *params)
+        sums = comm.all_gather(_lora_checksum(loras)[None], 0, mesh.flat)
+        if not all(torch.equal(sums[0], row) for row in sums):
+            raise AssertionError("the concept LoRAs differ between ranks")
+        out = {"spatial": spatial_forward(mesh, cfg, params),
+               "lanes": lane_forward(mesh, cfg, params, loras)}
+        out.update(mesh_generate(mesh, cfg, params, loras))
+    return out
+
+
+def mesh_phase(single) -> dict:
+    t0 = time.perf_counter()
+    ranks = launch.spawn(mesh_rank, MESH_RANKS, backend="gloo",
+                         devices=["cuda:0"] * MESH_RANKS,
+                         timeout=MESH_TIMEOUT_S)
+    log(f"mesh: {MESH_RANKS} ranks on cuda:0, backend gloo (collectives "
+        f"staged through host memory); {time.perf_counter() - t0:.1f} s "
+        "wall for the phase, rank start-up and weights included")
+    for r, out in enumerate(ranks):
+        tm = out["timings"]
+        log(f"mesh rank {r}: stage1 {tm['stage1']:.3f} s, masks "
+            f"{tm['masks']:.3f} s, stage2 {tm['stage2']:.3f} s, decode "
+            f"{tm['decode']:.3f} s, encode {tm['encode']:.3f} s, total "
+            f"{out['total']:.3f} s; peak memory {out['peak'] / 2**30:.2f} "
+            f"GiB; K1b launches {out['seq_launches']}, K1 launches "
+            f"{out['launches']}")
+        for name in ("stage1", "stage2"):
+            if not np.array_equal(out[name], ranks[0][name]):
+                raise AssertionError(f"mesh: rank {r}'s {name} images differ "
+                                     "from rank 0's")
+    for name in ("stage1", "stage2"):
+        diff = np.abs(ranks[0][name].astype(int)
+                      - getattr(single, name).astype(int))
+        log(f"mesh: {name} images vs phase 5: max |diff| {diff.max()}, mean "
+            f"{diff.mean():.3f} (uint8; the 4+2K program and the split "
+            "reductions round differently)")
+    return {"seq_launches": [out["seq_launches"] for out in ranks],
+            "launches": [out["launches"] for out in ranks]}
 
 
 def main() -> int:
@@ -310,32 +551,36 @@ def main() -> int:
     build_phase()
     log("== kernel vs plain")
     kstats = kernel_phase(device)
-    with torch.inference_mode():
-        log("== weights")
-        cfg = sdxl.sdxl_config()
-        t0 = time.perf_counter()
-        params = sdxl.init_params(torch.Generator(device).manual_seed(0),
-                                  cfg, device)
-        loras = [mid_block_lora(device, 10, cfg),
-                 mid_block_lora(device, 11, cfg)]
-        torch.cuda.synchronize()
-        log(f"weights: {time.perf_counter() - t0:.1f} s, "
-            f"{sum(p.numel() for m in params for p in m.parameters()) / 1e9:.3f}"
-            " B parameters")
-        log("== model")
-        model_phase(device, cfg, params, loras)
-        log("== main path")
-        launches = main_phase(device, cfg, params, loras)
+    log("== K1b vs plain")
+    sstats = seq_kernel_phase(device)
+    launches, single = single_card_phases(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== mesh")
+    mstats = mesh_phase(single)
+    source = "omg_tpu_torch/ops/csrc/flash_attention.cu"
     record = {"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
-        "source": "omg_tpu_torch/ops/csrc/flash_attention.cu",
+        "source": source,
         "replaces": "omg_tpu/ops/flash_attention.py:249",
         "launches": launches,
         "max_abs_err": kstats["max_abs_err"],
         "ms": kstats["ms"],
         "plain_ms": kstats["plain_ms"],
-        "timed_at": "q/k/v [%d,%d,%d,%d] bf16" % TIMED_SHAPE}]}
+        "timed_at": "q/k/v [%d,%d,%d,%d] bf16" % TIMED_SHAPE,
+        "mesh_launches_by_rank": mstats["launches"]}, {
+        "name": "flash_attention_fwd_seq_local",
+        "route": "cuda",
+        "source": source,
+        "replaces": "omg_tpu/ops/flash_attention.py:108-126 via :249",
+        "launches": mstats["seq_launches"][0],
+        "launches_by_rank": mstats["seq_launches"],
+        "max_abs_err": sstats["max_abs_err"],
+        "ms": sstats["ms"],
+        "plain_ms": sstats["plain_ms"],
+        "timed_at": "q [%d,%d,%d,64] against k/v of %d, bf16"
+                    % SEQ_TIMED_SHAPE}]}
     log("card:", power_line())
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

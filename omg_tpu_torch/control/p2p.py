@@ -11,6 +11,13 @@ The controller is host-side data plus a per-step view:
 
 The step index is a Python int here, so the window test is a host branch.
 
+Lane-sharded batches (the multi-device stage 2): with a ``Split`` of the
+lanes over a group, each rank holds a block of lanes and applies the
+edits to the lanes it holds. Where the source and destination lanes sit on
+different ranks, the source's owner broadcasts the rows the edit reads
+(``self_lane_qk_sharded``, ``cross_lane_out_sharded``); no rows move when
+both sit on one rank, nor outside the self-replace window.
+
 The host-side token-alignment helpers (get_word_inds, time_words_alpha,
 replacement_mapper) follow Google's Apache-2.0 prompt-to-prompt utilities
 (github.com/google/prompt-to-prompt, ptp_utils.py / seq_aligner.py), as
@@ -24,6 +31,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from omg_tpu_torch.parallel import comm
 
 MAX_WORDS = 77
 
@@ -154,24 +163,31 @@ class P2PControl:
             self_end=int(num_steps * self_replace_steps[1]),
             self_seq_limit=width * height)
 
-    def at_step(self, step: int, *, src_lane: int = 2,
-                dst_lane: int = 3) -> "P2PStepControl":
+    def at_step(self, step: int, *, src_lane: int = 2, dst_lane: int = 3,
+                lanes=None) -> "P2PStepControl":
         """``src_lane``/``dst_lane``: the batch rows of cond-A (edit
         source) and cond-B (edit target); the 3-row stage-2 layout uses
-        0/2."""
+        0/2. ``lanes``: a ``parallel.mesh.Split`` when the batch's lanes
+        are split over ranks (lane numbers stay global)."""
         return P2PStepControl(self, step, src_lane=src_lane,
-                              dst_lane=dst_lane)
+                              dst_lane=dst_lane, lanes=lanes)
+
+
+def _substitute(t: torch.Tensor, row: int, new: torch.Tensor) -> torch.Tensor:
+    """``t`` with batch row ``row`` replaced by ``new`` [1, ...]."""
+    return torch.cat([t[:row], new, t[row + 1:]])
 
 
 class P2PStepControl:
     """The attention-control protocol bound to one step."""
 
     def __init__(self, ctl: P2PControl, step: int, *, src_lane: int = 2,
-                 dst_lane: int = 3):
+                 dst_lane: int = 3, lanes=None):
         self.ctl = ctl
         self.step = int(step)
         self.src_lane = src_lane
         self.dst_lane = dst_lane
+        self.lanes = lanes
 
     def wants(self, *, is_cross: bool, num_queries: int) -> bool:
         """Cross-attn is always edited (alpha may be 0 at some steps);
@@ -187,6 +203,8 @@ class P2PStepControl:
     def self_lane_qk(self, q: torch.Tensor, k: torch.Tensor) -> tuple:
         """Self-attn replace: dst lane takes the src lane's q and k inside
         the window. q, k: [B, H, N, D]."""
+        if self.lanes is not None:
+            return self.self_lane_qk_sharded(q, k)
         if not self._in_window():
             return q, k
         rows = list(range(q.shape[0]))
@@ -194,22 +212,78 @@ class P2PStepControl:
         idx = torch.as_tensor(rows, device=q.device)
         return q.index_select(0, idx), k.index_select(0, idx)
 
+    def _cross_edit(self, q_s, k_s, q_d, k_d, v_d, sdpa_fn) -> torch.Tensor:
+        """The dst lane's rewritten cross-attn output [1, H, Nq, D] from the
+        src lane's q/k and the dst lane's q/k/v (each [1, H, N, D])."""
+        ctl = self.ctl
+        nk = k_d.shape[2]
+        alpha = ctl.cross_alpha[self.step, :nk].to(device=v_d.device,
+                                                   dtype=v_d.dtype)
+        alpha = alpha[None, :, None]                          # [1, Nk, 1]
+        mapper = ctl.mapper[:nk, :nk].to(device=v_d.device, dtype=v_d.dtype)
+        va = torch.einsum("wn,hnd->hwd", mapper, v_d[0] * alpha)
+        vb = v_d[0] * (1.0 - alpha)
+        return sdpa_fn(q_s, k_s, va[None]) + sdpa_fn(q_d, k_d, vb[None])
+
     def cross_lane_out(self, out: torch.Tensor, q: torch.Tensor,
                        k: torch.Tensor, v: torch.Tensor,
                        sdpa_fn) -> torch.Tensor:
         """Rewrite the dst lane of a cross-attn output without probs.
         out/q/k/v: [B, H, N(q/k), D]; sdpa_fn(q, k, v) -> attention out."""
-        ctl = self.ctl
+        if self.lanes is not None:
+            return self.cross_lane_out_sharded(out, q, k, v, sdpa_fn)
         s, d = self.src_lane, self.dst_lane
-        nk = k.shape[2]
-        alpha = ctl.cross_alpha[self.step, :nk].to(device=v.device,
-                                                   dtype=v.dtype)
-        alpha = alpha[None, :, None]                          # [1, Nk, 1]
-        mapper = ctl.mapper[:nk, :nk].to(device=v.device, dtype=v.dtype)
-        va = torch.einsum("wn,hnd->hwd", mapper, v[d] * alpha)
-        vb = v[d] * (1.0 - alpha)
-        t1 = sdpa_fn(q[s:s + 1], k[s:s + 1], va[None])
-        t2 = sdpa_fn(q[d:d + 1], k[d:d + 1], vb[None])
-        out = out.clone()
-        out[d] = (t1 + t2)[0]
-        return out
+        new = self._cross_edit(q[s:s + 1], k[s:s + 1], q[d:d + 1],
+                               k[d:d + 1], v[d:d + 1], sdpa_fn)
+        return _substitute(out, d, new)
+
+    # -- lane-sharded forms (multi-device stage 2) -------------------------
+
+    def _owners(self) -> tuple:
+        """(src owner, dst owner, this rank's index, first local lane)."""
+        sp = self.lanes
+        return (sp.owner(self.src_lane), sp.owner(self.dst_lane),
+                sp.group.index, sp.lo)
+
+    def self_lane_qk_sharded(self, q: torch.Tensor, k: torch.Tensor) -> tuple:
+        """``self_lane_qk`` on this rank's lanes q, k [hi-lo, H, N, D]. The
+        window test is a host decision: outside it nothing moves."""
+        if not self._in_window():
+            return q, k
+        so, do, me, lo = self._owners()
+        s, d = self.src_lane - lo, self.dst_lane - lo
+        if so == do:
+            if me != do:
+                return q, k
+            return (_substitute(q, d, q[s:s + 1]),
+                    _substitute(k, d, k[s:s + 1]))
+        rows = (torch.cat([q[s:s + 1], k[s:s + 1]]) if me == so
+                else q.new_empty((2,) + tuple(q.shape[1:])))
+        rows = comm.broadcast_rows(rows, so, self.lanes.group)
+        if me != do:
+            return q, k
+        return _substitute(q, d, rows[:1]), _substitute(k, d, rows[1:])
+
+    def cross_lane_out_sharded(self, out: torch.Tensor, q: torch.Tensor,
+                               k: torch.Tensor, v: torch.Tensor,
+                               sdpa_fn) -> torch.Tensor:
+        """``cross_lane_out`` on this rank's lanes: the src lane's q/k come
+        from its owner when the dst lane is held elsewhere; only the dst
+        lane's owner computes the edit."""
+        so, do, me, lo = self._owners()
+        s, d = self.src_lane - lo, self.dst_lane - lo
+        if so == do:
+            if me != do:
+                return out
+            q_s, k_s = q[s:s + 1], k[s:s + 1]
+        else:
+            q_s, k_s = ((q[s:s + 1], k[s:s + 1]) if me == so else
+                        (q.new_empty((1,) + tuple(q.shape[1:])),
+                         k.new_empty((1,) + tuple(k.shape[1:]))))
+            q_s = comm.broadcast_rows(q_s, so, self.lanes.group)
+            k_s = comm.broadcast_rows(k_s, so, self.lanes.group)
+        if me != do:
+            return out
+        new = self._cross_edit(q_s, k_s, q[d:d + 1], k[d:d + 1],
+                               v[d:d + 1], sdpa_fn)
+        return _substitute(out, d, new)

@@ -48,6 +48,17 @@ def fuse_region_edit(edit: torch.Tensor, region_preds: torch.Tensor,
     return new + REPLACE_RATIO * contrib.sum(dim=0).to(new.dtype)
 
 
+def fuse_region_noise(noise_pred: torch.Tensor, region_preds: torch.Tensor,
+                      masks: torch.Tensor, *, active: bool) -> torch.Tensor:
+    """The reference's 4-row layout [uncond_A, uncond_B, cond_A, cond_B]:
+    rows 1 and 3 (copy B) take ``fuse_region_edit``; copy A's rows stay."""
+    if not active:
+        return noise_pred
+    new = fuse_region_edit(noise_pred[[1, 3]], region_preds, masks,
+                           active=True)
+    return torch.stack([noise_pred[0], new[0], noise_pred[2], new[1]])
+
+
 def make_concept_mask_stack(masks: Sequence[Optional[np.ndarray]],
                             latent_hw: tuple, max_concepts: int,
                             device=None) -> torch.Tensor:

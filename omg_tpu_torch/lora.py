@@ -62,6 +62,15 @@ def stack_loras(trees: Sequence[Optional[dict]], *,
     return out
 
 
+def lane_slice(stacked: Optional[dict], lo: int, hi: int) -> Optional[dict]:
+    """Lanes [lo, hi) of a ``stack_loras`` result: the rows one rank keeps
+    when a batch's lanes split over ranks."""
+    if stacked is None:
+        return None
+    return {k: {role: leaf[lo:hi] for role, leaf in lf.items()}
+            for k, lf in stacked.items()}
+
+
 def merge_loras(trees: Sequence[Optional[dict]],
                 weights: Sequence[float]) -> Optional[dict]:
     """Combine adapters by rank concatenation, weights folded into up:

@@ -8,6 +8,12 @@ The forward takes and returns NHWC latents [B, h, w, 4] like the JAX
 ``apply``; inside, the convolutions run NCHW. LoRA (flat dict, see
 ``nn/layers.py``) and P2P control are runtime inputs, so one module
 serves the base lanes and the stacked concept lanes.
+
+``forward(..., seq_group=g)`` runs the spatially split layout of the
+multi-device stage 1: ``sample`` holds this rank's block of latent rows,
+every conv, group norm and self-attention works across the group
+(``nn/layers.py``, ``nn/attention.py``), and the eps of the same rows
+comes back. The time embeddings are computed whole on every rank.
 """
 
 from __future__ import annotations
@@ -33,11 +39,11 @@ class ResnetBlock(nn.Module):
         self.conv_shortcut = (layers.Conv2d(in_ch, out_ch, 1, **kw)
                               if in_ch != out_ch else None)
 
-    def forward(self, x, temb):
-        h = self.conv1(torch.nn.functional.silu(self.norm1(x)))
+    def forward(self, x, temb, seq=None):
+        h = self.conv1(torch.nn.functional.silu(self.norm1(x, seq)), seq)
         t = self.time_emb_proj(torch.nn.functional.silu(temb))
         h = h + t[:, :, None, None].to(h.dtype)
-        h = self.conv2(torch.nn.functional.silu(self.norm2(h)))
+        h = self.conv2(torch.nn.functional.silu(self.norm2(h, seq)), seq)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -70,8 +76,9 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = layers.LayerNorm(dim, **kw)
         self.ff = FeedForward(dim, kw)
 
-    def forward(self, x, context, lora, control):
-        x = x + self.attn1(self.norm1(x), lora=lora, p2p=control)
+    def forward(self, x, context, lora, control, seq=None):
+        x = x + self.attn1(self.norm1(x), lora=lora, p2p=control,
+                           seq_group=seq)
         x = x + self.attn2(self.norm2(x), context, lora=lora, p2p=control)
         return x + self.ff(self.norm3(x), lora)
 
@@ -86,12 +93,12 @@ class Transformer2DModel(nn.Module):
              for _ in range(depth)])
         self.proj_out = layers.Linear(dim, dim, **kw)
 
-    def forward(self, x, context, lora, control):
+    def forward(self, x, context, lora, control, seq=None):
         b, c, hh, ww = x.shape
-        h = self.norm(x).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
+        h = self.norm(x, seq).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         h = self.proj_in(h, lora)
         for blk in self.transformer_blocks:
-            h = blk(h, context, lora, control)
+            h = blk(h, context, lora, control, seq)
         h = self.proj_out(h, lora)
         return h.reshape(b, hh, ww, c).permute(0, 3, 1, 2) + x
 
@@ -202,39 +209,42 @@ class UNet2DConditionModel(nn.Module):
     def forward(self, sample: torch.Tensor, timestep,
                 encoder_hidden_states: torch.Tensor, *,
                 text_embeds: torch.Tensor, time_ids: torch.Tensor,
-                lora: Optional[dict] = None, control=None) -> torch.Tensor:
-        """sample: [B, h, w, 4] NHWC latents -> eps prediction, same shape."""
-        ctx = encoder_hidden_states
+                lora: Optional[dict] = None, control=None,
+                seq_group=None) -> torch.Tensor:
+        """sample: [B, h, w, 4] NHWC latents -> eps prediction, same shape.
+        ``seq_group``: sample is this rank's block of rows of the latent
+        (``parallel.comm.Group``, equal blocks in group order)."""
+        ctx, seq = encoder_hidden_states, seq_group
         temb = self.time_embeddings(timestep, text_embeds, time_ids)
-        x = self.conv_in(sample.permute(0, 3, 1, 2))
+        x = self.conv_in(sample.permute(0, 3, 1, 2), seq)
         residuals = [x]
         for blk in self.down_blocks:
             for ri, res in enumerate(blk.resnets):
-                x = res(x, temb)
+                x = res(x, temb, seq)
                 if len(blk.attentions):
-                    x = blk.attentions[ri](x, ctx, lora, control)
+                    x = blk.attentions[ri](x, ctx, lora, control, seq)
                 residuals.append(x)
             if hasattr(blk, "downsamplers"):
-                x = blk.downsamplers[0].conv(x)
+                x = blk.downsamplers[0].conv(x, seq)
                 residuals.append(x)
 
         mid = self.mid_block
-        x = mid.resnets[0](x, temb)
+        x = mid.resnets[0](x, temb, seq)
         if len(mid.attentions):
-            x = mid.attentions[0](x, ctx, lora, control)
-        x = mid.resnets[1](x, temb)
+            x = mid.attentions[0](x, ctx, lora, control, seq)
+        x = mid.resnets[1](x, temb, seq)
 
         for blk in self.up_blocks:
             for ri, res in enumerate(blk.resnets):
                 x = torch.cat([x, residuals.pop().to(x.dtype)], dim=1)
-                x = res(x, temb)
+                x = res(x, temb, seq)
                 if len(blk.attentions):
-                    x = blk.attentions[ri](x, ctx, lora, control)
+                    x = blk.attentions[ri](x, ctx, lora, control, seq)
             if hasattr(blk, "upsamplers"):
-                x = blk.upsamplers[0].conv(layers.upsample_nearest_2x(x))
+                x = blk.upsamplers[0].conv(layers.upsample_nearest_2x(x), seq)
 
-        x = torch.nn.functional.silu(self.conv_norm_out(x))
-        return self.conv_out(x).permute(0, 2, 3, 1)
+        x = torch.nn.functional.silu(self.conv_norm_out(x, seq))
+        return self.conv_out(x, seq).permute(0, 2, 3, 1)
 
 
 def init_params(generator: torch.Generator, cfg: UNetConfig,

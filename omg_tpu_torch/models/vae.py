@@ -5,6 +5,10 @@ The OMG path only decodes, so only the decoder side and
 state_dict. ``decode`` takes NHWC latents and returns NHWC images in
 [-1, 1], computed in fp32. The mid-block attention (1 head x 512 dims)
 runs the plain attention path, as the JAX gate routes it.
+
+``decode(..., seq_group=g)`` decodes this rank's block of latent rows into
+its block of image rows: halo convs, group norms over the group and the
+mid-block attention on K/V gathered over it (``nn/``).
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from torch import nn
 
 from omg_tpu_torch.config import VAEConfig
 from omg_tpu_torch.nn import layers
-from omg_tpu_torch.nn.attention import sdpa
+from omg_tpu_torch.nn.attention import sdpa, seq_sharded_sdpa
 
 
 class ResnetBlock(nn.Module):
@@ -27,9 +31,9 @@ class ResnetBlock(nn.Module):
         self.conv_shortcut = (layers.Conv2d(in_ch, out_ch, 1, **kw)
                               if in_ch != out_ch else None)
 
-    def forward(self, x):
-        h = self.conv1(torch.nn.functional.silu(self.norm1(x)))
-        h = self.conv2(torch.nn.functional.silu(self.norm2(h)))
+    def forward(self, x, seq=None):
+        h = self.conv1(torch.nn.functional.silu(self.norm1(x, seq)), seq)
+        h = self.conv2(torch.nn.functional.silu(self.norm2(h, seq)), seq)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -46,12 +50,14 @@ class AttentionBlock(nn.Module):
         self.to_v = layers.Linear(ch, ch, **kw)
         self.to_out = nn.ModuleList([layers.Linear(ch, ch, **kw)])
 
-    def forward(self, x):
+    def forward(self, x, seq=None):
         b, c, hh, ww = x.shape
-        h = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
+        h = self.group_norm(x, seq).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         q, k, v = (lin(h)[:, None] for lin in (self.to_q, self.to_k,
                                                  self.to_v))
-        out = self.to_out[0](sdpa(q, k, v)[:, 0])
+        att = (sdpa(q, k, v) if seq is None or seq.size == 1
+               else seq_sharded_sdpa(q, k, v, seq))
+        out = self.to_out[0](att[:, 0])
         return x + out.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
 
 
@@ -83,17 +89,18 @@ class Decoder(nn.Module):
         self.conv_norm_out = layers.GroupNorm(rev[-1], g, **kw)
         self.conv_out = layers.Conv2d(rev[-1], cfg.out_channels, 3, **kw)
 
-    def forward(self, x):
-        x = self.conv_in(x)
+    def forward(self, x, seq=None):
+        x = self.conv_in(x, seq)
         mid = self.mid_block
-        x = mid.resnets[1](mid.attentions[0](mid.resnets[0](x)))
+        x = mid.resnets[1](mid.attentions[0](mid.resnets[0](x, seq), seq),
+                           seq)
         for blk in self.up_blocks:
             for res in blk.resnets:
-                x = res(x)
+                x = res(x, seq)
             if hasattr(blk, "upsamplers"):
-                x = blk.upsamplers[0].conv(layers.upsample_nearest_2x(x))
-        x = torch.nn.functional.silu(self.conv_norm_out(x))
-        return self.conv_out(x)
+                x = blk.upsamplers[0].conv(layers.upsample_nearest_2x(x), seq)
+        x = torch.nn.functional.silu(self.conv_norm_out(x, seq))
+        return self.conv_out(x, seq)
 
 
 class AutoencoderKL(nn.Module):
@@ -107,12 +114,15 @@ class AutoencoderKL(nn.Module):
         self.post_quant_conv = layers.Conv2d(
             cfg.latent_channels, cfg.latent_channels, 1, **kw)
 
-    def decode(self, latents: torch.Tensor) -> torch.Tensor:
-        """Scaled latents [B, h, w, 4] -> images [B, 8h, 8w, 3] in [-1, 1]."""
+    def decode(self, latents: torch.Tensor,
+               seq_group=None) -> torch.Tensor:
+        """Scaled latents [B, h, w, 4] -> images [B, 8h, 8w, 3] in [-1, 1].
+        ``seq_group``: latents hold this rank's block of rows, and so does
+        the image."""
         cfg = self.cfg
         x = (latents.float() / cfg.scaling_factor).to(cfg.dtype)
         x = self.post_quant_conv(x.permute(0, 3, 1, 2))
-        return self.decoder(x).permute(0, 2, 3, 1)
+        return self.decoder(x, seq_group).permute(0, 2, 3, 1)
 
 
 def init_params(generator: torch.Generator, cfg: VAEConfig,

@@ -6,6 +6,13 @@ and an optional P2P step control in the O(N²)-free lane form
 (``control/p2p.py``): q/k lane substitution before self-attention, the
 cross-attention output rewrite after it. The IP-Adapter branch comes with
 the InstantID slice.
+
+Under a ``seq_group`` (the spatially split stage 1 and VAE decode) each
+rank holds one block of the token sequence. Self-attention then
+all-gathers K/V over the group and runs its local query rows against
+them: K1b on a CUDA device where the sequence-local gate admits the
+shape, the plain version otherwise. Cross-attention reads the whole
+(replicated) context and stays local.
 """
 
 from __future__ import annotations
@@ -18,6 +25,12 @@ from torch import nn
 
 from omg_tpu_torch.nn import layers
 from omg_tpu_torch.ops import flash_attention as fa
+from omg_tpu_torch.parallel import comm
+
+# Sequence-sharded self-attentions that ran the plain version (CPU
+# tensors, or shapes the sequence-local gate refuses); K1b launches are
+# counted in ops.flash_attention.SEQ_LAUNCHES.
+SEQ_PLAIN_CALLS = 0
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -36,6 +49,22 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scores = scores + mask
     probs = torch.softmax(scores, dim=-1)
     return torch.matmul(probs.to(v.dtype), v)
+
+
+def seq_sharded_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     group: comm.Group) -> torch.Tensor:
+    """Self-attention over a sequence split into equal blocks over
+    ``group``; q/k/v: this rank's block [B, H, N/S, D]. The gate reads the
+    global length (local x shards), as the JAX ``sdpa`` under
+    ``seq_sharded`` does."""
+    global SEQ_PLAIN_CALLS
+    n_global = k.shape[2] * group.size
+    if (q.shape[2] * group.size == n_global
+            and fa.use_flash(q.shape[2], n_global, q.shape[3], q.device,
+                             seq_local=True)):
+        return fa.flash_attention_seq_sharded(q, k, v, group=group)
+    SEQ_PLAIN_CALLS += 1
+    return sdpa(q, comm.all_gather(k, 2, group), comm.all_gather(v, 2, group))
 
 
 def _plus_lora(y: torch.Tensor, lin: layers.Linear, inp: torch.Tensor,
@@ -66,7 +95,10 @@ class Attention(nn.Module):
         return t.unflatten(-1, (self.num_heads, -1)).transpose(1, 2)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                *, lora: Optional[dict] = None, p2p=None) -> torch.Tensor:
+                *, lora: Optional[dict] = None, p2p=None,
+                seq_group: Optional[comm.Group] = None) -> torch.Tensor:
+        """``seq_group``: x holds this rank's block of the token sequence
+        (self-attention gathers K/V over the group)."""
         is_cross = context is not None
         ctx = context if is_cross else x
         fusable = (self.to_q.bias is None and self.to_k.bias is None
@@ -95,9 +127,15 @@ class Attention(nn.Module):
             self._split_heads(v)
         p2p_active = p2p is not None and p2p.wants(is_cross=is_cross,
                                                   num_queries=x.shape[1])
+        if p2p_active and seq_group is not None:
+            raise ValueError("P2P control runs on whole lanes; the sequence-"
+                             "split layout (stage 1) has none")
         if p2p_active and not is_cross:
             qh, kh = p2p.self_lane_qk(qh, kh)
-        out = sdpa(qh, kh, vh)
+        if seq_group is not None and seq_group.size > 1 and not is_cross:
+            out = seq_sharded_sdpa(qh, kh, vh, seq_group)
+        else:
+            out = sdpa(qh, kh, vh)
         if p2p_active and is_cross:
             out = p2p.cross_lane_out(out, qh, kh, vh, sdpa)
 

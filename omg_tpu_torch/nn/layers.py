@@ -15,6 +15,14 @@ the path of the ``Linear`` it applies to (diffusers naming, e.g.
 module serves the base lanes and every concept lane. A per-lane leaf has
 ``down [B, in, r]``, ``up [B, r, out]`` and ``scale [B]`` (a batched
 matmul: lane b runs adapter b).
+
+Spatial split (the multi-device modes): ``Conv2d`` and ``GroupNorm`` take
+an optional ``seq_group`` (``parallel.comm.Group``) whose ranks each hold
+an equal block of consecutive rows of the H axis, in group order. A 3x3
+convolution then reads its neighbours' edge rows (``comm.halo_rows``)
+and group-norm statistics are summed over the group; ``Linear``,
+``LayerNorm`` and ``upsample_nearest_2x`` act on each token or row alone
+and stay local.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from omg_tpu_torch.parallel import comm
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -67,7 +77,14 @@ class Linear(nn.Module):
 
 class Conv2d(nn.Module):
     """NCHW conv; ``padding`` defaults to kernel // 2 (the JAX package's
-    symmetric padding)."""
+    symmetric padding).
+
+    Under a ``seq_group`` the rank's rows are padded with the neighbours'
+    halo rows instead of zeros: one above and one below for a 3x3 stride-1
+    conv, one above for the stride-2 downsample (its output row i reads
+    input rows 2i-1..2i+1). A stride-2 split needs an even number of local
+    rows, so that every block starts on an even global row; an odd one
+    would silently shift the output and raises instead."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, *,
                  stride: int = 1, padding: Optional[int] = None,
@@ -78,13 +95,32 @@ class Conv2d(nn.Module):
         self.stride = stride
         self.padding = kernel // 2 if padding is None else padding
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        stride=self.stride, padding=self.padding)
+    def forward(self, x: torch.Tensor,
+                seq_group: Optional[comm.Group] = None) -> torch.Tensor:
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        k = self.weight.shape[-1]
+        if seq_group is None or seq_group.size == 1 or k == 1:
+            return F.conv2d(x, w, b, stride=self.stride, padding=self.padding)
+        if (k, self.padding) != (3, 1) or self.stride not in (1, 2):
+            raise ValueError(f"no row split for a {k}x{k} conv with padding "
+                             f"{self.padding} and stride {self.stride}")
+        if self.stride == 2 and x.shape[-2] % 2:
+            raise ValueError(f"a stride-2 conv over {x.shape[-2]} local rows: "
+                             "the split must give every rank an even count")
+        above, below = comm.halo_rows(x, seq_group, 1)
+        rows = [above, x, below] if self.stride == 1 else [above, x]
+        return F.conv2d(torch.cat(rows, dim=-2), w, b, stride=self.stride,
+                        padding=(0, self.padding))
 
 
 class GroupNorm(nn.Module):
-    """GroupNorm over the channel axis of NCHW data, statistics in fp32."""
+    """GroupNorm over the channel axis of NCHW data, statistics in fp32.
+
+    Under a ``seq_group`` the statistics cover every rank's rows: two
+    passes, each summed over the group (the mean, then the mean squared
+    deviation from it), divided by the global element count; the same
+    biased variance as JAX's ``grouped.var``. A one-pass
+    E[x^2] - E[x]^2 would cancel catastrophically at small variance."""
 
     def __init__(self, dim: int, num_groups: int, *, eps: float = 1e-5,
                  dtype=torch.float32, device=None):
@@ -94,9 +130,23 @@ class GroupNorm(nn.Module):
         self.num_groups = num_groups
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+    def forward(self, x: torch.Tensor,
+                seq_group: Optional[comm.Group] = None) -> torch.Tensor:
+        if seq_group is None or seq_group.size == 1:
+            return F.group_norm(x.float(), self.num_groups,
+                                self.weight.float(), self.bias.float(),
+                                self.eps).to(x.dtype)
+        xf = x.float()
+        grouped = xf.reshape(x.shape[0], self.num_groups, -1)
+        count = grouped.shape[-1] * seq_group.size
+        mean = comm.all_reduce_sum(grouped.sum(-1), seq_group) / count
+        dev = grouped - mean[..., None]
+        var = comm.all_reduce_sum((dev * dev).sum(-1), seq_group) / count
+        normed = (dev * torch.rsqrt(var + self.eps)[..., None]).reshape(xf.shape)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        out = (normed * self.weight.float().reshape(shape)
+               + self.bias.float().reshape(shape))
+        return out.to(x.dtype)
 
 
 class LayerNorm(nn.Module):

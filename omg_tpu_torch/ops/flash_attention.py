@@ -14,7 +14,15 @@ Beside the kernel:
   * ``flash_attention`` dispatches by the tensor's device: a CUDA tensor
     launches the kernel or raises, a CPU tensor takes the plain version.
   * ``use_flash`` — the JAX gate's shape rule, decided by device.
-  * ``LAUNCHES`` — how many times the kernel was launched.
+  * ``LAUNCHES`` — how many times the kernel was launched as K1.
+
+K1b, the sequence-sharded form (``flash_attention_seq_sharded`` in the
+JAX package: a local block of query rows against K/V all-gathered over
+the ranks that split the sequence), is the same kernel launched with
+Nq < Nk: ``flash_attention_seq_local`` launches it on gathered K/V and
+counts ``SEQ_LAUNCHES``; ``flash_attention_seq_sharded`` gathers K/V over
+a ``parallel.comm.Group`` first. ``flash_attention_ref`` is the plain
+version of both.
 
 The kernel is compiled with ``nvcc`` from the package's own source into
 ``build/omg_tpu_torch/`` beside the package, at first use, and loaded with
@@ -34,8 +42,13 @@ import time
 
 import torch
 
-# Kernel launches since import (chip_smoke.py zeroes it around a run).
+from omg_tpu_torch.parallel import comm
+
+# Kernel launches since import, as K1 (square self-attention) and as K1b
+# (a sequence shard's query rows against the gathered K/V); chip_smoke.py
+# zeroes both around a run.
 LAUNCHES = 0
+SEQ_LAUNCHES = 0
 
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "omg_tpu_torch"
@@ -118,8 +131,9 @@ def _check_operand(name: str, t: torch.Tensor, shape: tuple) -> None:
                          f"(strides {t.stride()})")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            seq_local: bool) -> torch.Tensor:
+    global LAUNCHES, SEQ_LAUNCHES
     b, h, nq, d = q.shape
     nk = k.shape[2]
     if d not in HEAD_DIMS:
@@ -144,7 +158,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {err}")
-    LAUNCHES += 1
+    if seq_local:
+        SEQ_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return o
 
 
@@ -155,10 +172,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     CUDA tensors launch the Hopper kernel (bf16, D in {64, 128}, any
     Nq/Nk) or raise; CPU tensors take ``flash_attention_ref``."""
     if q.device.type == "cuda":
-        return _launch(q, k, v)
+        return _launch(q, k, v, seq_local=False)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def flash_attention_seq_local(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor) -> torch.Tensor:
+    """K1b: a sequence shard's query rows q [B, H, Nq, D] against the whole
+    sequence's K/V [B, H, Nk, D], Nq < Nk (the kernel's grid runs over the
+    query rows and its loop over the keys, so unequal lengths are native).
+
+    CUDA tensors launch the kernel (counted in ``SEQ_LAUNCHES``) or raise;
+    CPU tensors take ``flash_attention_ref``."""
+    if q.device.type == "cuda":
+        return _launch(q, k, v, seq_local=True)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v)
+    raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def flash_attention_seq_sharded(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *,
+                                group: comm.Group) -> torch.Tensor:
+    """Self-attention with the token axis split over ``group`` (JAX
+    ``flash_attention_seq_sharded``): each rank holds the query, key and
+    value rows of its block [B, H, N/S, D]; K and V are all-gathered along
+    N (the one collective of the layer) and K1b runs the local query rows
+    against them. Exact: every query row sees every key, so no softmax
+    state crosses ranks."""
+    k = comm.all_gather(k, 2, group)
+    v = comm.all_gather(v, 2, group)
+    return flash_attention_seq_local(q, k, v)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -166,13 +212,19 @@ def _round_up(n: int, m: int) -> int:
 
 
 def use_flash(nq: int, nk: int, head_dim: int,
-              device: torch.device | str) -> bool:
+              device: torch.device | str, *, seq_local: bool = False) -> bool:
     """Route large dense self-attention to the kernel on a CUDA device.
 
     The JAX gate's shape rule (``omg_tpu/ops/flash_attention.py``
     ``use_flash``): square, ``round_up(N, 128) >= 1024``, head_dim 64 or
     128. Cross-attention (77 keys), CLIP's masked attention and the VAE's
-    512-dim head stay on the plain path; off CUDA everything does."""
+    512-dim head stay on the plain path; off CUDA everything does.
+
+    ``seq_local``: ``nq`` is one shard's block of query rows of a
+    sequence-sharded self-attention (nq < nk); the rule is then
+    ``nq >= 256`` and head_dim 64 or 128."""
     if torch.device(device).type != "cuda":
         return False
+    if seq_local:
+        return nq >= 256 and head_dim in HEAD_DIMS
     return nq == nk and _round_up(nq, 128) >= 1024 and head_dim in HEAD_DIMS

@@ -1,4 +1,4 @@
-"""OMG two-stage multi-concept denoise, exact single-card path (port of
+"""OMG two-stage multi-concept denoise, exact path (port of
 ``omg_tpu/pipelines/multiconcept.py``).
 
 Two exact identities shape the path, as in the JAX package:
@@ -14,9 +14,23 @@ Two exact identities shape the path, as in the JAX package:
      P2P reading lane 0 and editing lane 2. Concept lanes carry the
      lane-stacked LoRA deltas.
 
-ControlNet, IP-Adapter, DeepCache, concept crop strips, lane sharding and
-the reference-layout 4-row program are later slices; asking for them
-raises ``NotImplementedError``.
+Stage 2 also has the reference-layout 4+2K-lane program
+(``_denoise_mc_range``): both latent copies as [uncond_A, uncond_B,
+cond_A, cond_B] plus the 2K concept lanes, P2P reading lane 2 and editing
+lane 3. It runs when there is no recorded trajectory, and it is the stage
+2 of the multi-device latency mode, where its lanes split over the ranks.
+
+Multi-device latency mode (``OMG(mesh=...)``), on ``parallel/``:
+  * stage 1 takes a ``Spatial`` layout: the CFG lanes [uncond, cond] over
+    the mesh's data axis and the latent's H over its model axis; every
+    conv, group norm and self-attention works across the model axis
+    (halo rows, summed statistics, K1b on K/V gathered over the ranks);
+  * stage 2's 4+2K lanes split over all ranks (``lane_sharding``); the
+    eps of every lane are gathered after each forward, so region fusion,
+    CFG and the Euler step run the same on every rank.
+
+ControlNet, IP-Adapter, DeepCache and the concept crop strips are later
+slices; asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ import torch
 from omg_tpu_torch import lora as lora_lib
 from omg_tpu_torch.control import regions
 from omg_tpu_torch.diffusion import sampling, schedulers
+from omg_tpu_torch.parallel import comm, mesh as mesh_lib
 from omg_tpu_torch.pipelines import sdxl
 
 
@@ -107,19 +122,85 @@ def duplicate_latents(latents_single: torch.Tensor) -> torch.Tensor:
     return torch.cat([latents_single, latents_single])
 
 
+class Spatial(NamedTuple):
+    """Stage 1's multi-device layout over ``mesh`` (the JAX
+    ``spatial_sharding``): the two CFG lanes [uncond, cond] split over the
+    data axis and, unless ``seq`` is False (the lane-only layout), the
+    latent's H axis over the model axis."""
+    mesh: mesh_lib.Mesh
+    seq: bool = True
+
+
+def _spatial_ctx(spatial: Spatial) -> tuple:
+    """(lanes, seq_group) of this rank under ``spatial``: the ``Split`` of
+    the CFG lanes over the data axis, and the group splitting H (None in
+    the lane-only layout, where every rank of a data row runs the whole
+    H)."""
+    m = spatial.mesh
+    if m.data > 2:
+        raise ValueError(f"stage 1 has 2 CFG lanes; a data axis of {m.data} "
+                         "would leave ranks without one")
+    seq = m.model_group if spatial.seq and m.model > 1 else None
+    return mesh_lib.data_sharded(m, 2), seq
+
+
+def _denoise_cfg_range_spatial(sched: schedulers.Schedule, unet,
+                               latents: torch.Tensor,
+                               state: schedulers.SchedulerState,
+                               embeds2, tembeds2, tids2, guidance, *,
+                               i0: int, i1: int, spatial: Spatial) -> tuple:
+    """``_denoise_cfg_range`` under a ``Spatial`` layout. Each rank runs
+    its CFG lanes on its block of latent rows; the eps of both lanes are
+    gathered over the data axis, so CFG and the Euler step run on the
+    rank's rows, and the rows are gathered over the model axis at the
+    end: every rank returns the whole latents."""
+    lanes, seq = _spatial_ctx(spatial)
+    lo, hi = lanes.lo, lanes.hi
+    x = latents
+    if seq is not None:
+        h = latents.shape[1]
+        if h % seq.size:
+            raise ValueError(f"{h} latent rows do not split over "
+                             f"{seq.size} ranks")
+        rows = h // seq.size
+        x = latents[:, seq.index * rows:(seq.index + 1) * rows]
+    st = state
+    for i in range(i0, i1):
+        t = int(sched.timesteps[i])
+        lin = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
+        eps = unet(lin[lo:hi], t, embeds2[lo:hi], text_embeds=tembeds2[lo:hi],
+                   time_ids=tids2[lo:hi], seq_group=seq)
+        eps = comm.all_gather(eps, 0, lanes.group, sizes=lanes.sizes)
+        guided = sampling.cfg_combine(eps, guidance)
+        x, st = schedulers.step(sched, st, guided, i, x)
+    if seq is not None:
+        x = comm.all_gather(x, 1, seq)
+    return x, st
+
+
 def _denoise_cfg_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                        unet, latents: torch.Tensor,
                        state: schedulers.SchedulerState,
                        base_inputs: BaseInputs, *, i0: int, i1: int,
-                       record_traj: bool = False) -> tuple:
+                       record_traj: bool = False,
+                       spatial: Optional[Spatial] = None) -> tuple:
     """Plain b=1 CFG denoise over steps [i0, i1) on rows [uncond, cond].
 
     ``record_traj`` also returns each step's input latent stacked
-    [i1-i0, 1, h, w, 4] (copy A's stage-2 lane inputs)."""
+    [i1-i0, 1, h, w, 4] (copy A's stage-2 lane inputs). ``spatial``: the
+    multi-device layout (``_denoise_cfg_range_spatial``); it records no
+    trajectory."""
     rows = [0, 2]
     embeds2 = base_inputs.prompt_embeds[rows]
     tembeds2 = base_inputs.text_embeds[rows]
     tids2 = base_inputs.time_ids[rows]
+    if spatial is not None:
+        if record_traj:
+            raise ValueError("the spatial stage-1 layout records no "
+                             "trajectory (its stage 2 is the 4+2K program)")
+        return _denoise_cfg_range_spatial(
+            sched, unet, latents, state, embeds2, tembeds2, tids2,
+            base_inputs.guidance_scale, i0=i0, i1=i1, spatial=spatial)
     traj = []
     x, st = latents, state
     for i in range(i0, i1):
@@ -176,17 +257,82 @@ def _denoise_mc_range_traj(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     return x
 
 
+def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
+                      unet, latents: torch.Tensor,
+                      state: schedulers.SchedulerState,
+                      base_inputs: BaseInputs, controller, concept_inputs,
+                      concept_loras, masks: torch.Tensor, *, i0: int,
+                      fusion_start: int = regions.FUSION_START_STEP,
+                      lane_sharding: Optional[comm.Group] = None
+                      ) -> torch.Tensor:
+    """Stage-2 loop over steps [i0, S) on the reference's 4+2K lanes:
+    [uncond_A, uncond_B, cond_A, cond_B] from both latent copies, then
+    concept k's (uncond, cond) pair on lanes 4+2k, 4+2k+1, fed copy B's
+    latent (row 3). One UNet forward per step; P2P reads lane 2 and edits
+    lane 3. latents: [2, h, w, 4] (copy A, copy B) -> the same, final.
+
+    ``lane_sharding``: the group whose ranks split the 4+2K lanes
+    (``tensor_split`` order; at least one lane each). Each rank keeps the
+    conditioning and LoRA rows of its lanes and runs them; the eps of all
+    lanes are then gathered, so region fusion, CFG and the Euler step run
+    the same on every rank and every rank carries the same latents."""
+    K = len(concept_inputs)
+    if K == 0 and lane_sharding is not None:
+        raise ValueError(
+            "lane_sharding requires at least one concept (zero-concept "
+            "stage 2 is a plain CFG denoise; run it unsharded)")
+    embeds = torch.cat([base_inputs.prompt_embeds]
+                       + [ci.prompt_embeds for ci in concept_inputs])
+    tembeds = torch.cat([base_inputs.text_embeds]
+                        + [ci.text_embeds for ci in concept_inputs])
+    tids = torch.cat([base_inputs.time_ids]
+                     + [ci.time_ids for ci in concept_inputs])
+    lane_lora = (_concept_lane_conditioning(concept_inputs, concept_loras,
+                                            4)[3] if K else None)
+    n = 4 + 2 * K
+    lanes = (mesh_lib.Split(n, lane_sharding) if lane_sharding is not None
+             else None)
+    lo, hi = (lanes.lo, lanes.hi) if lanes is not None else (0, n)
+    embeds, tembeds, tids = embeds[lo:hi], tembeds[lo:hi], tids[lo:hi]
+    lane_lora = lora_lib.lane_slice(lane_lora, lo, hi)
+    masks = masks.to(latents.dtype)
+    x, st = latents, state
+    for i in range(i0, sched.num_steps):
+        t = int(sched.timesteps[i])
+        lin4 = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
+        rows = torch.cat([lin4, lin4[3:4].expand((2 * K,) + lin4.shape[1:])])
+        ctrl = (controller.at_step(i, lanes=lanes)
+                if controller is not None else None)
+        eps_all = unet(rows[lo:hi], t, embeds, text_embeds=tembeds,
+                       time_ids=tids, lora=lane_lora, control=ctrl)
+        if lanes is not None:
+            eps_all = comm.all_gather(eps_all, 0, lane_sharding,
+                                      sizes=lanes.sizes)
+        region_preds = eps_all[4:].reshape((K, 2) + tuple(x.shape[1:]))
+        eps = regions.fuse_region_noise(eps_all[:4], region_preds, masks,
+                                        active=i > fusion_start)
+        guided = sampling.cfg_combine(eps, base_inputs.guidance_scale)
+        x, st = schedulers.step(sched, st, guided, i, x)
+    return x
+
+
 def sample_stage1_cached(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                          unet, *, generator: Optional[torch.Generator],
                          height: int, width: int, base_inputs: BaseInputs,
                          fusion_start: int = regions.FUSION_START_STEP,
                          base_controlnets: Sequence = (),
+                         spatial: Optional[Spatial] = None,
+                         record_trajectory: bool = True,
                          initial_noise=None,
                          cache_interval: int = 0) -> tuple:
     """Stage 1 on the dedup fast path -> ([2, h, w, 4] latents, StageCache).
 
     ``initial_noise`` ([1, h, w, 4] unit noise) replaces the draw from
-    ``generator``, so two implementations can be fed the same noise."""
+    ``generator``, so two implementations can be fed the same noise.
+    ``spatial``: the multi-device layout (every rank draws the same noise
+    and gets the whole latents back). ``record_trajectory=False`` skips
+    the suffix's per-step store (cache.a_traj is None): the 4+2K stage 2
+    never reads it."""
     if base_controlnets:
         raise not_ported("ControlNet", "ControlNet")
     if cache_interval > 1:
@@ -202,10 +348,12 @@ def sample_stage1_cached(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     state = schedulers.init_state()
     boundary = min(fusion_start + 1, sched.num_steps)
     lat_b, st_b = _denoise_cfg_range(cfg, sched, unet, lat, state,
-                                     base_inputs, i0=0, i1=boundary)
-    lat_end, _, traj = _denoise_cfg_range(
+                                     base_inputs, i0=0, i1=boundary,
+                                     spatial=spatial)
+    out = _denoise_cfg_range(
         cfg, sched, unet, lat_b, st_b, base_inputs, i0=boundary,
-        i1=sched.num_steps, record_traj=True)
+        i1=sched.num_steps, record_traj=record_trajectory, spatial=spatial)
+    lat_end, traj = out[0], (out[2] if record_trajectory else None)
     cache = StageCache(lat_b, st_b, a_traj=traj, a_final=lat_end)
     return duplicate_latents(lat_end), cache
 
@@ -221,26 +369,35 @@ def sample_stage2_resumed(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                           concept_controlnets: Sequence = (),
                           lane_sharding=None, concept_crop: bool = False,
                           cache_interval: int = 0) -> torch.Tensor:
-    """Stage 2 resumed from the cached boundary -> [2, h, w, 4] on the
-    3+2K-lane trajectory program (copy A's final latent is stage 1's)."""
+    """Stage 2 resumed from the cached boundary -> [2, h, w, 4].
+
+    With copy A's recorded trajectory, at least one concept and no lane
+    sharding, the 3+2K-lane trajectory program runs (copy A's final latent
+    is stage 1's). Otherwise the reference-layout 4+2K program carries
+    both copies from the boundary; ``lane_sharding`` (a
+    ``parallel.comm.Group``, multi-device latency mode) splits its lanes
+    over the group's ranks."""
     if concept_ip_adapters:
         raise not_ported("the IP-Adapter branch", "InstantID")
     if base_controlnets or any(c is not None for c in concept_controlnets):
         raise not_ported("ControlNet", "ControlNet")
-    if lane_sharding is not None:
-        raise not_ported("lane sharding", "parallel/")
     if concept_crop:
         raise not_ported("concept_crop strips", "approximate modes")
     if cache_interval > 1:
         raise not_ported("DeepCache", "approximate modes")
-    if (cache.a_traj is None or cache.a_traj.shape[0] == 0
-            or len(concept_inputs) == 0):
-        raise not_ported("the reference-layout 4-row stage-2 program "
-                          "(no trajectory or no concepts)",
-                          "the 4-row program")
     boundary = min(fusion_start + 1, sched.num_steps)
-    lat_b = _denoise_mc_range_traj(
-        cfg, sched, unet, cache.latents, cache.sched_state, cache.a_traj,
+    if (cache.a_traj is not None and cache.a_traj.shape[0] > 0
+            and lane_sharding is None and len(concept_inputs) > 0):
+        lat_b = _denoise_mc_range_traj(
+            cfg, sched, unet, cache.latents, cache.sched_state, cache.a_traj,
+            base_inputs, controller, tuple(concept_inputs),
+            tuple(concept_loras), masks, i0=boundary,
+            fusion_start=fusion_start)
+        return torch.cat([cache.a_final, lat_b])
+    # Both copies from the boundary latents. Euler keeps no per-row
+    # history, so the doubled scheduler state is the state itself.
+    return _denoise_mc_range(
+        cfg, sched, unet, duplicate_latents(cache.latents), cache.sched_state,
         base_inputs, controller, tuple(concept_inputs), tuple(concept_loras),
-        masks, i0=boundary, fusion_start=fusion_start)
-    return torch.cat([cache.a_final, lat_b])
+        masks, i0=boundary, fusion_start=fusion_start,
+        lane_sharding=lane_sharding)

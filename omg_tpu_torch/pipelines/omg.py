@@ -3,9 +3,15 @@
 
 ``OMG.generate`` encodes the prompts, runs stage 1, asks the mask
 provider for per-concept masks on the stage-1 image, runs stage 2 with
-region fusion and decodes. This slice runs the two-concept LoRA path
-with Euler; the ControlNet, InstantID, DeepCache and scheduler options of
-the JAX signature raise ``NotImplementedError`` until their slices land.
+region fusion and decodes. It runs the two-concept LoRA path with Euler;
+the ControlNet, InstantID, DeepCache and scheduler options of the JAX
+signature raise ``NotImplementedError`` until their slices land.
+
+``OMG(mesh=...)`` is the multi-device latency mode: every rank of the
+mesh builds the engine over its own copy of the same weights and calls
+``generate`` with the same arguments; stage 1 runs spatially split, stage
+2 lane-split and the decode H-split (``pipelines/multiconcept.py``), and
+every rank returns the same images.
 """
 
 from __future__ import annotations
@@ -21,10 +27,21 @@ from omg_tpu_torch import lora as lora_lib
 from omg_tpu_torch import rewrite
 from omg_tpu_torch.control import p2p, regions as regions_lib
 from omg_tpu_torch.diffusion import schedulers
+from omg_tpu_torch.parallel import mesh as mesh_lib
 from omg_tpu_torch.pipelines import multiconcept, sdxl
 
 # mask_provider(image_uint8 [H, W, 3], class_text) -> [H, W] {0,1} or None
 MaskProvider = Callable[[np.ndarray, str], Optional[np.ndarray]]
+
+
+def seq_splits(cfg: sdxl.SDXLConfig, height: int, n: int) -> bool:
+    """Whether stage 1 may split the latent's H over ``n`` ranks: only
+    while the deepest UNet level's rows still divide by n, so that every
+    stride-2 block starts on an even row. Other canvases (the 832, 1216
+    and 1344 buckets on a 4-way axis) take the lane-only layout: the CFG
+    lanes over the data axis, H whole."""
+    depth = len(cfg.unet.block_out_channels) - 1
+    return ((height // 8) >> depth) % n == 0
 
 
 @dataclasses.dataclass
@@ -76,10 +93,23 @@ class OMG:
     concept_lora_scale: float = 0.8
     # set_adapters([char, style], [0.7, 0.5]) mix.
     char_style_weights: tuple = (0.7, 0.5)
+    # Multi-device latency layout: this rank's view of a (data, model)
+    # grid (parallel.mesh.make_mesh). Stage 1 runs spatially split (CFG
+    # lanes over data, latent H over model, K1b self-attention), stage 2
+    # runs the 4+2K lanes split over all ranks, the decode is H-split.
+    # None = one device.
+    mesh: Optional[mesh_lib.Mesh] = None
 
     @property
     def device(self) -> torch.device:
         return self.params.unet.conv_in.weight.device
+
+    def _check_mesh_weights(self) -> None:
+        """Once per engine: every rank of the mesh holds the same weights
+        on its mesh device (each rank built its own copy)."""
+        if not getattr(self, "_weights_checked", False):
+            mesh_lib.replicated(self.mesh, *self.params)
+            self._weights_checked = True
 
     def encode(self, prompt: str, negative: str,
                te_lora: tuple = (None, None)):
@@ -218,10 +248,19 @@ class OMG:
         clock.lap("encode")
 
         # --- stage 1 (dedup fast path) ---------------------------------
+        lane_sharding = spatial = None
+        if self.mesh is not None:
+            self._check_mesh_weights()
+            lane_sharding = self.mesh.flat
+            spatial = multiconcept.Spatial(
+                self.mesh, seq=seq_splits(self.cfg, height, self.mesh.model))
         lat1, cache = multiconcept.sample_stage1_cached(
             self.cfg, sched, self.params.unet, generator=generator,
             height=height, width=width, base_inputs=base_inputs,
-            fusion_start=fusion_start, initial_noise=initial_noise)
+            fusion_start=fusion_start, spatial=spatial,
+            # the 4+2K stage 2 of the mesh layout never reads it
+            record_trajectory=self.mesh is None,
+            initial_noise=initial_noise)
         clock.lap("stage1")
         img1 = self._decode(lat1)
         clock.lap("decode")
@@ -234,6 +273,9 @@ class OMG:
         clock.lap("masks")
 
         # --- stage 2 ---------------------------------------------------
+        # Under a mesh the spatial stage 1 gathered its rows at the end of
+        # each range, so the stage cache is whole on every rank: the
+        # lane-split stage 2 starts from replicated latents.
         img2 = None
         if any(m is not None for m in masks):
             mask_stack = regions_lib.make_concept_mask_stack(
@@ -243,7 +285,9 @@ class OMG:
                 self.cfg, sched, self.params.unet, cache,
                 base_inputs=base_inputs, controller=controller,
                 concept_inputs=concept_inputs, concept_loras=loras_final,
-                masks=mask_stack, fusion_start=fusion_start)
+                masks=mask_stack, fusion_start=fusion_start,
+                lane_sharding=(lane_sharding if len(region_specs) > 0
+                               else None))
             clock.lap("stage2")
             img2 = self._decode(lat2)
             clock.lap("decode")
@@ -251,5 +295,9 @@ class OMG:
                                 timings=clock.timings)
 
     def _decode(self, latents: torch.Tensor) -> np.ndarray:
-        img = sdxl.decode_latents(self.cfg, self.params.vae, latents)
+        # under a mesh, H splits over every rank when it divides
+        spatial = (self.mesh.flat if self.mesh is not None
+                   and latents.shape[1] % self.mesh.size == 0 else None)
+        img = sdxl.decode_latents(self.cfg, self.params.vae, latents,
+                                  spatial=spatial)
         return (img * 255).to(torch.uint8).cpu().numpy()

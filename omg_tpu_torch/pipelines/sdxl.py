@@ -13,6 +13,7 @@ import torch
 from omg_tpu_torch import config as cfglib
 from omg_tpu_torch.diffusion import schedulers
 from omg_tpu_torch.models import clip, unet, vae
+from omg_tpu_torch.parallel import comm
 
 
 class SDXLParams(NamedTuple):
@@ -83,7 +84,24 @@ def prepare_latents(generator: torch.Generator, batch: int, height: int,
 
 
 def decode_latents(cfg: SDXLConfig, vae_model: vae.AutoencoderKL,
-                   latents: torch.Tensor) -> torch.Tensor:
-    """Latents -> images [B, H, W, 3] in [0, 1], decoded in fp32."""
-    img = vae_model.decode(latents.to(cfg.vae.dtype))
+                   latents: torch.Tensor, *,
+                   spatial: Optional[comm.Group] = None) -> torch.Tensor:
+    """Latents -> images [B, H, W, 3] in [0, 1], decoded in fp32.
+
+    ``spatial``: decode H-split over the group (the mesh latency mode):
+    every rank passes the whole latents, decodes its block of rows (the
+    VAE is convs and one attention, token-parallel with replicated
+    weights) and gets the whole image back, gathered along H."""
+    latents = latents.to(cfg.vae.dtype)
+    if spatial is None or spatial.size == 1:
+        img = vae_model.decode(latents)
+    else:
+        h = latents.shape[1]
+        if h % spatial.size:
+            raise ValueError(f"{h} latent rows do not split over "
+                             f"{spatial.size} ranks")
+        rows = h // spatial.size
+        local = latents[:, spatial.index * rows:(spatial.index + 1) * rows]
+        img = comm.all_gather(vae_model.decode(local, seq_group=spatial), 1,
+                              spatial)
     return torch.clamp(img.float() / 2 + 0.5, 0.0, 1.0)

@@ -11,6 +11,7 @@ logic is testable without any checkpoint.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Protocol, Sequence
 
 import numpy as np
@@ -54,7 +55,11 @@ class HFCLIPTokenizer:
 class ToyTokenizer:
     """Whitespace + hash tokenizer for tests: deterministic, vocab-bounded,
     CLIP-shaped (BOS=start, EOS=vocab-1=pad, EOS is the max id so argmax
-    pooling finds the first EOS exactly like real CLIP)."""
+    pooling finds the first EOS exactly like real CLIP).
+
+    A word's id comes from a BLAKE2b digest of its UTF-8 bytes, not from
+    Python's ``hash``, which is salted per process: every process (each
+    rank of a mesh, each run) maps a prompt to the same ids."""
 
     def __init__(self, vocab_size: int = 1000):
         self.vocab_size = vocab_size
@@ -62,7 +67,8 @@ class ToyTokenizer:
         self.eos = vocab_size - 1
 
     def _word_id(self, w: str) -> int:
-        return 2 + (hash(w) % (self.vocab_size - 3))
+        digest = hashlib.blake2b(w.encode("utf-8"), digest_size=8).digest()
+        return 2 + (int.from_bytes(digest, "little") % (self.vocab_size - 3))
 
     def __call__(self, texts):
         rows = []

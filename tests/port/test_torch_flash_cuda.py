@@ -47,6 +47,27 @@ def test_kernel_matches_plain(cuda, b, h, nq, nk, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,nq,nk", [
+    (2, 10, 2048, 4096), (2, 20, 512, 1024),     # 2-way seq at 1024^2
+    (2, 10, 1024, 4096), (2, 20, 256, 1024),     # 4-way seq
+    (1, 10, 2048, 4096),                         # data-split lanes
+    (2, 10, 1976, 3952), (2, 20, 494, 988)])     # the 1216x832 bucket
+def test_seq_local_kernel_matches_plain(cuda, b, h, nq, nk):
+    """K1b: a sequence shard's query rows against the whole K/V."""
+    g = torch.Generator(cuda).manual_seed(2)
+    q, k, v = (torch.randn(b, h, n, 64, generator=g, device=cuda,
+                           dtype=torch.bfloat16) for n in (nq, nk, nk))
+    before = fa.SEQ_LAUNCHES
+    out = fa.flash_attention_seq_local(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.SEQ_LAUNCHES == before + 1
+    ref = fa.flash_attention_ref(q, k, v).float()
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref).abs().max().item()
+    assert err <= BF16_ULPS * max(ref.abs().max().item(), 1.0), err
+
+
+@pytest.mark.cuda
 def test_kernel_takes_strided_heads(cuda):
     """[B, N, H, D] -> [B, H, N, D] head split as a view, no copy."""
     g = torch.Generator(cuda).manual_seed(1)

@@ -21,6 +21,8 @@ def test_port_never_imports_jax():
     code = ("import sys\n"
             "import omg_tpu_torch.pipelines.omg, omg_tpu_torch.from_jax\n"
             "import omg_tpu_torch.ops.flash_attention\n"
+            "import omg_tpu_torch.parallel.launch\n"
+            "import omg_tpu_torch.parallel.mesh\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'omg_tpu'))\n"
             "assert not bad, bad\n")

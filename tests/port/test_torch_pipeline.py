@@ -15,12 +15,12 @@ from omg_tpu.models import unet as junet
 from omg_tpu.pipelines import multiconcept as jmc
 from omg_tpu.pipelines import omg as jomg
 from omg_tpu.pipelines import sdxl as jsdxl
-from omg_tpu.text.tokenizer import ToyTokenizer
 from omg_tpu_torch import from_jax
 from omg_tpu_torch.control import p2p
 from omg_tpu_torch.diffusion import schedulers
 from omg_tpu_torch.models import unet
 from omg_tpu_torch.pipelines import multiconcept, omg, sdxl
+from omg_tpu_torch.text.tokenizer import ToyTokenizer
 
 from torch_port_helpers import (left_right_masks, mid_block_lora, normal,
                                 np_tree, t, tiny_sdxl, to_jax)
@@ -106,6 +106,8 @@ def test_two_stage_matches_golden_and_jax():
 @pytest.fixture(scope="module")
 def engines():
     jp, tp = tiny_sdxl(seed=10)
+    # one instance of the port's tokenizer (duck-typed) for both engines:
+    # its ids do not depend on the process's hash seed
     tok = ToyTokenizer()
     jeng = jomg.OMG(cfg=jsdxl.tiny_config(), params=jp, tokenizer=tok,
                     tokenizer_2=tok, mask_provider=left_right_masks,

@@ -85,15 +85,19 @@ def numpy_params(init, cfg, seed=0):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
+def tiny_sdxl_numpy(seed=0):
+    """The four tiny SDXL parameter trees with numpy leaves, as a JAX
+    ``SDXLParams``."""
+    from omg_tpu.pipelines import sdxl as jsdxl
+    return jsdxl.SDXLParams(*(
+        numpy_params(mod.init_params, c, seed + i) for i, (mod, c) in
+        enumerate(zip((junet, jvae, jclip, jclip), jsdxl.tiny_config()))))
+
+
 def tiny_sdxl(seed=0):
     """(JAX tiny SDXLParams, port SDXLParams) holding the same random
     weights."""
-    from omg_tpu.pipelines import sdxl as jsdxl
-
     from omg_tpu_torch import from_jax
     from omg_tpu_torch.pipelines import sdxl
-    jcfg = jsdxl.tiny_config()
-    tree = jsdxl.SDXLParams(*(
-        numpy_params(mod.init_params, c, seed + i) for i, (mod, c) in
-        enumerate(zip((junet, jvae, jclip, jclip), jcfg))))
+    tree = tiny_sdxl_numpy(seed)
     return to_jax(tree), from_jax.sdxl_from_jax(tree, sdxl.tiny_config())
