@@ -7,12 +7,20 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      name, count, nvidia-smi name and power limit; turns TF32 off for
      matmuls and cuDNN so the fp32 VAE decode is fp32.
   2. build   — compiles the flash-attention kernel from
-     omg_tpu_torch/ops/csrc with nvcc; prints seconds and ptxas usage.
+     omg_tpu_torch/ops/csrc with nvcc; prints seconds and, for every
+     instantiation (head dim, query rows per CTA), ptxas's registers and
+     spills.
   3. kernel  — K1 vs its plain PyTorch version on seeded bf16 inputs
-     at the UNet's self-attention shapes; error bound, ms per call.
+     at the UNet's self-attention shapes; for every shape the error
+     bound, kernel / plain / SDPA (the library yardstick, never called by
+     the port) ms per call, the bound (the larger of FLOPs over the bf16
+     peak and bytes over the memory rate) and the kernel's share of it;
+     then the host time per launch and the part of it that encodes the
+     tensor maps.
   3b. seq    — K1b (the kernel on one sequence shard's query rows against
      the whole K/V) vs the plain version at the shapes of 2- and 4-way
-     sequence splits, data-split lanes and the 1216x832 bucket.
+     sequence splits, data-split lanes and the 1216x832 bucket, with the
+     same columns.
   4. model   — one SDXL-width UNet forward at the 7-lane stage-2 layout
      (P2P inside its self-replace window, stacked LoRA lanes) through the
      kernel and with attention forced to the plain version; 70 launches.
@@ -27,6 +35,13 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      K1 launches per rank, identical images on both ranks.
 The last two lines are a JSON record of the kernels and
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --profile
+
+runs phases 1 and 2, then profiles one stage-1 UNet forward (2 lanes)
+and one stage-2 forward (7 lanes, LoRA lanes, P2P) with
+``torch.profiler``: wall time, kernel time, K1's share, the device's
+idle share, host microseconds per K1 launch and the largest kernels.
 """
 
 from __future__ import annotations
@@ -34,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -79,6 +95,11 @@ KERNEL_ULPS = 4 * 2.0 ** -8
 # bf16 activations carry that forward: 5% of max |eps|.
 MODEL_REL_BOUND = 0.05
 
+# The H100 SXM's published dense bf16 rate and memory rate (the bound's
+# denominators; the card's power limit is printed beside every time).
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
 KERNEL_SHAPES = [  # (B, H, N, D): main-path, bucket, D=128, ragged tiles
     (2, 10, 4096, 64), (7, 10, 4096, 64), (2, 20, 1024, 64),
     (7, 20, 1024, 64), (2, 10, 3952, 64), (2, 20, 988, 64),
@@ -120,29 +141,77 @@ def device_phase() -> torch.device:
     return torch.device("cuda", 0)
 
 
+def ptxas_usage(text: str) -> list:
+    """(D, rows per CTA, registers, spill store bytes, spill load bytes)
+    of every kernel instantiation in ptxas's -v report."""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function .*flash_fwd_kernelILi(\d+)ELi(\d+)E",
+                      line)
+        if m:
+            cur = [int(m.group(1)), 64 * int(m.group(2)), None, None, None]
+            out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            cur[3], cur[4] = (int(x) for x in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur[2] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return [tuple(r) for r in out]
+
+
 def build_phase() -> None:
     fa.build()
     log(f"build: {fa.BUILD_INFO['seconds']:.2f} s -> {fa.BUILD_INFO['path']}")
+    usage = ptxas_usage(fa.BUILD_INFO["log"])
+    if not usage and fa.BUILD_INFO["log"] != "(cached build)":
+        raise AssertionError("no ptxas report for the kernel")
+    for d, rows, regs, st, ld in usage:
+        log(f"  ptxas: D={d}, {rows} query rows per CTA: {regs} registers at "
+            f"entry, {st} bytes spill stores, {ld} bytes spill loads")
     for line in fa.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if "(C75" in line:
             log("  ptxas:", line.strip())
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, graph: bool = False) -> float:
+    """Device ms per call of ``fn`` after a warm-up, by CUDA events around
+    ``iters`` calls; with ``graph`` the calls are captured in one CUDA graph
+    and replayed, so the host's launch cost does not hide a short kernel."""
     fn()
     torch.cuda.synchronize()
+    calls = [fn] * iters
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for call in calls:
+                call()
+        calls = [g.replay]
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    for _ in range(iters):
-        fn()
+    for call in calls:
+        call()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
-def _check_kernel(kernel, name, q, k, v) -> tuple:
-    """(max abs err, kernel ms, plain ms) of ``kernel`` against the plain
-    version on q/k/v; raises on NaN or an error past the bound."""
+def roofline(q, k) -> tuple:
+    """(bound ms, "operations" or "bytes") of attention on q/k/v: 4 B H
+    Nq Nk D flops over the bf16 peak against q, k, v read once and o
+    written once over the memory rate."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    flops = 4 * b * h * nq * nk * d
+    nbytes = q.element_size() * b * h * d * (2 * nq + 2 * nk)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _check_kernel(kernel, name, q, k, v) -> dict:
+    """The kernel against the plain version on q/k/v, and its times beside
+    the plain version's, SDPA's and the bound; raises on NaN or an error
+    past the bound."""
     out = kernel(q, k, v)
     ref = fa.flash_attention_ref(q, k, v).float()
     torch.cuda.synchronize()
@@ -150,28 +219,66 @@ def _check_kernel(kernel, name, q, k, v) -> tuple:
         raise AssertionError(f"{name} output not finite")
     err = (out.float() - ref).abs().max().item()
     bound = KERNEL_ULPS * max(ref.abs().max().item(), 1.0)
-    ms = cuda_ms(lambda: kernel(q, k, v), 20)
+    ms = cuda_ms(lambda: kernel(q, k, v), 50, graph=True)
     plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v), 5)
-    log(f"  {name} max_abs_err {err:.3e} (bound {bound:.3e})"
-        f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
+    library_ms = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 50,
+        graph=True)
+    bound_ms, bound_by = roofline(q, k)
+    log(f"  {name} max_abs_err {err:.3e} (bound {bound:.3e})  kernel "
+        f"{ms:.4f} ms  plain {plain_ms:.3f} ms  sdpa {library_ms:.4f} ms  "
+        f"bound {bound_ms:.4f} ms ({bound_by})  share "
+        f"{100 * bound_ms / ms:.1f}%  sdpa/kernel {library_ms / ms:.2f}")
     if err > bound:
         raise AssertionError(f"{name} disagrees: {err} > {bound}")
-    return err, ms, plain_ms
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / ms}
+
+
+def host_cost(device) -> None:
+    """Host microseconds per launch at [2,20,1024,64] (stage 1's level-2
+    shape; stage 1 is host-bound): the whole wrapper, and the part of it
+    that encodes the three tensor maps."""
+    q, k, v = (torch.randn(2, 20, 1024, 64, device=device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    n = 200
+    fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fa.flash_attention(q, k, v)
+    wrapper_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    lib = fa.build()
+    plan = fa.launch_plan(2, 20, 1024, 1024, 64, (q.stride(),) * 4,
+                          torch.cuda.get_device_properties(device)
+                          .multi_processor_count).pack()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        err = lib.omg_flash_attention_encode(q.data_ptr(), k.data_ptr(),
+                                             v.data_ptr(), plan)
+        if err:
+            raise AssertionError(f"tensor-map encode failed: {err}")
+    encode_us = (time.perf_counter() - t0) / n * 1e6
+    log(f"host: {wrapper_us:.1f} us per launch through the wrapper, "
+        f"{encode_us:.1f} us of it encoding the three tensor maps")
 
 
 def kernel_phase(device) -> dict:
+    """The timed shape's numbers, with the worst error of all shapes."""
     g = torch.Generator(device).manual_seed(0)
     worst, timed = 0.0, None
     for b, h, n, d in KERNEL_SHAPES:
         q, k, v = (torch.randn(b, h, n, d, generator=g, device=device,
                                dtype=torch.bfloat16) for _ in range(3))
-        err, ms, plain_ms = _check_kernel(fa.flash_attention,
-                                          f"[{b},{h},{n},{d}]", q, k, v)
-        worst = max(worst, err)
+        res = _check_kernel(fa.flash_attention, f"[{b},{h},{n},{d}]", q, k, v)
+        worst = max(worst, res["max_abs_err"])
         if (b, h, n, d) == TIMED_SHAPE:
-            timed = (ms, plain_ms)
+            timed = res
         del q, k, v
-    return {"max_abs_err": worst, "ms": timed[0], "plain_ms": timed[1]}
+    host_cost(device)
+    return dict(timed, max_abs_err=worst)
 
 
 def seq_kernel_phase(device) -> dict:
@@ -181,14 +288,13 @@ def seq_kernel_phase(device) -> dict:
     for b, h, nq, nk in SEQ_SHAPES:
         q, k, v = (torch.randn(b, h, n, 64, generator=g, device=device,
                                dtype=torch.bfloat16) for n in (nq, nk, nk))
-        err, ms, plain_ms = _check_kernel(
-            fa.flash_attention_seq_local, f"q [{b},{h},{nq},64] kv {nk}",
-            q, k, v)
-        worst = max(worst, err)
+        res = _check_kernel(fa.flash_attention_seq_local,
+                            f"q [{b},{h},{nq},64] kv {nk}", q, k, v)
+        worst = max(worst, res["max_abs_err"])
         if (b, h, nq, nk) == SEQ_TIMED_SHAPE:
-            timed = (ms, plain_ms)
+            timed = res
         del q, k, v
-    return {"max_abs_err": worst, "ms": timed[0], "plain_ms": timed[1]}
+    return dict(timed, max_abs_err=worst)
 
 
 def mid_block_lora(device, seed: int, cfg, rank: int = 32) -> dict:
@@ -402,6 +508,80 @@ def single_card_phases(device) -> tuple:
         return main_phase(device, cfg, params, loras)
 
 
+# ------------------------------------------------------------ --profile
+
+def _profile_forward(name: str, forward) -> None:
+    from torch.profiler import ProfilerActivity, profile
+    forward()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_ms = sorted(walls)[1] * 1e3
+    # host time inside the wrapper, per K1 launch (a run of its own)
+    launch, host = fa._launch, [0.0, 0]
+
+    def timed_launch(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = launch(*args, **kwargs)
+        host[0] += time.perf_counter() - t0
+        host[1] += 1
+        return out
+
+    fa._launch = timed_launch
+    try:
+        forward()
+        torch.cuda.synchronize()
+    finally:
+        fa._launch = launch
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        forward()
+        torch.cuda.synchronize()
+    kernels: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = "K1 flash_fwd_kernel" if "flash_fwd_kernel" in e.name \
+                else e.name[:60]
+            kernels[key] = kernels.get(key, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(kernels.values()) / 1e3
+    if busy_ms == 0:
+        log(f"profile {name}: wall {wall_ms:.1f} ms; the profiler saw no "
+            "device time (not measured)")
+        return
+    k1_ms = kernels.get("K1 flash_fwd_kernel", 0.0) / 1e3
+    log(f"profile {name}: wall {wall_ms:.1f} ms, kernels {busy_ms:.1f} ms "
+        f"(idle {100 * (1 - busy_ms / wall_ms):.1f}%), K1 {k1_ms:.2f} ms "
+        f"({100 * k1_ms / busy_ms:.1f}% of kernel time), host "
+        f"{host[0] / max(host[1], 1) * 1e6:.1f} us per K1 launch over "
+        f"{host[1]} launches")
+    for key, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  {us / 1e3:8.2f} ms  {100 * us / 1e3 / busy_ms:5.1f}%  {key}")
+
+
+def profile_phase(device) -> None:
+    with torch.inference_mode():
+        cfg, params, loras = weights(device)
+        t = int(schedulers.make_schedule("euler", STEPS).timesteps[0])
+        s1 = unet_inputs(device, cfg, 2, seed=2)
+        _profile_forward("stage 1 (2 lanes)", lambda: params.unet(
+            s1[0], t, s1[1], text_embeds=s1[2], time_ids=s1[3]))
+        s2 = unet_inputs(device, cfg, 7, seed=1)
+        lane_lora = lora_lib.stack_loras(
+            [None] * 3 + [loras[0]] * 2 + [loras[1]] * 2)
+        ctl = p2p.P2PControl.build(["a photo", "a photo"], STEPS,
+                                   self_replace_steps=0.4, width=WIDTH // 32,
+                                   height=HEIGHT // 32, device=device)
+        t2 = int(schedulers.make_schedule("euler", STEPS).timesteps[P2P_STEP])
+        _profile_forward("stage 2 (7 lanes)", lambda: params.unet(
+            s2[0], t2, s2[1], text_embeds=s2[2], time_ids=s2[3],
+            lora=lane_lora, control=ctl.at_step(P2P_STEP, src_lane=0,
+                                                dst_lane=2)))
+
+
 # --------------------------------------------------------------- phase 6
 
 def _lora_checksum(loras) -> torch.Tensor:
@@ -549,6 +729,10 @@ def main() -> int:
     device = device_phase()
     log("== build")
     build_phase()
+    if "--profile" in sys.argv[1:]:
+        log("== profile")
+        profile_phase(device)
+        return 0
     log("== kernel vs plain")
     kstats = kernel_phase(device)
     log("== K1b vs plain")
@@ -559,15 +743,15 @@ def main() -> int:
     log("== mesh")
     mstats = mesh_phase(single)
     source = "omg_tpu_torch/ops/csrc/flash_attention.cu"
+    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "bound_share")
     record = {"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": source,
         "replaces": "omg_tpu/ops/flash_attention.py:249",
         "launches": launches,
-        "max_abs_err": kstats["max_abs_err"],
-        "ms": kstats["ms"],
-        "plain_ms": kstats["plain_ms"],
+        **{key: kstats[key] for key in timed},
         "timed_at": "q/k/v [%d,%d,%d,%d] bf16" % TIMED_SHAPE,
         "mesh_launches_by_rank": mstats["launches"]}, {
         "name": "flash_attention_fwd_seq_local",
@@ -576,9 +760,7 @@ def main() -> int:
         "replaces": "omg_tpu/ops/flash_attention.py:108-126 via :249",
         "launches": mstats["seq_launches"][0],
         "launches_by_rank": mstats["seq_launches"],
-        "max_abs_err": sstats["max_abs_err"],
-        "ms": sstats["ms"],
-        "plain_ms": sstats["plain_ms"],
+        **{key: sstats[key] for key in timed},
         "timed_at": "q [%d,%d,%d,64] against k/v of %d, bf16"
                     % SEQ_TIMED_SHAPE}]}
     log("card:", power_line())

@@ -7,6 +7,10 @@ HWIO -> OIHW, and the JAX tree's renames of diffusers modules
 (``to_out`` -> ``to_out.0``, ``ff.net_0_proj`` -> ``ff.net.0.proj``,
 ``ff.net_2`` -> ``ff.net.2``). LoRA leaves keep their [in, r]/[r, out]
 layout and are keyed by the port's module paths.
+
+Both entry points put the weights on ``device``, the card unless the
+caller asks for the CPU; without a CUDA device a call that names none
+raises.
 """
 
 from __future__ import annotations
@@ -79,30 +83,47 @@ def load_into(model: nn.Module, tree, *, skip=()) -> nn.Module:
     return model
 
 
-def sdxl_from_jax(params, cfg: sdxl.SDXLConfig) -> sdxl.SDXLParams:
-    """JAX ``SDXLParams`` (numpy leaves) -> the port's four modules. The
-    VAE's encoder half is dropped (the port decodes only)."""
+def _target(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("from_jax: no CUDA device for the weights; pass "
+                           "device='cpu' to keep them on the CPU")
+    return device
+
+
+def sdxl_from_jax(params, cfg: sdxl.SDXLConfig, *,
+                  device="cuda") -> sdxl.SDXLParams:
+    """JAX ``SDXLParams`` (numpy leaves) -> the port's four modules on
+    ``device``. The VAE's encoder half is dropped (the port decodes
+    only)."""
+    device = _target(device)
     return sdxl.SDXLParams(
-        unet=load_into(unet.UNet2DConditionModel(cfg.unet), params.unet),
-        vae=load_into(vae.AutoencoderKL(cfg.vae), params.vae,
+        unet=load_into(unet.UNet2DConditionModel(cfg.unet, device),
+                       params.unet),
+        vae=load_into(vae.AutoencoderKL(cfg.vae, device), params.vae,
                       skip=("encoder", "quant_conv")),
-        text_encoder=load_into(clip.CLIPTextModel(cfg.text_encoder),
+        text_encoder=load_into(clip.CLIPTextModel(cfg.text_encoder, device),
                                params.text_encoder),
-        text_encoder_2=load_into(clip.CLIPTextModel(cfg.text_encoder_2),
+        text_encoder_2=load_into(clip.CLIPTextModel(cfg.text_encoder_2,
+                                                    device),
                                  params.text_encoder_2))
 
 
-def lora_from_jax(tree: Optional[dict]) -> Optional[dict]:
+def lora_from_jax(tree: Optional[dict], *,
+                  device="cuda") -> Optional[dict]:
     """JAX LoRA delta tree (numpy leaves) -> the port's flat dict
-    ``{module_path: {"down", "up", "scale"}}``. A tree with "unet" /
-    "text_encoder" / "text_encoder_2" keys converts per model."""
+    ``{module_path: {"down", "up", "scale"}}`` of fp32 tensors on
+    ``device``. A tree with "unet" / "text_encoder" / "text_encoder_2"
+    keys converts per model."""
+    device = _target(device)
     if tree is None:
         return None
     if any(k in tree for k in ("unet", "text_encoder", "text_encoder_2")):
-        return {k: lora_from_jax(v) for k, v in tree.items()}
+        return {k: lora_from_jax(v, device=device) for k, v in tree.items()}
     out: dict = {}
     for path, arr in _flatten(tree):
         key, role = _torch_path(path[:-1]), path[-1]
         out.setdefault(key, {})[role] = torch.tensor(
-            np.asarray(arr, np.float32))
+            np.asarray(arr, np.float32), device=device)
     return out

@@ -108,5 +108,7 @@ class CLIPTextModel(nn.Module):
 
 def init_params(generator: torch.Generator, cfg: CLIPTextConfig,
                 device=None) -> CLIPTextModel:
-    """A text encoder with random weights drawn from ``generator``."""
-    return layers.init_params(CLIPTextModel(cfg, device), generator)
+    """A text encoder with random weights drawn from ``generator`` on
+    ``device`` (the generator's device when None)."""
+    return layers.init_params(CLIPTextModel(cfg, device or generator.device),
+                              generator)

@@ -249,8 +249,10 @@ class UNet2DConditionModel(nn.Module):
 
 def init_params(generator: torch.Generator, cfg: UNetConfig,
                 device=None) -> UNet2DConditionModel:
-    """A UNet with random weights drawn from ``generator`` on ``device``."""
-    return layers.init_params(UNet2DConditionModel(cfg, device), generator)
+    """A UNet with random weights drawn from ``generator`` on ``device``
+    (the generator's device when None)."""
+    return layers.init_params(UNet2DConditionModel(
+        cfg, device or generator.device), generator)
 
 
 def num_cross_attention_layers(cfg: UNetConfig) -> int:

@@ -127,5 +127,7 @@ class AutoencoderKL(nn.Module):
 
 def init_params(generator: torch.Generator, cfg: VAEConfig,
                 device=None) -> AutoencoderKL:
-    """A VAE decoder with random weights drawn from ``generator``."""
-    return layers.init_params(AutoencoderKL(cfg, device), generator)
+    """A VAE decoder with random weights drawn from ``generator`` on
+    ``device`` (the generator's device when None)."""
+    return layers.init_params(AutoencoderKL(cfg, device or generator.device),
+                              generator)

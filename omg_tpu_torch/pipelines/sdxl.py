@@ -44,7 +44,7 @@ def tiny_config() -> SDXLConfig:
 def init_params(generator: torch.Generator, cfg: SDXLConfig,
                 device=None) -> SDXLParams:
     """Random weights for all four models, drawn from ``generator`` on
-    ``device`` (the generator's device)."""
+    ``device`` (the generator's device when None)."""
     return SDXLParams(
         unet=unet.init_params(generator, cfg.unet, device),
         vae=vae.init_params(generator, cfg.vae, device),

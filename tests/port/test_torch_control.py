@@ -125,7 +125,8 @@ def _jax_lora(seed, paths, rank):
 
 
 def _as_flat(jax_tree):
-    return from_jax.lora_from_jax(jax.tree.map(np.asarray, jax_tree))
+    return from_jax.lora_from_jax(jax.tree.map(np.asarray, jax_tree),
+                                  device="cpu")
 
 
 def _assert_flat_equal(got, want):
@@ -143,7 +144,8 @@ def test_stack_loras():
     trees = [None, a, b]
     want = jlora.stack_loras([None if x is None else to_jax(x)
                               for x in trees], repeat=2)
-    got = lora_lib.stack_loras([from_jax.lora_from_jax(x) for x in trees],
+    got = lora_lib.stack_loras([from_jax.lora_from_jax(x, device="cpu")
+                                for x in trees],
                                repeat=2)
     _assert_flat_equal(got, _as_flat(want))
     assert got["attn1.to_q"]["down"].shape == (6, 6, 3)
@@ -156,7 +158,8 @@ def test_merge_and_scale_loras():
     want = jlora.scale_lora(jlora.merge_loras([to_jax(a), to_jax(b)],
                                               [0.7, 0.5]), 0.8)
     got = lora_lib.scale_lora(lora_lib.merge_loras(
-        [from_jax.lora_from_jax(a), from_jax.lora_from_jax(b)], [0.7, 0.5]),
+        [from_jax.lora_from_jax(a, device="cpu"),
+         from_jax.lora_from_jax(b, device="cpu")], [0.7, 0.5]),
         0.8)
     _assert_flat_equal(got, _as_flat(want))
     assert "ff.net.2" in got

@@ -28,7 +28,11 @@ def cuda():
 @pytest.mark.parametrize("b,h,nq,nk,d", [
     (2, 10, 4096, 4096, 64), (2, 20, 1024, 1024, 64),
     (2, 20, 988, 988, 64), (1, 2, 1025, 1025, 64), (1, 2, 100, 65, 64),
-    (2, 10, 1024, 1024, 128), (1, 1, 64, 0, 64)])
+    (2, 10, 1024, 1024, 128), (1, 1, 64, 0, 64),
+    # the last 128-key tile full / holding one real key
+    (1, 2, 1152, 1152, 64), (2, 20, 1025, 1025, 64),
+    # one query row; D = 128 at stage-2 width; the 64-row variant at D = 128
+    (1, 2, 1, 1024, 64), (7, 10, 1024, 1024, 128), (1, 2, 256, 1024, 128)])
 def test_kernel_matches_plain(cuda, b, h, nq, nk, d):
     g = torch.Generator(cuda).manual_seed(0)
     q, k, v = (torch.randn(b, h, n, d, generator=g, device=cuda,
@@ -68,10 +72,28 @@ def test_seq_local_kernel_matches_plain(cuda, b, h, nq, nk):
 
 
 @pytest.mark.cuda
-def test_kernel_takes_strided_heads(cuda):
+def test_small_grid_takes_64_rows(cuda):
+    """K1b's 4-way level-2 shape would give 80 CTAs of 192 rows on the
+    card's SMs: the plan takes the 64-row variant, which is right too."""
+    b, h, nq, nk = 2, 20, 256, 1024
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator(cuda).manual_seed(4)
+    q, k, v = (torch.randn(b, h, n, 64, generator=g, device=cuda,
+                           dtype=torch.bfloat16) for n in (nq, nk, nk))
+    strides = (q.stride(), k.stride(), v.stride(), q.stride())
+    assert fa.launch_plan(b, h, nq, nk, 64, strides, sms).rows == 64
+    out = fa.flash_attention_seq_local(q, k, v)
+    ref = fa.flash_attention_ref(q, k, v).float()
+    err = (out.float() - ref).abs().max().item()
+    assert err <= BF16_ULPS * max(ref.abs().max().item(), 1.0), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_kernel_takes_strided_heads(cuda, n):
     """[B, N, H, D] -> [B, H, N, D] head split as a view, no copy."""
     g = torch.Generator(cuda).manual_seed(1)
-    x = torch.randn(2, 1024, 3 * 640, generator=g, device=cuda,
+    x = torch.randn(2, n, 3 * 640, generator=g, device=cuda,
                     dtype=torch.bfloat16)
     q, k, v = (t.unflatten(-1, (10, 64)).transpose(1, 2)
                for t in x.chunk(3, dim=-1))

@@ -41,7 +41,8 @@ def test_linear_with_lora(per_lane, bias):
     want = np.asarray(jlayers.linear(to_jax(p), jnp.asarray(x),
                                      to_jax(leaf)))
     lin = _linear(p, "lin")
-    got = lin(t(x), {"lin": from_jax.lora_from_jax({"lin": leaf})["lin"]})
+    got = lin(t(x), {"lin": from_jax.lora_from_jax({"lin": leaf},
+                                                   device="cpu")["lin"]})
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
     # no leaf for this layer: the plain product
     np.testing.assert_allclose(
@@ -124,7 +125,8 @@ def test_mha_with_lora(cross, with_lora):
                           context=None if ctx is None else jnp.asarray(ctx),
                           lora=jl)
     got = mod(t(x), None if ctx is None else t(ctx),
-              lora=from_jax.lora_from_jax(lora) if with_lora else None)
+              lora=(from_jax.lora_from_jax(lora, device="cpu")
+                    if with_lora else None))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 

@@ -66,7 +66,8 @@ def test_unet_seven_lanes_lora_p2p(models, step):
     lanes = [None] * 3 + [c for c in concepts for _ in range(2)]
     jlane = jlora.stack_loras([None if c is None else to_jax(c)
                                for c in lanes])
-    lane = lora_lib.stack_loras([from_jax.lora_from_jax(c) for c in lanes])
+    lane = lora_lib.stack_loras([from_jax.lora_from_jax(c, device="cpu")
+                                 for c in lanes])
     kw = dict(self_replace_steps=0.4, width=8, height=8)
     jctl = jp2p.P2PControl.build(["a", "a"], 5, **kw).at_step(
         jnp.asarray(step), src_lane=0, dst_lane=2)
@@ -111,7 +112,7 @@ def test_clip_encoders(models, which, with_lora):
             "self_attn": {"q_proj": lora_leaf(rng, d, d),
                           "out_proj": lora_leaf(rng, d, d)},
             "mlp": {"fc1": lora_leaf(rng, d, cfg.intermediate_size)}}]}}}
-        jl, pl = to_jax(tree), from_jax.lora_from_jax(tree)
+        jl, pl = to_jax(tree), from_jax.lora_from_jax(tree, device="cpu")
     want = jclip.apply(getattr(jp, which), cfg, jnp.asarray(ids, jnp.int32),
                        jl)
     got = getattr(tp, which)(torch.from_numpy(ids), pl)
@@ -150,6 +151,47 @@ def test_init_params_scheme():
     assert abs(w.std().item() * w.shape[1] ** 0.5 - 1.0) < 0.1
     assert unet.num_cross_attention_layers(cfg) == \
         junet.num_cross_attention_layers(jsdxl.tiny_config().unet)
+
+
+def test_init_params_follows_generator_device():
+    """With no device named, the weights land on the generator's device
+    and are the draws an explicit device gives."""
+    cfg = sdxl.tiny_config().unet
+    a = unet.init_params(torch.Generator().manual_seed(3), cfg)
+    b = unet.init_params(torch.Generator().manual_seed(3), cfg, "cpu")
+    assert {p.device for p in a.parameters()} == {torch.device("cpu")}
+    for (name, x), y in zip(a.state_dict().items(),
+                            b.state_dict().values()):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, msg=name)
+
+
+def test_sdxl_from_jax_on_cpu(models):
+    """device="cpu" gives the modules that loading each one on the CPU
+    gives, and every tensor lies on the CPU."""
+    jp, tp = models
+    cfg = sdxl.tiny_config()
+    want = from_jax.load_into(unet.UNet2DConditionModel(cfg.unet),
+                              np_tree(jp.unet))
+    for (name, x), y in zip(tp.unet.state_dict().items(),
+                            want.state_dict().values()):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, msg=name)
+    for m in tp:
+        assert {p.device for p in m.parameters()} == {torch.device("cpu")}
+    lora = from_jax.lora_from_jax({"lin": lora_leaf(np.random.default_rng(0),
+                                                    4, 4)}, device="cpu")
+    assert lora["lin"]["down"].device == torch.device("cpu")
+
+
+def test_from_jax_without_device_needs_cuda(models, monkeypatch):
+    """The default is the card: with no CUDA device a call that names no
+    device raises rather than landing on the CPU."""
+    jp, _ = models
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_jax.sdxl_from_jax(np_tree(jp), sdxl.tiny_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_jax.lora_from_jax({"lin": lora_leaf(np.random.default_rng(0),
+                                                 4, 4)})
 
 
 def test_from_jax_rejects_mismatched_tree(models):

@@ -53,13 +53,16 @@ def runs():
     want = jeng.generate(PROMPT, concept_loras=[to_jax(c) for c in concepts],
                          style_lora=to_jax(style), **kw)
     teng = omg.OMG(cfg=sdxl.tiny_config(),
-                   params=from_jax.sdxl_from_jax(tree, sdxl.tiny_config()),
+                   params=from_jax.sdxl_from_jax(tree, sdxl.tiny_config(),
+                                                 device="cpu"),
                    tokenizer=tok, tokenizer_2=tok,
                    mask_provider=left_right_masks, num_steps=STEPS)
     single = teng.generate(PROMPT,
-                           concept_loras=[from_jax.lora_from_jax(c)
-                                          for c in concepts],
-                           style_lora=from_jax.lora_from_jax(style), **kw)
+                           concept_loras=[
+                               from_jax.lora_from_jax(c, device="cpu")
+                               for c in concepts],
+                           style_lora=from_jax.lora_from_jax(
+                               style, device="cpu"), **kw)
     case = {"data": 2, "steps": STEPS, "prompt": PROMPT,
             "params": tuple(tree),
             "kw": dict(kw, concept_loras=concepts, style_lora=style)}

@@ -92,7 +92,8 @@ def test_two_stage_matches_golden_and_jax():
                                         self_replace_steps=0.4, width=2,
                                         height=2),
         concept_inputs=[tconcept, tconcept],
-        concept_loras=[from_jax.lora_from_jax(np_tree(jlora_tree)), None],
+        concept_loras=[from_jax.lora_from_jax(np_tree(jlora_tree),
+                                              device="cpu"), None],
         masks=t(m), fusion_start=1)
 
     ref = np.load(FIXTURE)
@@ -141,9 +142,10 @@ def test_generate_matches_jax(engines):
     want = jeng.generate(prompt, concept_loras=[to_jax(c) for c in concepts],
                          style_lora=to_jax(style), **kw)
     got = teng.generate(prompt,
-                        concept_loras=[from_jax.lora_from_jax(c)
+                        concept_loras=[from_jax.lora_from_jax(c, device="cpu")
                                        for c in concepts],
-                        style_lora=from_jax.lora_from_jax(style), **kw)
+                        style_lora=from_jax.lora_from_jax(
+                            style, device="cpu"), **kw)
     assert got.stage2 is not None and want.stage2 is not None
     for name in ("stage1", "stage2"):
         g, w = getattr(got, name), getattr(want, name)

@@ -223,14 +223,15 @@ def omg_rank(rank: int, device, case: dict) -> dict:
     _, n = comm.world()
     m = mesh_lib.make_mesh(n, data=case["data"])
     params = from_jax.sdxl_from_jax(sdxl.SDXLParams(*case["params"]),
-                                    sdxl.tiny_config())
+                                    sdxl.tiny_config(), device=device)
     tok = ToyTokenizer()
     engine = omg.OMG(cfg=sdxl.tiny_config(), params=params, tokenizer=tok,
                      tokenizer_2=tok, mask_provider=left_right_masks,
                      num_steps=case["steps"], mesh=m)
     kw = dict(case["kw"])
-    loras = [from_jax.lora_from_jax(c) for c in kw.pop("concept_loras")]
-    style = from_jax.lora_from_jax(kw.pop("style_lora"))
+    loras = [from_jax.lora_from_jax(c, device=device)
+             for c in kw.pop("concept_loras")]
+    style = from_jax.lora_from_jax(kw.pop("style_lora"), device=device)
     plain = attention.SEQ_PLAIN_CALLS
     with torch.no_grad():
         res = engine.generate(case["prompt"], concept_loras=loras,

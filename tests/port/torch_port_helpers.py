@@ -100,4 +100,5 @@ def tiny_sdxl(seed=0):
     from omg_tpu_torch import from_jax
     from omg_tpu_torch.pipelines import sdxl
     tree = tiny_sdxl_numpy(seed)
-    return to_jax(tree), from_jax.sdxl_from_jax(tree, sdxl.tiny_config())
+    return to_jax(tree), from_jax.sdxl_from_jax(tree, sdxl.tiny_config(),
+                                                device="cpu")
