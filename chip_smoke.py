@@ -27,26 +27,39 @@ Phases, in order; any failure propagates and the exit code is non-zero:
   5. main    — ``OMG.generate`` at SDXL widths, 1024x1024, 50 Euler steps,
      two concepts with rank-32 LoRAs, random weights from a seed;
      5880 kernel launches, finite latents, stage times, peak memory.
+  7. masks   — the mask stage (``omg_tpu_torch/segment``), run after phase
+     5 while the SDXL weights are live: SAM ViT-H, EfficientViT-SAM-XL1
+     and the CLIP ViT-B/32 pair at full geometry, random weights from
+     seeds; ``SamPredictor`` with each encoder on phase 5's stage-1 image
+     (1024x1024) and a seeded 1216x832 image (the resize-and-pad path):
+     encoder ms (median of 3), ``predict_box`` of the whole image, the
+     embedding repeated within 1e-5; both encoders at full width and cut
+     depth, and the decoder, on the card against the CPU within 1e-4;
+     the SAM-proposal x CLIP detector through ``build_mask_provider``;
+     then ``OMG.generate`` as in phase 5 with ``SamMaskProvider`` over
+     ViT-H (whole-image box): both masks, 5880 kernel launches.
   6. mesh    — the multi-device latency mode, ``OMG(mesh=...)``, on 2 ranks
      that share this card through ``gloo`` (mesh data=1, model=2): the
      same seeded weights on both (checked), one H-split stage-1 UNet
      forward and one lane-split 8-lane stage-2 forward against the
      unsharded ones, then ``generate`` as in phase 5: 3500 K1b and 2380
      K1 launches per rank, identical images on both ranks.
-The last two lines are a JSON record of the kernels and
-``{"ok": true, "device": {...}}``.
+The last three lines are JSON records of the mask stage and of the
+kernels, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
 
-runs phases 1 and 2, then profiles one stage-1 UNet forward (2 lanes)
-and one stage-2 forward (7 lanes, LoRA lanes, P2P) with
-``torch.profiler``: wall time, kernel time, K1's share, the device's
-idle share, host microseconds per K1 launch and the largest kernels.
+runs phases 1 and 2, then profiles one stage-1 UNet forward (2 lanes),
+one stage-2 forward (7 lanes, LoRA lanes, P2P) and phase 7's two SAM
+image encoders at 1024² with ``torch.profiler``: wall time, kernel time,
+K1's share, the device's idle share, host microseconds per K1 launch and
+the largest kernels.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import re
@@ -57,12 +70,15 @@ import time
 import numpy as np
 import torch
 
-from omg_tpu_torch import lora as lora_lib
+from omg_tpu_torch import config, lora as lora_lib, segment
 from omg_tpu_torch.control import p2p
 from omg_tpu_torch.diffusion import schedulers
+from omg_tpu_torch.models import clip, clip_vision
 from omg_tpu_torch.ops import flash_attention as fa
 from omg_tpu_torch.parallel import comm, launch, mesh as mesh_lib
 from omg_tpu_torch.pipelines import multiconcept, omg as omg_lib, sdxl
+from omg_tpu_torch.segment import (detector, efficientvit, sam_decoder,
+                                   sam_provider, vit_sam)
 from omg_tpu_torch.text.tokenizer import ToyTokenizer
 
 HEIGHT = WIDTH = 1024
@@ -95,10 +111,21 @@ KERNEL_ULPS = 4 * 2.0 ** -8
 # bf16 activations carry that forward: 5% of max |eps|.
 MODEL_REL_BOUND = 0.05
 
+# Phase 7: set_image twice on one image may differ by 1e-5 of max |emb|;
+# an encoder or the decoder on the card and on the CPU (the same fp32
+# weights and inputs, TF32 off) by 1e-4 of max |out|, at CHECK_SIZE².
+EMBED_REPEAT = 1e-5
+CARD_CPU_REL = 1e-4
+CHECK_SIZE = 1024
+EMBED_HW = 64                   # both encoders' [1, 64, 64, 256] at 1024²
+
 # The H100 SXM's published dense bf16 rate and memory rate (the bound's
 # denominators; the card's power limit is printed beside every time).
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# and its fp32 rate outside the tensor cores (the mask stage runs fp32
+# with TF32 off)
+PEAK_FP32_FLOPS = 67e12
 
 KERNEL_SHAPES = [  # (B, H, N, D): main-path, bucket, D=128, ragged tiles
     (2, 10, 4096, 64), (7, 10, 4096, 64), (2, 20, 1024, 64),
@@ -451,11 +478,13 @@ def check_result(res, latents: dict) -> None:
             raise AssertionError(f"{name} image bad: {img.shape} {img.dtype}")
 
 
-def main_phase(device, cfg, params, loras) -> tuple:
-    """Run ``OMG.generate`` once; returns (kernel launches, result)."""
+def main_phase(device, cfg, params, loras, provider=left_right_masks,
+               name: str = "main") -> tuple:
+    """Run ``OMG.generate`` once with ``provider``; returns (kernel
+    launches, result, peak bytes)."""
     tok = ToyTokenizer(cfg.text_encoder.vocab_size)
     engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok,
-                         tokenizer_2=tok, mask_provider=left_right_masks,
+                         tokenizer_2=tok, mask_provider=provider,
                          num_steps=STEPS)
     latents: dict = {}
     torch.cuda.synchronize()
@@ -473,13 +502,13 @@ def main_phase(device, cfg, params, loras) -> tuple:
         raise AssertionError(f"kernel launches in generate: {launches}, "
                              f"want {MAIN_PATH_LAUNCHES}")
     tm = res.timings
-    log(f"main: stage1 {tm['stage1']:.3f} s, masks {tm['masks']:.3f} s, "
+    log(f"{name}: stage1 {tm['stage1']:.3f} s, masks {tm['masks']:.3f} s, "
         f"stage2 {tm['stage2']:.3f} s, decode {tm['decode']:.3f} s, "
         f"encode {tm['encode']:.3f} s, total {total:.3f} s")
-    log(f"main: kernel launches {launches}; peak memory "
+    log(f"{name}: kernel launches {launches}; peak memory "
         f"{peak / 2**30:.2f} GiB; masks {[m is not None for m in res.masks]};"
         f" image mean {res.image.mean():.2f} std {res.image.std():.2f}")
-    return launches, res
+    return launches, res, peak
 
 
 def weights(device):
@@ -498,14 +527,301 @@ def weights(device):
 
 
 def single_card_phases(device) -> tuple:
-    """Phases 4 and 5; the weights are freed on return."""
+    """Phases 4, 5 and 7; the weights are freed on return. Returns (phase
+    5's launches, phase 5's result, phase 7's record)."""
     with torch.inference_mode():
         log("== weights")
         cfg, params, loras = weights(device)
         log("== model")
         model_phase(device, cfg, params, loras)
         log("== main path")
-        return main_phase(device, cfg, params, loras)
+        launches, res, _ = main_phase(device, cfg, params, loras)
+        log("== masks")
+        masks = masks_phase(device, cfg, params, loras, res.stage1[1])
+        return launches, res, masks
+
+
+# --------------------------------------------------------------- phase 7
+
+def host_ms(fn, runs: int = 3) -> float:
+    """Median host-clock ms of ``fn()`` over ``runs`` calls after one
+    warm-up, each ending in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def product_flops(build, *shapes) -> int:
+    """FLOPs of the products (matmuls, convs) of ``build()(*inputs)``,
+    counted on the meta device: shapes only, nothing runs."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with torch.device("meta"), FlopCounterMode(display=False) as counter:
+        build()(*(torch.empty(s) for s in shapes))
+    return counter.get_total_flops()
+
+
+def work_counts() -> dict:
+    """Product FLOPs per call of the mask stage's models at full geometry,
+    and the fp32 bound in ms of each (FLOPs over PEAK_FP32_FLOPS)."""
+    def decode(b):
+        def run(emb, sparse):
+            pe = sam_decoder.PromptEncoder()
+            return sam_decoder.decode_masks(
+                sam_decoder.MaskDecoder(), pe, emb, sparse,
+                sam_decoder.no_mask_dense(pe, b))
+        return run
+    flops = {
+        "vit_h_encoder": product_flops(
+            lambda: vit_sam.ImageEncoderViT(vit_sam.vit_h_config()),
+            (1, 1024, 1024, 3)),
+        "xl1_encoder": product_flops(
+            lambda: efficientvit.EfficientViTSamImageEncoder(
+                efficientvit.xl1_config()), (1, 1024, 1024, 3)),
+        "decoder_1_box": product_flops(lambda: decode(1), (1, 64, 64, 256),
+                                       (1, 2, 256)),
+        "decoder_64_points": product_flops(lambda: decode(64),
+                                           (64, 64, 64, 256), (64, 2, 256)),
+        "clip_b32_24_crops": product_flops(
+            lambda: clip_vision.CLIPVisionModel(config.clip_vit_b32_vision()),
+            (24, 224, 224, 3)),
+    }
+    out = {k: {"gflop": v / 1e9, "fp32_bound_ms": v / PEAK_FP32_FLOPS * 1e3}
+           for k, v in flops.items()}
+    log("masks: product GFLOP per call (fp32 bound ms): " + ", ".join(
+        f"{k} {v['gflop']:.1f} ({v['fp32_bound_ms']:.2f})"
+        for k, v in out.items()))
+    return out
+
+
+def n_params(*modules) -> int:
+    return sum(p.numel() for m in modules for p in m.parameters())
+
+
+def mask_models(device) -> dict:
+    """SAM ViT-H, EfficientViT-SAM-XL1 (each with its prompt encoder and
+    mask decoder) and the CLIP ViT-B/32 pair, random weights from seeds
+    20-23, on the card."""
+    out = {}
+    for name, cfg, seed in (("vit_h", vit_sam.vit_h_config(), 20),
+                            ("xl1", efficientvit.xl1_config(), 21)):
+        t0 = time.perf_counter()
+        out[name] = sam_provider.init_sam(
+            torch.Generator(device).manual_seed(seed), cfg, device)
+        torch.cuda.synchronize()
+        sam = out[name]
+        heads = n_params(sam.prompt_encoder, sam.mask_decoder)
+        log(f"masks: {name} built in {time.perf_counter() - t0:.2f} s: "
+            f"encoder {n_params(sam.image_encoder) / 1e6:.1f} M, prompt "
+            f"encoder + mask decoder {heads / 1e6:.2f} M fp32 parameters")
+    t0 = time.perf_counter()
+    out["clip_vision"] = clip_vision.init_params(
+        torch.Generator(device).manual_seed(22), config.clip_vit_b32_vision(),
+        device)
+    out["clip_text"] = clip.init_params(
+        torch.Generator(device).manual_seed(23), config.clip_vit_b32_text(),
+        device)
+    torch.cuda.synchronize()
+    log(f"masks: CLIP B/32 built in {time.perf_counter() - t0:.2f} s: vision "
+        f"{n_params(out['clip_vision']) / 1e6:.1f} M, text "
+        f"{n_params(out['clip_text']) / 1e6:.1f} M parameters")
+    return out
+
+
+def predictor_phase(name: str, sam, images: dict) -> dict:
+    """set_image and predict_box(full image) on each image: encoder ms,
+    set_image ms, predict_box ms, the mask, and the embedding's
+    repeatability."""
+    pred = sam_provider.SamPredictor(sam)
+    out = {}
+    for shape, img in images.items():
+        x = pred._preprocess(img)
+        enc_ms = host_ms(lambda: sam.image_encoder(x))
+        set_ms = host_ms(lambda: pred.set_image(img), runs=1)
+        emb = pred._embedding.clone()
+        box = sam_provider.full_image_box(img, "")
+        box_ms = host_ms(lambda: pred.predict_box(box))
+        mask, score = pred.predict_box(box)
+        pred.set_image(img)
+        drift = (pred._embedding - emb).abs().max().item()
+        scale = emb.abs().max().item()
+        log(f"masks: {name} {shape}: encoder {enc_ms:.2f} ms (median of 3), "
+            f"set_image {set_ms:.2f} ms, predict_box {box_ms:.2f} ms; "
+            f"embedding {tuple(emb.shape)}; mask {mask.shape} {mask.dtype}, "
+            f"{100 * mask.mean():.2f}% ones, IoU score {score:.4f}; "
+            f"set_image again: max |diff| {drift:.3e} of max |emb| "
+            f"{scale:.3e}")
+        if tuple(emb.shape) != (1, EMBED_HW, EMBED_HW, 256) or \
+                not torch.isfinite(emb).all():
+            raise AssertionError(f"{name} {shape}: bad embedding")
+        if mask.shape != img.shape[:2] or mask.dtype != np.bool_:
+            raise AssertionError(f"{name} {shape}: bad mask {mask.shape}")
+        if drift > EMBED_REPEAT * scale:
+            raise AssertionError(f"{name} {shape}: set_image not repeatable")
+        out[shape] = {"encoder_ms": enc_ms, "set_image_ms": set_ms,
+                      "predict_box_ms": box_ms}
+    return out
+
+
+def card_vs_cpu(name: str, device, card, cpu, args) -> float:
+    """``card(*args)`` on the card against ``cpu(*args)`` on the CPU, the
+    same weights and fp32 inputs; raises past CARD_CPU_REL of max |out|."""
+    got = card(*(a.to(device) for a in args))
+    want = cpu(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for g, w in zip(got, want):
+        err = (g.cpu() - w).abs().max().item()
+        scale = w.abs().max().item()
+        if not torch.isfinite(g).all() or err > CARD_CPU_REL * scale:
+            raise AssertionError(f"{name}: card vs CPU {err} > "
+                                 f"{CARD_CPU_REL} x {scale}")
+        worst = max(worst, err / scale)
+    log(f"masks: {name}, card vs CPU: max |diff| / max |out| {worst:.3e} "
+        f"(bound {CARD_CPU_REL})")
+    return worst
+
+
+def cut_depth_phase(device, sams) -> dict:
+    """Full widths at cut depth on the card and on the CPU: ViT-H with one
+    windowed and one global block, XL1's widths one block a stage, and the
+    full decoder on one box."""
+    g = torch.Generator().manual_seed(24)
+    x = torch.randn(1, CHECK_SIZE, CHECK_SIZE, 3, generator=g)
+    out = {}
+    for name, mod, cfg in (
+            ("ViT-H depth 2", vit_sam, dataclasses.replace(
+                vit_sam.vit_h_config(), image_size=CHECK_SIZE, depth=2,
+                global_attn_indexes=(1,))),
+            ("XL1 one block a stage", efficientvit, dataclasses.replace(
+                efficientvit.xl1_config(), image_size=CHECK_SIZE,
+                neck_feature_hw=CHECK_SIZE // 16, depth_list=(1,) * 6,
+                neck_depth=1))):
+        cpu = mod.init_params(g, cfg, "cpu")
+        card = sam_provider.make_encoder(cfg, device)
+        card.load_state_dict(cpu.state_dict())
+        out[name] = card_vs_cpu(name, device, card, cpu, (x,))
+    sam = sams["xl1"]
+    pe_cpu, md_cpu = sam_decoder.PromptEncoder("cpu"), \
+        sam_decoder.MaskDecoder("cpu")
+    pe_cpu.load_state_dict(sam.prompt_encoder.state_dict())
+    md_cpu.load_state_dict(sam.mask_decoder.state_dict())
+    emb = torch.randn(1, 64, 64, 256, generator=g)
+    box = torch.tensor([[100.0, 200.0, 700.0, 900.0]])
+
+    def decode(pe, md):
+        def run(e, b):
+            return sam_decoder.decode_masks(
+                md, pe, e, sam_decoder.encode_boxes(pe, b, 1024.0),
+                sam_decoder.no_mask_dense(pe, 1))
+        return run
+    out["decoder"] = card_vs_cpu(
+        "decoder on one box", device,
+        decode(sam.prompt_encoder, sam.mask_decoder),
+        decode(pe_cpu, md_cpu), (emb, box))
+    return out
+
+
+@contextlib.contextmanager
+def timed(owner, attr: str, store: dict, key: str):
+    """Wrap ``owner.attr`` so that each call ends in a synchronize and its
+    host ms add up in ``store[key]``."""
+    fn = getattr(owner, attr)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        store[key] = store.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    setattr(owner, attr, wrapper)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, fn)
+
+
+def detector_phase(device, models, image) -> dict:
+    """``build_mask_provider("sam", ...)`` with the XL1 parts, CLIP B/32 and
+    a ToyTokenizer (grid 8), ``masks_for(image, ["man", "woman"])``: the
+    detector's encoder, grid decode, host selection, crops, CLIP image and
+    text, then the provider's box -> mask pass; then CLIP alone on 24
+    crops, whatever the proposals were."""
+    provider = segment.build_mask_provider(
+        "sam", sam=models["xl1"], clip_vision=models["clip_vision"],
+        clip_text=models["clip_text"], tokenizer=ToyTokenizer(49408),
+        device=device)
+    det_ = provider.box_provider
+    ms: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timed(det_.proposal_fn.predictor, "set_image", ms, "encoder"), \
+            timed(detector, "_decode_point_grid", ms, "grid_decode"), \
+            timed(det_, "proposal_fn", ms, "proposals"), \
+            timed(det_, "embed_image", ms, "clip_image"), \
+            timed(det_, "embed_texts", ms, "clip_text"), \
+            timed(det_, "assign_jointly", ms, "detect"):
+        found = provider.masks_for(image, ["man", "woman"])
+    torch.cuda.synchronize()
+    ms["masks_for"] = (time.perf_counter() - t0) * 1e3
+    ms["host_selection"] = ms["proposals"] - ms["encoder"] - \
+        ms["grid_decode"]
+    ms["crops"] = ms["detect"] - ms["proposals"] - ms.get("clip_image", 0) \
+        - ms.get("clip_text", 0)
+    ms["box_to_mask"] = ms["masks_for"] - ms["detect"]
+    props = det_._proposals
+    log(f"masks: detector: {len(props)} proposals (grid 8, random weights)"
+        + ("" if props else ": none passed the IoU/area bounds"))
+    for cls, m in zip(("man", "woman"), found):
+        log(f"masks: detector: {cls} -> "
+            + ("None" if m is None else f"mask of {int(m.sum())} pixels"))
+    crops = np.random.default_rng(25).integers(0, 256, (24, 224, 224, 3),
+                                               dtype=np.uint8)
+    ms["clip_image_24_crops"] = host_ms(lambda: det_.embed_image(crops))
+    ms["clip_texts_2_classes"] = host_ms(
+        lambda: det_.embed_texts(["man", "woman"]))
+    log("masks: detector ms: " + ", ".join(f"{k} {v:.2f}"
+                                            for k, v in ms.items()))
+    return {"proposals": len(props), "ms": ms,
+            "found": [None if m is None else int(m.sum()) for m in found]}
+
+
+def masks_phase(device, cfg, params, loras, image) -> dict:
+    """Phase 7 on phase 5's stage-1 image (copy B, 1024x1024)."""
+    torch.cuda.reset_peak_memory_stats()
+    work = work_counts()
+    models = mask_models(device)
+    tall = np.random.default_rng(26).integers(0, 256, (1216, 832, 3),
+                                              dtype=np.uint8)
+    images = {"1024x1024": image, "1216x832": tall}
+    rec = {name: predictor_phase(name, models[name], images)
+           for name in ("vit_h", "xl1")}
+    rec["card_vs_cpu"] = cut_depth_phase(device, models)
+    rec["detector"] = detector_phase(device, models, image)
+    rec["work"] = work
+    rec["peak_before_generate_gib"] = \
+        torch.cuda.max_memory_allocated() / 2**30
+    log(f"masks: peak memory before generate "
+        f"{rec['peak_before_generate_gib']:.2f} GiB")
+    provider = sam_provider.SamMaskProvider(sam=models["vit_h"],
+                                            device=device)
+    launches, res, peak = main_phase(device, cfg, params, loras, provider,
+                                     name="masks generate")
+    if not all(m is not None for m in res.masks):
+        raise AssertionError("SAM gave no mask for a concept")
+    log(f"masks generate: mask shares "
+        f"{[round(float(m.mean()), 4) for m in res.masks]}")
+    rec.update(generate_masks_s=res.timings["masks"],
+               generate_s=res.timings, launches=launches,
+               peak_gib=peak / 2**30)
+    return rec
 
 
 # ------------------------------------------------------------ --profile
@@ -580,6 +896,17 @@ def profile_phase(device) -> None:
             s2[0], t2, s2[1], text_embeds=s2[2], time_ids=s2[3],
             lora=lane_lora, control=ctl.at_step(P2P_STEP, src_lane=0,
                                                 dst_lane=2)))
+        # the mask stage's two encoders at 1024² (phase 7's models)
+        x = torch.randn(1, 1024, 1024, 3, device=device,
+                        generator=torch.Generator(device).manual_seed(27))
+        for name, cfg, seed in (("SAM ViT-H encoder", vit_sam.vit_h_config(),
+                                 20),
+                                ("EfficientViT-SAM-XL1 encoder",
+                                 efficientvit.xl1_config(), 21)):
+            sam = sam_provider.init_sam(
+                torch.Generator(device).manual_seed(seed), cfg, device)
+            _profile_forward(name, lambda: sam.image_encoder(x))
+            del sam
 
 
 # --------------------------------------------------------------- phase 6
@@ -737,7 +1064,7 @@ def main() -> int:
     kstats = kernel_phase(device)
     log("== K1b vs plain")
     sstats = seq_kernel_phase(device)
-    launches, single = single_card_phases(device)
+    launches, single, masks = single_card_phases(device)
     gc.collect()
     torch.cuda.empty_cache()
     log("== mesh")
@@ -753,6 +1080,7 @@ def main() -> int:
         "launches": launches,
         **{key: kstats[key] for key in timed},
         "timed_at": "q/k/v [%d,%d,%d,%d] bf16" % TIMED_SHAPE,
+        "masks_path_launches": masks["launches"],
         "mesh_launches_by_rank": mstats["launches"]}, {
         "name": "flash_attention_fwd_seq_local",
         "route": "cuda",
@@ -764,6 +1092,7 @@ def main() -> int:
         "timed_at": "q [%d,%d,%d,64] against k/v of %d, bf16"
                     % SEQ_TIMED_SHAPE}]}
     log("card:", power_line())
+    log(json.dumps({"masks": masks}))
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,9 @@ presets each:
   * ``sdxl_*`` — the real SDXL-base geometry;
   * ``tiny_*`` — CPU-runnable miniatures for tests.
 
-Dtypes are torch dtypes. ControlNet, resampler and CLIP-vision configs
-come with the slices that port those models.
+Dtypes are torch dtypes. The CLIP ViT-B/32 pair serves the open-vocabulary
+detector (``segment/detector.py``). ControlNet and resampler configs come
+with the slices that port those models.
 """
 
 from __future__ import annotations
@@ -71,6 +72,36 @@ class CLIPTextConfig:
     hidden_act: str = "quick_gelu"
     projection_dim: int = 0  # >0 => has text_projection (encoder 2)
     dtype: torch.dtype = torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    """CLIP ViT image tower (transformers CLIPVisionModelWithProjection),
+    the detector's crop scorer."""
+
+    image_size: int = 224
+    patch_size: int = 32
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_layers: int = 12
+    num_heads: int = 12
+    hidden_act: str = "quick_gelu"
+    projection_dim: int = 512
+    dtype: torch.dtype = torch.float32
+
+
+def clip_vit_b32_vision() -> CLIPVisionConfig:
+    """openai/clip-vit-base-patch32 image tower."""
+    return CLIPVisionConfig()
+
+
+def clip_vit_b32_text() -> CLIPTextConfig:
+    """openai/clip-vit-base-patch32 text tower: pairs with the vision tower
+    above (a 512-d shared embedding space). fp32: the detector ranks
+    cosine similarities, and the tower is small."""
+    return CLIPTextConfig(hidden_size=512, intermediate_size=2048,
+                          num_heads=8, projection_dim=512,
+                          dtype=torch.float32)
 
 
 def sdxl_unet() -> UNetConfig:

@@ -5,10 +5,14 @@ The caller hands over the JAX trees with numpy leaves
 Conversions: linear weights [in, out] -> [out, in], conv kernels
 HWIO -> OIHW, and the JAX tree's renames of diffusers modules
 (``to_out`` -> ``to_out.0``, ``ff.net_0_proj`` -> ``ff.net.0.proj``,
-``ff.net_2`` -> ``ff.net.2``). LoRA leaves keep their [in, r]/[r, out]
-layout and are keyed by the port's module paths.
+``ff.net_2`` -> ``ff.net.2``). Tables and position grids keep their
+layout (embeddings, SAM's ``pos_embed`` [1, g, g, C], rel-pos tables,
+Fourier matrix and prompt/token embeddings); a transposed-conv kernel
+[k, k, out, in] comes out as torch's [in, out, k, k] through the same
+rule as a conv. LoRA leaves keep their [in, r]/[r, out] layout and are
+keyed by the port's module paths.
 
-Both entry points put the weights on ``device``, the card unless the
+Every entry point puts the weights on ``device``, the card unless the
 caller asks for the CPU; without a CUDA device a call that names none
 raises.
 """
@@ -21,11 +25,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from omg_tpu_torch.models import clip, unet, vae
+from omg_tpu_torch.config import CLIPVisionConfig
+from omg_tpu_torch.models import clip, clip_vision, unet, vae
+from omg_tpu_torch.nn import layers
 from omg_tpu_torch.pipelines import sdxl
+from omg_tpu_torch.segment import sam_decoder, sam_provider
 
 _RENAMES = {"to_out": "to_out.0", "net_0_proj": "net.0.proj", "net_2": "net.2"}
-_EMBEDDINGS = ("token_embedding", "position_embedding")
+# modules whose weight is a table, stored [rows, dim] in both layouts
+_EMBEDDINGS = ("token_embedding", "position_embedding", "not_a_point_embed",
+               "no_mask_embed", "iou_token", "mask_tokens")
+# leaves stored as they are whatever their rank
+_AS_IS = ("pos_embed", "rel_pos_h", "rel_pos_w",
+          "positional_encoding_gaussian_matrix")
 
 
 def _flatten(tree, prefix=()):
@@ -45,11 +57,18 @@ def _torch_path(path) -> str:
     return ".".join(_RENAMES.get(str(p), str(p)) for p in path)
 
 
+def _as_is(path) -> bool:
+    return (path[-1] in _AS_IS or path[-2:-1] and path[-2] in _EMBEDDINGS
+            or path[-3:-2] == ("point_embeddings",))
+
+
 def _to_torch_layout(path, arr: np.ndarray) -> np.ndarray:
-    if arr.ndim == 4:                                   # HWIO -> OIHW
+    if _as_is(path):
+        return arr
+    if arr.ndim == 4:                               # HWIO -> OIHW
         return arr.transpose(3, 2, 0, 1)
-    if arr.ndim == 2 and not set(path[-2:-1]) & set(_EMBEDDINGS):
-        return arr.T                                    # [in, out] -> [out, in]
+    if arr.ndim == 2:                               # [in, out] -> [out, in]
+        return arr.T
     return arr
 
 
@@ -68,7 +87,10 @@ def _state_dict(tree, *, skip=()) -> dict:
 def load_into(model: nn.Module, tree, *, skip=()) -> nn.Module:
     """Copy a JAX parameter tree into ``model`` (every parameter must be
     present), cast to each parameter's dtype and device."""
-    sd = _state_dict(tree, skip=skip)
+    return _load_state(model, _state_dict(tree, skip=skip))
+
+
+def _load_state(model: nn.Module, sd: dict) -> nn.Module:
     own = model.state_dict()
     missing = set(own) - set(sd)
     unexpected = set(sd) - set(own)
@@ -83,21 +105,12 @@ def load_into(model: nn.Module, tree, *, skip=()) -> nn.Module:
     return model
 
 
-def _target(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must exist."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("from_jax: no CUDA device for the weights; pass "
-                           "device='cpu' to keep them on the CPU")
-    return device
-
-
 def sdxl_from_jax(params, cfg: sdxl.SDXLConfig, *,
                   device="cuda") -> sdxl.SDXLParams:
     """JAX ``SDXLParams`` (numpy leaves) -> the port's four modules on
     ``device``. The VAE's encoder half is dropped (the port decodes
     only)."""
-    device = _target(device)
+    device = layers.target_device(device, "from_jax")
     return sdxl.SDXLParams(
         unet=load_into(unet.UNet2DConditionModel(cfg.unet, device),
                        params.unet),
@@ -116,7 +129,7 @@ def lora_from_jax(tree: Optional[dict], *,
     ``{module_path: {"down", "up", "scale"}}`` of fp32 tensors on
     ``device``. A tree with "unet" / "text_encoder" / "text_encoder_2"
     keys converts per model."""
-    device = _target(device)
+    device = layers.target_device(device, "from_jax")
     if tree is None:
         return None
     if any(k in tree for k in ("unet", "text_encoder", "text_encoder_2")):
@@ -127,3 +140,29 @@ def lora_from_jax(tree: Optional[dict], *,
         out.setdefault(key, {})[role] = torch.tensor(
             np.asarray(arr, np.float32), device=device)
     return out
+
+
+def sam_from_jax(tree, *, cfg: Optional[sam_provider.EncoderConfig] = None,
+                 device="cuda") -> sam_provider.Sam:
+    """JAX SAM tree ``{"image_encoder", "prompt_encoder", "mask_decoder"}``
+    (numpy leaves) -> the port's ``Sam`` on ``device``. The encoder family
+    and geometry come from ``cfg``, or else from the tree
+    (``sam_provider.encoder_config``)."""
+    device = layers.target_device(device, "from_jax")
+    sd = _state_dict(tree)
+    if cfg is None:
+        pre = "image_encoder."
+        cfg = sam_provider.encoder_config(
+            {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)})
+    sam = sam_provider.Sam(sam_provider.make_encoder(cfg, device),
+                           sam_decoder.PromptEncoder(device),
+                           sam_decoder.MaskDecoder(device))
+    return _load_state(sam, sd)
+
+
+def clip_vision_from_jax(tree, cfg: CLIPVisionConfig, *,
+                         device="cuda") -> clip_vision.CLIPVisionModel:
+    """JAX CLIP vision tree (numpy leaves) -> the port's model on
+    ``device``."""
+    device = layers.target_device(device, "from_jax")
+    return load_into(clip_vision.CLIPVisionModel(cfg, device), tree)

@@ -38,7 +38,18 @@ from torch import nn
 from omg_tpu_torch.parallel import comm
 
 
-def _param(shape, dtype, device) -> nn.Parameter:
+def target_device(device, who: str) -> torch.device:
+    """``device`` as a torch.device for an entry point that defaults to the
+    card; a CUDA device must exist."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device for the weights; pass "
+                           "device='cpu' to keep them on the CPU")
+    return device
+
+
+def param(shape, dtype, device) -> nn.Parameter:
+    """An uninitialized parameter that takes no gradient."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -60,8 +71,8 @@ class Linear(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, *, bias: bool = True,
                  dtype=torch.float32, device=None):
         super().__init__()
-        self.weight = _param((out_dim, in_dim), dtype, device)
-        self.bias = _param((out_dim,), dtype, device) if bias else None
+        self.weight = param((out_dim, in_dim), dtype, device)
+        self.bias = param((out_dim,), dtype, device) if bias else None
         self.lora_key = ""      # module path; set by the model root
 
     def lora_leaf(self, lora: Optional[dict]) -> Optional[dict]:
@@ -90,8 +101,8 @@ class Conv2d(nn.Module):
                  stride: int = 1, padding: Optional[int] = None,
                  dtype=torch.float32, device=None):
         super().__init__()
-        self.weight = _param((out_ch, in_ch, kernel, kernel), dtype, device)
-        self.bias = _param((out_ch,), dtype, device)
+        self.weight = param((out_ch, in_ch, kernel, kernel), dtype, device)
+        self.bias = param((out_ch,), dtype, device)
         self.stride = stride
         self.padding = kernel // 2 if padding is None else padding
 
@@ -125,8 +136,8 @@ class GroupNorm(nn.Module):
     def __init__(self, dim: int, num_groups: int, *, eps: float = 1e-5,
                  dtype=torch.float32, device=None):
         super().__init__()
-        self.weight = _param((dim,), dtype, device)
-        self.bias = _param((dim,), dtype, device)
+        self.weight = param((dim,), dtype, device)
+        self.bias = param((dim,), dtype, device)
         self.num_groups = num_groups
         self.eps = eps
 
@@ -155,8 +166,8 @@ class LayerNorm(nn.Module):
     def __init__(self, dim: int, *, eps: float = 1e-5, dtype=torch.float32,
                  device=None):
         super().__init__()
-        self.weight = _param((dim,), dtype, device)
-        self.bias = _param((dim,), dtype, device)
+        self.weight = param((dim,), dtype, device)
+        self.bias = param((dim,), dtype, device)
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -168,7 +179,7 @@ class Embedding(nn.Module):
     def __init__(self, num: int, dim: int, *, dtype=torch.float32,
                  device=None):
         super().__init__()
-        self.weight = _param((num, dim), dtype, device)
+        self.weight = param((num, dim), dtype, device)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return F.embedding(ids, self.weight)

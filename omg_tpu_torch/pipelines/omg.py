@@ -2,10 +2,14 @@
 ``omg_tpu/pipelines/omg.py``).
 
 ``OMG.generate`` encodes the prompts, runs stage 1, asks the mask
-provider for per-concept masks on the stage-1 image, runs stage 2 with
-region fusion and decodes. It runs the two-concept LoRA path with Euler;
-the ControlNet, InstantID, DeepCache and scheduler options of the JAX
-signature raise ``NotImplementedError`` until their slices land.
+provider for per-concept masks on the stage-1 image (copy B, uint8), runs
+stage 2 with region fusion and decodes. The provider is any callable;
+``segment.build_mask_provider`` builds the port's own (SAM over
+EfficientViT-SAM or the SAM ViT, optionally with the SAM-proposal x CLIP
+detector), whose device work ``timings["masks"]`` covers. It runs the
+two-concept LoRA path with Euler; the ControlNet, InstantID, DeepCache
+and scheduler options of the JAX signature raise ``NotImplementedError``
+until their slices land.
 
 ``OMG(mesh=...)`` is the multi-device latency mode: every rank of the
 mesh builds the engine over its own copy of the same weights and calls

@@ -1,5 +1,5 @@
-"""The port stands without jax, and its chip smoke refuses to run on a
-machine without a CUDA device."""
+"""The port stands without jax (and without PIL), and its chip smoke
+refuses to run on a machine without a CUDA device."""
 
 import os
 import pathlib
@@ -23,8 +23,12 @@ def test_port_never_imports_jax():
             "import omg_tpu_torch.ops.flash_attention\n"
             "import omg_tpu_torch.parallel.launch\n"
             "import omg_tpu_torch.parallel.mesh\n"
-            "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'omg_tpu'))\n"
+            "import omg_tpu_torch.segment, omg_tpu_torch.segment.detector\n"
+            "import omg_tpu_torch.segment.detector_eval\n"
+            "import omg_tpu_torch.segment.sam_provider\n"
+            "import omg_tpu_torch.models.clip_vision\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'omg_tpu', 'PIL'))\n"
             "assert not bad, bad\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr

@@ -74,7 +74,7 @@ def numpy_params(init, cfg, seed=0):
 
     def leaf(path, s):
         names = [str(getattr(p, "key", "")) for p in path]
-        if "embedding" in names[-2]:
+        if len(names) > 1 and "embedding" in names[-2]:
             return normal(rng, *s.shape, scale=0.02)
         if len(s.shape) >= 2:
             fan_in = int(np.prod(s.shape[:-1]))
@@ -83,6 +83,26 @@ def numpy_params(init, cfg, seed=0):
         return base + normal(rng, *s.shape, scale=0.1)
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def positive_variances(tree):
+    """BatchNorm running variances of a numpy_params tree made positive."""
+    def fix(path, x):
+        last = str(getattr(path[-1], "key", ""))
+        return np.abs(x) + 0.5 if last == "running_var" else x
+    return jax.tree_util.tree_map_with_path(fix, tree)
+
+
+def sam_numpy(enc_init, enc_cfg, seed=0):
+    """A JAX SAM tree {"image_encoder", "prompt_encoder", "mask_decoder"}
+    with numpy_params leaves; ``enc_init(key, cfg)`` picks the family."""
+    from omg_tpu.segment import sam_decoder as jdec
+    return {"image_encoder": positive_variances(
+                numpy_params(enc_init, enc_cfg, seed)),
+            "prompt_encoder": numpy_params(
+                lambda k, _: jdec.init_prompt_encoder(k), None, seed + 1),
+            "mask_decoder": numpy_params(
+                lambda k, _: jdec.init_mask_decoder(k), None, seed + 2)}
 
 
 def tiny_sdxl_numpy(seed=0):
