@@ -11,7 +11,8 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      instantiation (head dim, query rows per CTA), ptxas's registers and
      spills.
   3. kernel  — K1 vs its plain PyTorch version on seeded bf16 inputs
-     at the UNet's self-attention shapes; for every shape the error
+     at the UNet's and the ControlNets' self-attention shapes (batch 1,
+     2, 3, 4 and 7); for every shape the error
      bound, kernel / plain / SDPA (the library yardstick, never called by
      the port) ms per call, the bound (the larger of FLOPs over the bf16
      peak and bytes over the memory rate) and the kernel's share of it;
@@ -38,20 +39,35 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      the SAM-proposal x CLIP detector through ``build_mask_provider``;
      then ``OMG.generate`` as in phase 5 with ``SamMaskProvider`` over
      ViT-H (whole-image box): both masks, 5880 kernel launches.
+  8. conditioned — run after phase 7 while the SDXL weights are live, at
+     1024x1024 with random weights from seeds (every zero-conv head
+     non-zero): (a) one SDXL ControlNet forward at b=3 (the stage-2 base
+     rows) through K1 and through the plain attention, residuals within
+     MODEL_REL_BOUND and non-zero, 34 launches; (b) BASELINE config #3:
+     ``generate`` as in phase 5 with a spatial ControlNet (a seeded
+     condition image, scale 1.0, the whole window): 8736 launches, a
+     stage-2 image unlike phase 5's; (c) config #4: ``generate`` with
+     ``InstantIDModels`` (the InstantID resampler, IP layers on all 70
+     attn2, an IdentityNet, two seeded 512-d face embeddings, a
+     ``draw_kps`` image, guidance 3.0, IP and IdentityNet scales 0.8):
+     7036 launches; (d) DDIM and DPM++2M at 25 steps and LCM at 4 (twice,
+     identical images). Each run: phase seconds, peak memory, launches
+     (with K1's launches by shape).
   6. mesh    — the multi-device latency mode, ``OMG(mesh=...)``, on 2 ranks
      that share this card through ``gloo`` (mesh data=1, model=2): the
      same seeded weights on both (checked), one H-split stage-1 UNet
      forward and one lane-split 8-lane stage-2 forward against the
      unsharded ones, then ``generate`` as in phase 5: 3500 K1b and 2380
      K1 launches per rank, identical images on both ranks.
-The last three lines are JSON records of the mask stage and of the
-kernels, and ``{"ok": true, "device": {...}}``.
+The last four lines are JSON records of the mask stage, of phase 8 and
+of the kernels, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
 
 runs phases 1 and 2, then profiles one stage-1 UNet forward (2 lanes),
-one stage-2 forward (7 lanes, LoRA lanes, P2P) and phase 7's two SAM
-image encoders at 1024² with ``torch.profiler``: wall time, kernel time,
+one stage-2 forward (7 lanes, LoRA lanes, P2P), one ControlNet forward
+(3 lanes) and phase 7's two SAM image encoders at 1024² with
+``torch.profiler``: wall time, kernel time,
 K1's share, the device's idle share, host microseconds per K1 launch and
 the largest kernels.
 """
@@ -70,10 +86,11 @@ import time
 import numpy as np
 import torch
 
-from omg_tpu_torch import config, lora as lora_lib, segment
+from omg_tpu_torch import config, instantid, lora as lora_lib, segment
 from omg_tpu_torch.control import p2p
 from omg_tpu_torch.diffusion import schedulers
-from omg_tpu_torch.models import clip, clip_vision
+from omg_tpu_torch.models import (clip, clip_vision, controlnet, resampler,
+                                  unet as unet_lib)
 from omg_tpu_torch.ops import flash_attention as fa
 from omg_tpu_torch.parallel import comm, launch, mesh as mesh_lib
 from omg_tpu_torch.pipelines import multiconcept, omg as omg_lib, sdxl
@@ -100,6 +117,24 @@ MESH_RANKS = 2
 MESH_SEQ_LAUNCHES = STEPS * LAUNCHES_PER_FORWARD
 MESH_LAUNCHES = (STEPS - 16) * LAUNCHES_PER_FORWARD
 MESH_TIMEOUT_S = 900
+
+
+def path_launches(steps: int, per_step_1: int, per_step_2: int) -> int:
+    """K1 launches of one ``generate``: every stage-1 step and the stage-2
+    steps after fusion_start = round(steps * 15 / 50)."""
+    return steps * per_step_1 + (steps - round(steps * 15 / 50) - 1) * \
+        per_step_2
+
+
+# Phase 8. A ControlNet forward takes K1 in its 34 self-attentions: level 1
+# has 2 blocks of depth 2 (4096 tokens), level 2 2 blocks of depth 10
+# and the mid block 10 (1024 tokens).
+CN_LAUNCHES = 34
+# Config #3: the spatial ControlNet runs on every step of both stages.
+CN_PATH_LAUNCHES = path_launches(STEPS, 70 + CN_LAUNCHES, 70 + CN_LAUNCHES)
+# Config #4: the IdentityNet runs on the 4 concept lanes in stage 2 only.
+IID_PATH_LAUNCHES = path_launches(STEPS, 70, 70 + CN_LAUNCHES)
+SCHEDULER_RUNS = (("ddim", 25), ("dpmpp_2m", 25), ("lcm", 4))
 
 # Kernel vs plain, bf16 in and out: bf16 keeps 8 mantissa bits. The
 # kernel rounds the unnormalized probabilities to bf16 before P.V and
@@ -129,7 +164,12 @@ PEAK_FP32_FLOPS = 67e12
 
 KERNEL_SHAPES = [  # (B, H, N, D): main-path, bucket, D=128, ragged tiles
     (2, 10, 4096, 64), (7, 10, 4096, 64), (2, 20, 1024, 64),
-    (7, 20, 1024, 64), (2, 10, 3952, 64), (2, 20, 988, 64),
+    (7, 20, 1024, 64),
+    # the ControlNets: guess mode's cond row, the stage-2 base rows, the
+    # IdentityNet on the 4 concept lanes
+    (1, 10, 4096, 64), (3, 10, 4096, 64), (4, 10, 4096, 64),
+    (1, 20, 1024, 64), (3, 20, 1024, 64), (4, 20, 1024, 64),
+    (2, 10, 3952, 64), (2, 20, 988, 64),
     (2, 20, 960, 64), (2, 20, 1008, 64), (2, 10, 3840, 64),
     (2, 10, 1024, 128), (2, 20, 1088, 64), (2, 20, 1025, 64)]
 TIMED_SHAPE = (7, 10, 4096, 64)
@@ -292,20 +332,22 @@ def host_cost(device) -> None:
         f"{encode_us:.1f} us of it encoding the three tensor maps")
 
 
-def kernel_phase(device) -> dict:
-    """The timed shape's numbers, with the worst error of all shapes."""
+def kernel_phase(device) -> tuple:
+    """(the timed shape's numbers with the worst error of all shapes, every
+    shape's numbers keyed "B,H,N,D")."""
     g = torch.Generator(device).manual_seed(0)
-    worst, timed = 0.0, None
+    worst, timed, by_shape = 0.0, None, {}
     for b, h, n, d in KERNEL_SHAPES:
         q, k, v = (torch.randn(b, h, n, d, generator=g, device=device,
                                dtype=torch.bfloat16) for _ in range(3))
         res = _check_kernel(fa.flash_attention, f"[{b},{h},{n},{d}]", q, k, v)
         worst = max(worst, res["max_abs_err"])
+        by_shape[f"{b},{h},{n},{d}"] = res
         if (b, h, n, d) == TIMED_SHAPE:
             timed = res
         del q, k, v
     host_cost(device)
-    return dict(timed, max_abs_err=worst)
+    return dict(timed, max_abs_err=worst), by_shape
 
 
 def seq_kernel_phase(device) -> dict:
@@ -455,14 +497,34 @@ def left_right_masks(image, cls):
     return m
 
 
-def generate(engine, loras):
-    return engine.generate(
-        "photo of the man and the woman at the beach",
-        negative_prompt="ugly",
-        prompt_rewrite="[photo of the man]-*-[ugly]|"
-                       "[photo of the woman]-*-[ugly]",
-        concept_loras=loras, seed=SEED, height=HEIGHT, width=WIDTH,
-        guidance_scale=7.5, num_steps=STEPS)
+def generate(engine, loras, **overrides):
+    kw = dict(negative_prompt="ugly",
+              prompt_rewrite="[photo of the man]-*-[ugly]|"
+                             "[photo of the woman]-*-[ugly]",
+              concept_loras=loras, seed=SEED, height=HEIGHT, width=WIDTH,
+              guidance_scale=7.5, num_steps=STEPS)
+    kw.update(overrides)
+    return engine.generate("photo of the man and the woman at the beach",
+                           **kw)
+
+
+@contextlib.contextmanager
+def launch_shapes(store: dict):
+    """Tally K1's launches by q shape (beside ``fa.LAUNCHES``)."""
+    launch = fa._launch
+
+    def tally(q, k, v, *, seq_local):
+        out = launch(q, k, v, seq_local=seq_local)
+        if not seq_local:
+            key = ",".join(map(str, q.shape))
+            store[key] = store.get(key, 0) + 1
+        return out
+
+    fa._launch = tally
+    try:
+        yield
+    finally:
+        fa._launch = launch
 
 
 def check_result(res, latents: dict) -> None:
@@ -479,35 +541,40 @@ def check_result(res, latents: dict) -> None:
 
 
 def main_phase(device, cfg, params, loras, provider=left_right_masks,
-               name: str = "main") -> tuple:
-    """Run ``OMG.generate`` once with ``provider``; returns (kernel
-    launches, result, peak bytes)."""
+               name: str = "main", expect: int = MAIN_PATH_LAUNCHES,
+               shapes: dict = None, **overrides) -> tuple:
+    """Run ``OMG.generate`` once with ``provider`` (and ``overrides`` of
+    phase 5's arguments), counts zeroed just before and read just after;
+    raises unless K1 launched ``expect`` times. Returns (kernel launches,
+    result, peak bytes); ``shapes`` gets the launches by q shape."""
     tok = ToyTokenizer(cfg.text_encoder.vocab_size)
     engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok,
                          tokenizer_2=tok, mask_provider=provider,
                          num_steps=STEPS)
     latents: dict = {}
+    by_shape: dict = {} if shapes is None else shapes
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = 0
     t0 = time.perf_counter()
-    with record_latents(latents):
-        res = generate(engine, loras)
+    with record_latents(latents), launch_shapes(by_shape):
+        res = generate(engine, loras, **overrides)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = fa.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     check_result(res, latents)
-    if launches != MAIN_PATH_LAUNCHES:
-        raise AssertionError(f"kernel launches in generate: {launches}, "
-                             f"want {MAIN_PATH_LAUNCHES}")
+    if launches != expect:
+        raise AssertionError(f"{name}: kernel launches in generate: "
+                             f"{launches}, want {expect}")
     tm = res.timings
     log(f"{name}: stage1 {tm['stage1']:.3f} s, masks {tm['masks']:.3f} s, "
         f"stage2 {tm['stage2']:.3f} s, decode {tm['decode']:.3f} s, "
         f"encode {tm['encode']:.3f} s, total {total:.3f} s")
-    log(f"{name}: kernel launches {launches}; peak memory "
-        f"{peak / 2**30:.2f} GiB; masks {[m is not None for m in res.masks]};"
-        f" image mean {res.image.mean():.2f} std {res.image.std():.2f}")
+    log(f"{name}: kernel launches {launches} (by q shape {by_shape}); peak "
+        f"memory {peak / 2**30:.2f} GiB; masks "
+        f"{[m is not None for m in res.masks]}; image mean "
+        f"{res.image.mean():.2f} std {res.image.std():.2f}")
     return launches, res, peak
 
 
@@ -527,8 +594,9 @@ def weights(device):
 
 
 def single_card_phases(device) -> tuple:
-    """Phases 4, 5 and 7; the weights are freed on return. Returns (phase
-    5's launches, phase 5's result, phase 7's record)."""
+    """Phases 4, 5, 7 and 8; the weights are freed on return. Returns
+    (phase 5's launches, phase 5's result, phase 7's record, phase 8's
+    record)."""
     with torch.inference_mode():
         log("== weights")
         cfg, params, loras = weights(device)
@@ -538,7 +606,11 @@ def single_card_phases(device) -> tuple:
         launches, res, _ = main_phase(device, cfg, params, loras)
         log("== masks")
         masks = masks_phase(device, cfg, params, loras, res.stage1[1])
-        return launches, res, masks
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== conditioned")
+        cond = conditioned_phase(device, cfg, params, loras, res)
+        return launches, res, masks, cond
 
 
 # --------------------------------------------------------------- phase 7
@@ -824,6 +896,153 @@ def masks_phase(device, cfg, params, loras, image) -> dict:
     return rec
 
 
+# --------------------------------------------------------------- phase 8
+
+def cn_inputs(device, cfg, b: int, seed: int) -> tuple:
+    """A ControlNet's inputs at 1024x1024: phase 4's UNet inputs and one
+    seeded condition image in [0, 1] for every lane."""
+    sample, ehs, pooled, tids = unet_inputs(device, cfg, b, seed)
+    g = torch.Generator(device).manual_seed(seed + 1)
+    cond = torch.rand(1, HEIGHT, WIDTH, 3, generator=g, device=device)
+    return sample, ehs, cond.expand(b, -1, -1, -1), pooled, tids
+
+
+def controlnet_forward_phase(device, cfg, cn) -> dict:
+    """(a) One ControlNet forward at b=3 through K1 (34 launches) and
+    through the plain attention: every residual non-zero, finite and
+    within MODEL_REL_BOUND of its max."""
+    sample, ehs, cond, pooled, tids = cn_inputs(device, cfg, 3, seed=5)
+    t = int(schedulers.make_schedule("euler", STEPS).timesteps[P2P_STEP])
+
+    def forward():
+        return cn(sample, t, ehs, cond, text_embeds=pooled, time_ids=tids,
+                  conditioning_scale=1.0)
+
+    fa.LAUNCHES = 0
+    down, mid = forward()
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES
+    with plain_attention():
+        down_p, mid_p = forward()
+    torch.cuda.synchronize()
+    if launches != CN_LAUNCHES or fa.LAUNCHES != launches:
+        raise AssertionError(f"kernel launches per ControlNet forward: "
+                             f"{launches}, want {CN_LAUNCHES}")
+    worst = 0.0
+    for j, (r, r_p) in enumerate(zip(down + [mid], down_p + [mid_p])):
+        scale = r_p.float().abs().max().item()
+        err = (r.float() - r_p.float()).abs().max().item()
+        if not (torch.isfinite(r).all() and torch.isfinite(r_p).all()):
+            raise AssertionError(f"ControlNet residual {j} not finite")
+        if scale == 0.0:
+            raise AssertionError(f"ControlNet residual {j} is zero")
+        if err > MODEL_REL_BOUND * scale:
+            raise AssertionError(f"ControlNet residual {j} disagrees: {err} "
+                                 f"> {MODEL_REL_BOUND} x {scale}")
+        worst = max(worst, err / scale)
+    ms = host_ms(forward)
+    log(f"conditioned: ControlNet forward at b=3: {launches} launches, "
+        f"{len(down)} + 1 residuals, kernel vs plain max |diff| / max |res| "
+        f"{worst:.3e} (bound {MODEL_REL_BOUND}); {ms:.2f} ms (median of 3)")
+    return {"launches": launches, "rel_err": worst, "ms": ms}
+
+
+def face_kps(cx: float, cy: float) -> np.ndarray:
+    """Five keypoints (eyes, nose, mouth corners) of a face centred at
+    (cx, cy) on the 1024² canvas."""
+    return np.float32([[cx - 40, cy - 30], [cx + 40, cy - 30], [cx, cy + 5],
+                       [cx - 30, cy + 45], [cx + 30, cy + 45]])
+
+
+def _run_record(launches, res, peak, shapes) -> dict:
+    return {"launches": launches, "timings": res.timings,
+            "total_s": sum(res.timings.values()), "peak_gib": peak / 2**30,
+            "launches_by_shape": shapes}
+
+
+def conditioned_phase(device, cfg, params, loras, single) -> dict:
+    """Phase 8 on the live SDXL weights; ``single`` is phase 5's result."""
+    rec: dict = {}
+    t0 = time.perf_counter()
+    cn = controlnet.init_params(torch.Generator(device).manual_seed(30),
+                                config.sdxl_controlnet())
+    torch.cuda.synchronize()
+    log(f"conditioned: SDXL ControlNet built in {time.perf_counter() - t0:.2f}"
+        f" s, {n_params(cn) / 1e9:.3f} B parameters")
+    rec["controlnet_forward"] = controlnet_forward_phase(device, cfg, cn)
+
+    # (b) config #3
+    cond = np.random.default_rng(35).integers(0, 256, (HEIGHT, WIDTH, 3),
+                                              dtype=np.uint8)
+    shapes: dict = {}
+    launches, res, peak = main_phase(
+        device, cfg, params, loras, name="config #3 (ControlNet)",
+        expect=CN_PATH_LAUNCHES, shapes=shapes, controlnet_params=cn,
+        spatial_condition=cond, controlnet_scale=1.0)
+    diff = np.abs(res.stage2.astype(int) - single.stage2.astype(int))
+    log(f"config #3: stage-2 image vs phase 5's: max |diff| {diff.max()}, "
+        f"mean {diff.mean():.3f}")
+    if diff.max() == 0:
+        raise AssertionError("the ControlNet left the stage-2 image as it was")
+    rec["config3"] = _run_record(launches, res, peak, shapes)
+    del cn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) config #4
+    t0 = time.perf_counter()
+    iid = omg_lib.InstantIDModels(
+        resampler_cfg=config.instantid_resampler(),
+        resampler_params=resampler.init_params(
+            torch.Generator(device).manual_seed(31),
+            config.instantid_resampler()),
+        ip_adapter_layers=unet_lib.init_ip_layers(
+            torch.Generator(device).manual_seed(32), cfg.unet),
+        identitynet_params=controlnet.init_params(
+            torch.Generator(device).manual_seed(33), config.sdxl_controlnet()),
+        identitynet_cfg=config.sdxl_controlnet(), ip_scale=0.8,
+        identitynet_scale=0.8)
+    torch.cuda.synchronize()
+    log(f"conditioned: InstantID stack built in {time.perf_counter() - t0:.2f}"
+        f" s: resampler {n_params(iid.resampler_params) / 1e6:.1f} M, "
+        f"{len(iid.ip_adapter_layers)} IP layers "
+        f"{n_params(iid.ip_adapter_layers) / 1e6:.1f} M, IdentityNet "
+        f"{n_params(iid.identitynet_params) / 1e9:.3f} B parameters")
+    rng = np.random.default_rng(36)
+    faces = [rng.standard_normal(512).astype(np.float32) for _ in range(2)]
+    kps = instantid.draw_kps(HEIGHT, WIDTH, [face_kps(300, 380),
+                                             face_kps(724, 380)])
+    shapes = {}
+    launches, res, peak = main_phase(
+        device, cfg, params, [], name="config #4 (InstantID)",
+        expect=IID_PATH_LAUNCHES, shapes=shapes, instantid=iid,
+        face_embeddings=faces, face_kps_image=kps, guidance_scale=3.0)
+    rec["config4"] = _run_record(launches, res, peak, shapes)
+    del iid
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the other schedulers
+    for kind, steps in SCHEDULER_RUNS:
+        shapes = {}
+        launches, res, peak = main_phase(
+            device, cfg, params, loras, name=f"{kind} {steps} steps",
+            expect=path_launches(steps, 70, 70), shapes=shapes,
+            scheduler=kind, num_steps=steps)
+        rec[kind] = _run_record(launches, res, peak, shapes)
+        if kind == "lcm":
+            again = main_phase(device, cfg, params, loras,
+                               name="lcm again", expect=launches,
+                               scheduler=kind, num_steps=steps)[1]
+            for name in ("stage1", "stage2"):
+                if not np.array_equal(getattr(again, name),
+                                      getattr(res, name)):
+                    raise AssertionError(f"LCM {name} differs between two "
+                                         "runs with one seed")
+            log("lcm: two runs with one seed gave identical images")
+    return rec
+
+
 # ------------------------------------------------------------ --profile
 
 def _profile_forward(name: str, forward) -> None:
@@ -896,6 +1115,12 @@ def profile_phase(device) -> None:
             s2[0], t2, s2[1], text_embeds=s2[2], time_ids=s2[3],
             lora=lane_lora, control=ctl.at_step(P2P_STEP, src_lane=0,
                                                 dst_lane=2)))
+        cn = controlnet.init_params(torch.Generator(device).manual_seed(30),
+                                    config.sdxl_controlnet())
+        c3 = cn_inputs(device, cfg, 3, seed=5)
+        _profile_forward("ControlNet (3 lanes)", lambda: cn(
+            c3[0], t2, c3[1], c3[2], text_embeds=c3[3], time_ids=c3[4]))
+        del cn
         # the mask stage's two encoders at 1024² (phase 7's models)
         x = torch.randn(1, 1024, 1024, 3, device=device,
                         generator=torch.Generator(device).manual_seed(27))
@@ -1061,10 +1286,13 @@ def main() -> int:
         profile_phase(device)
         return 0
     log("== kernel vs plain")
-    kstats = kernel_phase(device)
+    kstats, by_shape = kernel_phase(device)
     log("== K1b vs plain")
     sstats = seq_kernel_phase(device)
-    launches, single, masks = single_card_phases(device)
+    launches, single, masks, cond = single_card_phases(device)
+    cond["k1_by_shape"] = {key: by_shape[key] for key in (
+        "1,10,4096,64", "3,10,4096,64", "4,10,4096,64", "1,20,1024,64",
+        "3,20,1024,64", "4,20,1024,64")}
     gc.collect()
     torch.cuda.empty_cache()
     log("== mesh")
@@ -1081,6 +1309,9 @@ def main() -> int:
         **{key: kstats[key] for key in timed},
         "timed_at": "q/k/v [%d,%d,%d,%d] bf16" % TIMED_SHAPE,
         "masks_path_launches": masks["launches"],
+        "conditioned_path_launches": {
+            name: cond[name]["launches"]
+            for name in ("config3", "config4", "ddim", "dpmpp_2m", "lcm")},
         "mesh_launches_by_rank": mstats["launches"]}, {
         "name": "flash_attention_fwd_seq_local",
         "route": "cuda",
@@ -1093,6 +1324,7 @@ def main() -> int:
                     % SEQ_TIMED_SHAPE}]}
     log("card:", power_line())
     log(json.dumps({"masks": masks}))
+    log(json.dumps({"conditioned": cond}))
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,12 @@
 """Model/architecture configs (port of ``omg_tpu/config.py``).
 
-One dataclass per model family of the two-concept LoRA path, with two
-presets each:
-  * ``sdxl_*`` — the real SDXL-base geometry;
+One dataclass per model family, with two presets each:
+  * ``sdxl_*`` (and ``instantid_resampler``) — the real geometry;
   * ``tiny_*`` — CPU-runnable miniatures for tests.
 
 Dtypes are torch dtypes. The CLIP ViT-B/32 pair serves the open-vocabulary
-detector (``segment/detector.py``). ControlNet and resampler configs come
-with the slices that port those models.
+detector (``segment/detector.py``); the ControlNet and resampler configs
+serve the conditioned paths (BASELINE configs #3 and #4).
 """
 
 from __future__ import annotations
@@ -104,6 +103,36 @@ def clip_vit_b32_text() -> CLIPTextConfig:
                           dtype=torch.float32)
 
 
+@dataclasses.dataclass(frozen=True)
+class ControlNetConfig:
+    """ControlNet-SDXL geometry: the UNet's encoder half, a conditioning
+    embedder and zero-conv heads. Serves the spatial ControlNets
+    (openpose/canny/depth) and InstantID's IdentityNet alike (the same
+    architecture, conditioned on a face-keypoint image with the
+    image-prompt tokens as encoder_hidden_states)."""
+
+    unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
+    conditioning_channels: int = 3
+    conditioning_embedding_out_channels: Sequence[int] = (16, 32, 96, 256)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResamplerConfig:
+    """IP-Adapter Perceiver resampler. InstantID's preset: dim 1280, depth
+    4, 20 heads of 64, 16 latent tokens, a 512-d ArcFace embedding in,
+    cross_attention_dim out."""
+
+    dim: int = 1280
+    depth: int = 4
+    dim_head: int = 64
+    heads: int = 20
+    num_queries: int = 16
+    embedding_dim: int = 512
+    output_dim: int = 2048
+    ff_mult: int = 4
+    dtype: torch.dtype = torch.bfloat16
+
+
 def sdxl_unet() -> UNetConfig:
     return UNetConfig()
 
@@ -122,6 +151,14 @@ def sdxl_text_encoder_2() -> CLIPTextConfig:
     return CLIPTextConfig(hidden_size=1280, intermediate_size=5120,
                           num_layers=32, num_heads=20, hidden_act="gelu",
                           projection_dim=1280)
+
+
+def sdxl_controlnet() -> ControlNetConfig:
+    return ControlNetConfig()
+
+
+def instantid_resampler() -> ResamplerConfig:
+    return ResamplerConfig()
 
 
 # Tiny presets: every code path (cross-attn blocks, no-attn block level,
@@ -162,3 +199,18 @@ def tiny_text_encoder_2() -> CLIPTextConfig:
                           intermediate_size=32, num_layers=2, num_heads=4,
                           max_position_embeddings=77, hidden_act="gelu",
                           projection_dim=16, dtype=torch.float32)
+
+
+def tiny_controlnet() -> ControlNetConfig:
+    # four embedder stages -> three stride-2 convs: the pixel-space
+    # condition image reduces 8x to latent resolution, as in the SDXL preset
+    return ControlNetConfig(unet=tiny_unet(),
+                            conditioning_embedding_out_channels=(8, 8, 16, 16))
+
+
+def tiny_resampler() -> ResamplerConfig:
+    # output_dim == tiny_unet's cross_attention_dim: the tokens drop
+    # straight into the concept UNet's IP cross-attention
+    return ResamplerConfig(dim=32, depth=1, dim_head=8, heads=4,
+                           num_queries=4, embedding_dim=16, output_dim=48,
+                           ff_mult=2, dtype=torch.float32)

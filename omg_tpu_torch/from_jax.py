@@ -10,7 +10,8 @@ layout (embeddings, SAM's ``pos_embed`` [1, g, g, C], rel-pos tables,
 Fourier matrix and prompt/token embeddings); a transposed-conv kernel
 [k, k, out, in] comes out as torch's [in, out, k, k] through the same
 rule as a conv. LoRA leaves keep their [in, r]/[r, out] layout and are
-keyed by the port's module paths.
+keyed by the port's module paths. The resampler keeps its upstream
+names (its ``to_out`` is a plain linear, not diffusers' ``to_out.0``).
 
 Every entry point puts the weights on ``device``, the card unless the
 caller asks for the CPU; without a CUDA device a call that names none
@@ -25,9 +26,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from omg_tpu_torch.config import CLIPVisionConfig
-from omg_tpu_torch.models import clip, clip_vision, unet, vae
-from omg_tpu_torch.nn import layers
+from omg_tpu_torch.config import (CLIPVisionConfig, ControlNetConfig,
+                                  ResamplerConfig, UNetConfig)
+from omg_tpu_torch.models import (clip, clip_vision, controlnet, resampler,
+                                  unet, vae)
+from omg_tpu_torch.nn import attention, layers
 from omg_tpu_torch.pipelines import sdxl
 from omg_tpu_torch.segment import sam_decoder, sam_provider
 
@@ -52,9 +55,9 @@ def _flatten(tree, prefix=()):
         yield from _flatten(v, prefix + (k,))
 
 
-def _torch_path(path) -> str:
+def _torch_path(path, renames=_RENAMES) -> str:
     """JAX tree path -> the port's dotted module path."""
-    return ".".join(_RENAMES.get(str(p), str(p)) for p in path)
+    return ".".join(renames.get(str(p), str(p)) for p in path)
 
 
 def _as_is(path) -> bool:
@@ -72,7 +75,7 @@ def _to_torch_layout(path, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
-def _state_dict(tree, *, skip=()) -> dict:
+def _state_dict(tree, *, skip=(), renames=_RENAMES) -> dict:
     """JAX parameter tree (numpy leaves) -> torch state_dict (numpy);
     top-level keys in ``skip`` are dropped."""
     sd = {}
@@ -80,14 +83,15 @@ def _state_dict(tree, *, skip=()) -> dict:
         if path[0] in skip:
             continue
         arr = np.asarray(leaf)
-        sd[_torch_path(path)] = _to_torch_layout(path, arr)
+        sd[_torch_path(path, renames)] = _to_torch_layout(path, arr)
     return sd
 
 
-def load_into(model: nn.Module, tree, *, skip=()) -> nn.Module:
+def load_into(model: nn.Module, tree, *, skip=(),
+              renames=_RENAMES) -> nn.Module:
     """Copy a JAX parameter tree into ``model`` (every parameter must be
     present), cast to each parameter's dtype and device."""
-    return _load_state(model, _state_dict(tree, skip=skip))
+    return _load_state(model, _state_dict(tree, skip=skip, renames=renames))
 
 
 def _load_state(model: nn.Module, sd: dict) -> nn.Module:
@@ -166,3 +170,32 @@ def clip_vision_from_jax(tree, cfg: CLIPVisionConfig, *,
     ``device``."""
     device = layers.target_device(device, "from_jax")
     return load_into(clip_vision.CLIPVisionModel(cfg, device), tree)
+
+
+def controlnet_from_jax(tree, cfg: ControlNetConfig, *,
+                        device="cuda") -> controlnet.ControlNetModel:
+    """JAX ControlNet or IdentityNet tree (numpy leaves) -> the port's
+    ``ControlNetModel`` on ``device``."""
+    device = layers.target_device(device, "from_jax")
+    return load_into(controlnet.ControlNetModel(cfg, device), tree)
+
+
+def resampler_from_jax(tree, cfg: ResamplerConfig, *,
+                       device="cuda") -> resampler.Resampler:
+    """JAX resampler tree (numpy leaves) -> the port's ``Resampler`` on
+    ``device``. The weights are taken as they are: the port's attention
+    scale differs from the JAX package's (``models/resampler.py``)."""
+    device = layers.target_device(device, "from_jax")
+    return load_into(resampler.Resampler(cfg, device), tree, renames={})
+
+
+def ip_layers_from_jax(layers_tree, cfg: UNetConfig, *,
+                       device="cuda") -> nn.ModuleList:
+    """JAX IP-Adapter layers, a list of ``{to_k_ip, to_v_ip}`` in attn2
+    order (numpy leaves) -> a ``ModuleList`` of ``IPKV`` in the UNet's
+    dtype on ``device``, the same order."""
+    device = layers.target_device(device, "from_jax")
+    mods = nn.ModuleList([attention.IPKV(
+        *np.shape(leaf["to_k_ip"]["weight"]), dtype=cfg.dtype, device=device)
+        for leaf in layers_tree])
+    return load_into(mods, list(layers_tree))

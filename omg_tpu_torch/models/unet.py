@@ -14,6 +14,13 @@ multi-device stage 1: ``sample`` holds this rank's block of latent rows,
 every conv, group norm and self-attention works across the group
 (``nn/layers.py``, ``nn/attention.py``), and the eps of the same rows
 comes back. The time embeddings are computed whole on every rank.
+
+The conditioned paths add two inputs, as in the JAX ``apply``: a
+ControlNet's residuals (``down_block_residuals``, added to the skips
+after the down blocks, ``mid_block_residual`` after the mid block; NCHW,
+the layout ``models/controlnet.py`` returns) and the IP-Adapter branch
+(``ip_adapter``: one ``IPKV`` per attn2 in traversal order, over
+``ip_context`` tokens scaled by ``ip_scale``).
 """
 
 from __future__ import annotations
@@ -25,7 +32,20 @@ from torch import nn
 
 from omg_tpu_torch.config import UNetConfig
 from omg_tpu_torch.nn import layers
-from omg_tpu_torch.nn.attention import Attention
+from omg_tpu_torch.nn.attention import IPKV, Attention
+
+
+class IPInputs:
+    """The IP-Adapter branch of one forward: each attn2, in traversal
+    order, takes the next of ``layers`` (the JAX ``_AttnCtx.ip_idx``)."""
+
+    def __init__(self, layers_, context: torch.Tensor, scale: float):
+        self._layers = iter(layers_)
+        self.context = context
+        self.scale = scale
+
+    def take(self) -> IPKV:
+        return next(self._layers)
 
 
 class ResnetBlock(nn.Module):
@@ -76,10 +96,13 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = layers.LayerNorm(dim, **kw)
         self.ff = FeedForward(dim, kw)
 
-    def forward(self, x, context, lora, control, seq=None):
+    def forward(self, x, context, lora, control, seq=None, ip=None):
         x = x + self.attn1(self.norm1(x), lora=lora, p2p=control,
                            seq_group=seq)
-        x = x + self.attn2(self.norm2(x), context, lora=lora, p2p=control)
+        kw = {} if ip is None else dict(ip=ip.take(), ip_context=ip.context,
+                                        ip_scale=ip.scale)
+        x = x + self.attn2(self.norm2(x), context, lora=lora, p2p=control,
+                           **kw)
         return x + self.ff(self.norm3(x), lora)
 
 
@@ -93,12 +116,12 @@ class Transformer2DModel(nn.Module):
              for _ in range(depth)])
         self.proj_out = layers.Linear(dim, dim, **kw)
 
-    def forward(self, x, context, lora, control, seq=None):
+    def forward(self, x, context, lora, control, seq=None, ip=None):
         b, c, hh, ww = x.shape
         h = self.norm(x, seq).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         h = self.proj_in(h, lora)
         for blk in self.transformer_blocks:
-            h = blk(h, context, lora, control, seq)
+            h = blk(h, context, lora, control, seq, ip)
         h = self.proj_out(h, lora)
         return h.reshape(b, hh, ww, c).permute(0, 3, 1, 2) + x
 
@@ -186,35 +209,28 @@ class UNet2DConditionModel(nn.Module):
 
     def time_embeddings(self, timestep, text_embeds: torch.Tensor,
                         time_ids: torch.Tensor) -> torch.Tensor:
-        """Timestep + SDXL text_time micro-conditioning -> [B, temb].
-        The sinusoids run in fp32 and are cast to the model dtype before
-        the two MLPs, as in the JAX package."""
-        cfg = self.cfg
-        b = text_embeds.shape[0]
-        t = torch.as_tensor(timestep, dtype=torch.float32,
-                            device=text_embeds.device).expand(b)
-        t_emb = layers.timestep_embedding(t, cfg.block_out_channels[0])
-        te = self.time_embedding
-        temb = te.linear_2(torch.nn.functional.silu(
-            te.linear_1(t_emb.to(cfg.dtype))))
-        ids = time_ids.float().reshape(-1)
-        id_emb = layers.timestep_embedding(
-            ids, cfg.addition_time_embed_dim).reshape(b, -1)
-        add = torch.cat([text_embeds.float(), id_emb], dim=-1)
-        ae = self.add_embedding
-        aemb = ae.linear_2(torch.nn.functional.silu(
-            ae.linear_1(add.to(cfg.dtype))))
-        return temb + aemb
+        return time_embeddings(self, self.cfg, timestep, text_embeds,
+                               time_ids)
 
     def forward(self, sample: torch.Tensor, timestep,
                 encoder_hidden_states: torch.Tensor, *,
                 text_embeds: torch.Tensor, time_ids: torch.Tensor,
                 lora: Optional[dict] = None, control=None,
-                seq_group=None) -> torch.Tensor:
+                seq_group=None, down_block_residuals=None,
+                mid_block_residual: Optional[torch.Tensor] = None,
+                ip_adapter=None, ip_context: Optional[torch.Tensor] = None,
+                ip_scale: float = 1.0) -> torch.Tensor:
         """sample: [B, h, w, 4] NHWC latents -> eps prediction, same shape.
         ``seq_group``: sample is this rank's block of rows of the latent
-        (``parallel.comm.Group``, equal blocks in group order)."""
+        (``parallel.comm.Group``, equal blocks in group order).
+        ``down_block_residuals``/``mid_block_residual``: ControlNet
+        residuals, NCHW. ``ip_adapter``: a sequence of ``IPKV``, one per
+        attn2 (``num_cross_attention_layers``), with ``ip_context``
+        [B, T, cross_attention_dim]."""
         ctx, seq = encoder_hidden_states, seq_group
+        ip = None
+        if ip_adapter is not None and ip_context is not None:
+            ip = IPInputs(ip_adapter, ip_context.to(self.cfg.dtype), ip_scale)
         temb = self.time_embeddings(timestep, text_embeds, time_ids)
         x = self.conv_in(sample.permute(0, 3, 1, 2), seq)
         residuals = [x]
@@ -222,29 +238,58 @@ class UNet2DConditionModel(nn.Module):
             for ri, res in enumerate(blk.resnets):
                 x = res(x, temb, seq)
                 if len(blk.attentions):
-                    x = blk.attentions[ri](x, ctx, lora, control, seq)
+                    x = blk.attentions[ri](x, ctx, lora, control, seq, ip)
                 residuals.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0].conv(x, seq)
                 residuals.append(x)
+        if down_block_residuals is not None:
+            residuals = [r + c.to(r.dtype)
+                         for r, c in zip(residuals, down_block_residuals)]
 
         mid = self.mid_block
         x = mid.resnets[0](x, temb, seq)
         if len(mid.attentions):
-            x = mid.attentions[0](x, ctx, lora, control, seq)
+            x = mid.attentions[0](x, ctx, lora, control, seq, ip)
         x = mid.resnets[1](x, temb, seq)
+        if mid_block_residual is not None:
+            x = x + mid_block_residual.to(x.dtype)
 
         for blk in self.up_blocks:
             for ri, res in enumerate(blk.resnets):
                 x = torch.cat([x, residuals.pop().to(x.dtype)], dim=1)
                 x = res(x, temb, seq)
                 if len(blk.attentions):
-                    x = blk.attentions[ri](x, ctx, lora, control, seq)
+                    x = blk.attentions[ri](x, ctx, lora, control, seq, ip)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0].conv(layers.upsample_nearest_2x(x), seq)
 
         x = torch.nn.functional.silu(self.conv_norm_out(x, seq))
         return self.conv_out(x, seq).permute(0, 2, 3, 1)
+
+
+def time_embeddings(model: nn.Module, cfg: UNetConfig, timestep,
+                    text_embeds: torch.Tensor,
+                    time_ids: torch.Tensor) -> torch.Tensor:
+    """Timestep + SDXL text_time micro-conditioning -> [B, temb] through
+    ``model``'s ``time_embedding``/``add_embedding`` MLPs (the UNet's or a
+    ControlNet's). The sinusoids run in fp32 and are cast to the model
+    dtype before the two MLPs, as in the JAX package."""
+    b = text_embeds.shape[0]
+    t = torch.as_tensor(timestep, dtype=torch.float32,
+                        device=text_embeds.device).expand(b)
+    t_emb = layers.timestep_embedding(t, cfg.block_out_channels[0])
+    te = model.time_embedding
+    temb = te.linear_2(torch.nn.functional.silu(
+        te.linear_1(t_emb.to(cfg.dtype))))
+    ids = time_ids.float().reshape(-1)
+    id_emb = layers.timestep_embedding(
+        ids, cfg.addition_time_embed_dim).reshape(b, -1)
+    add = torch.cat([text_embeds.float(), id_emb], dim=-1)
+    ae = model.add_embedding
+    aemb = ae.linear_2(torch.nn.functional.silu(
+        ae.linear_1(add.to(cfg.dtype))))
+    return temb + aemb
 
 
 def init_params(generator: torch.Generator, cfg: UNetConfig,
@@ -260,3 +305,20 @@ def num_cross_attention_layers(cfg: UNetConfig) -> int:
     depths = list(cfg.transformer_layers_per_block)
     return (cfg.layers_per_block * sum(depths) + depths[-1]
             + (cfg.layers_per_block + 1) * sum(depths))
+
+
+def init_ip_layers(generator: torch.Generator, cfg: UNetConfig,
+                   device=None) -> nn.ModuleList:
+    """Random IP-Adapter projections for every attn2 of a UNet of ``cfg``,
+    in traversal order, drawn from ``generator`` on ``device`` (the
+    generator's device when None)."""
+    dev = device or generator.device
+    chs, depths = cfg.block_out_channels, cfg.transformer_layers_per_block
+    lpb = cfg.layers_per_block
+    widths = ([ch for ch, d in zip(chs, depths) for _ in range(lpb * d)]
+              + [chs[-1]] * depths[-1]
+              + [ch for ch, d in zip(chs[::-1], depths[::-1])
+                 for _ in range((lpb + 1) * d)])
+    return layers.init_params(nn.ModuleList(
+        [IPKV(cfg.cross_attention_dim, w, dtype=cfg.dtype, device=dev)
+         for w in widths]), generator)

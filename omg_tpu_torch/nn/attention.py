@@ -1,11 +1,13 @@
 """Multi-head attention with OMG's control semantics as explicit inputs
 (port of ``omg_tpu/nn/attention.py``).
 
-``Attention`` takes optional LoRA deltas (the model's flat adapter dict)
-and an optional P2P step control in the O(N²)-free lane form
+``Attention`` takes optional LoRA deltas (the model's flat adapter dict),
+an optional P2P step control in the O(N²)-free lane form
 (``control/p2p.py``): q/k lane substitution before self-attention, the
-cross-attention output rewrite after it. The IP-Adapter branch comes with
-the InstantID slice.
+cross-attention output rewrite after it; and, on a cross-attention, the
+IP-Adapter's decoupled branch (``IPKV``): a second attention of the same
+queries over the image-prompt tokens, added with ``ip_scale`` after the
+P2P rewrite.
 
 Under a ``seq_group`` (the spatially split stage 1 and VAE decode) each
 rank holds one block of the token sequence. Self-attention then
@@ -73,6 +75,18 @@ def _plus_lora(y: torch.Tensor, lin: layers.Linear, inp: torch.Tensor,
     return y if leaf is None else y + layers.lora_delta(leaf, inp)
 
 
+class IPKV(nn.Module):
+    """One attn2's IP-Adapter projections over the image-prompt tokens
+    (no bias: a lane with zero tokens gets a zero branch)."""
+
+    def __init__(self, context_dim: int, inner_dim: int, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(bias=False, dtype=dtype, device=device)
+        self.to_k_ip = layers.Linear(context_dim, inner_dim, **kw)
+        self.to_v_ip = layers.Linear(context_dim, inner_dim, **kw)
+
+
 class Attention(nn.Module):
     """diffusers Attention: to_q/to_k/to_v/to_out.0 over [B, N, C]."""
 
@@ -96,9 +110,13 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 *, lora: Optional[dict] = None, p2p=None,
-                seq_group: Optional[comm.Group] = None) -> torch.Tensor:
+                seq_group: Optional[comm.Group] = None,
+                ip: Optional[IPKV] = None,
+                ip_context: Optional[torch.Tensor] = None,
+                ip_scale: float = 1.0) -> torch.Tensor:
         """``seq_group``: x holds this rank's block of the token sequence
-        (self-attention gathers K/V over the group)."""
+        (self-attention gathers K/V over the group). ``ip``/``ip_context``
+        ([B, T, C_ctx] image-prompt tokens): the decoupled IP branch."""
         is_cross = context is not None
         ctx = context if is_cross else x
         fusable = (self.to_q.bias is None and self.to_k.bias is None
@@ -138,6 +156,11 @@ class Attention(nn.Module):
             out = sdpa(qh, kh, vh)
         if p2p_active and is_cross:
             out = p2p.cross_lane_out(out, qh, kh, vh, sdpa)
+        if ip is not None and ip_context is not None:
+            ip_out = sdpa(qh, self._split_heads(ip.to_k_ip(ip_context)),
+                          self._split_heads(ip.to_v_ip(ip_context)))
+            out = out + torch.as_tensor(ip_scale, dtype=out.dtype,
+                                        device=out.device) * ip_out
 
         b, h, n, d = out.shape
         out = out.transpose(1, 2).reshape(b, n, h * d)

@@ -27,10 +27,19 @@ Multi-device latency mode (``OMG(mesh=...)``), on ``parallel/``:
     (halo rows, summed statistics, K1b on K/V gathered over the ranks);
   * stage 2's 4+2K lanes split over all ranks (``lane_sharding``); the
     eps of every lane are gathered after each forward, so region fusion,
-    CFG and the Euler step run the same on every rank.
+    CFG and the scheduler step run the same on every rank.
 
-ControlNet, IP-Adapter, DeepCache and the concept crop strips are later
-slices; asking for them raises ``NotImplementedError``.
+Conditioning on one device, in every program (the JAX package's
+``ControlNetInputs`` plumbing): a spatial ControlNet on the base lanes
+(stage 1's cond lane, stage 2's conditional rows in guess mode), the
+IdentityNet on the concept lanes, and the IP-Adapter tokens on the
+concept lanes (zero tokens on the base lanes: an exact no-op, ``to_v_ip``
+has no bias). Their residuals are summed per lane, with zero rows for
+lanes no ControlNet serves. Under the mesh layouts, and with DeepCache or
+the concept crop strips, they raise ``NotImplementedError``.
+
+The scheduler state carries LCM's noise seed; every loop steps with
+``shared_batch_noise``: the batch axis holds copies of one image.
 """
 
 from __future__ import annotations
@@ -46,10 +55,193 @@ from omg_tpu_torch.diffusion import sampling, schedulers
 from omg_tpu_torch.parallel import comm, mesh as mesh_lib
 from omg_tpu_torch.pipelines import sdxl
 
+# ROADMAP.md's item for the conditioned paths under a mesh layout.
+MESH_ITEM = "parallel/ (item 18)"
+
 
 def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to omg_tpu_torch yet (ROADMAP.md: {item})")
+
+
+class ControlNetInputs(NamedTuple):
+    """One ControlNet's weights and conditioning for a denoise run.
+
+    A spatial ControlNet (openpose/canny/depth) on the base lanes takes the
+    lanes' text embeddings (``encoder_hidden_states`` None); InstantID's
+    IdentityNet on a concept's lanes takes the face-keypoint image and the
+    concept's CFG-stacked image-prompt tokens. ``guidance_start``/``_end``:
+    at step i of S the residuals are kept only when i/S >= start and
+    (i+1)/S <= end. ``guess_mode``: residuals from the conditional rows
+    only (zeros on the uncond rows), with diffusers' log-linear depth
+    ramp."""
+    params: object                     # models.controlnet.ControlNetModel
+    cond_image: torch.Tensor           # [B or 1, H, W, C], in [0, 1]
+    scale: float | torch.Tensor = 1.0  # conditioning strength
+    encoder_hidden_states: Optional[torch.Tensor] = None
+    guidance_start: float = 0.0
+    guidance_end: float = 1.0
+    guess_mode: bool = False
+
+
+def _cn_keep(cn: ControlNetInputs, step_i: int, num_steps: int) -> float:
+    """The reference's ``controlnet_keep`` at step ``step_i``: 1.0 inside
+    the guidance window, else 0.0 (fp32 fractions, as in JAX)."""
+    f0 = np.float32(step_i) / np.float32(num_steps)
+    f1 = (np.float32(step_i) + np.float32(1.0)) / np.float32(num_steps)
+    drop = (f0 < np.float32(cn.guidance_start)
+            or f1 > np.float32(cn.guidance_end))
+    return 0.0 if drop else 1.0
+
+
+def _controlnet_residuals(cns: Sequence[ControlNetInputs], lin: torch.Tensor,
+                          t: int, prompt_embeds: torch.Tensor,
+                          text_embeds: torch.Tensor, time_ids: torch.Tensor,
+                          *, step_i: Optional[int] = None, num_steps: int = 0,
+                          cond_rows: tuple = ()) -> tuple:
+    """Run each ControlNet on the lanes ``lin`` and sum the residual
+    stacks (diffusers MultiControlNet) -> (down list, mid), NCHW, or
+    (None, None) when no ControlNet is kept at this step.
+
+    ``step_i``/``num_steps``: enable the guidance-window gate; outside its
+    window a ControlNet does not run (its residuals would be exact zeros).
+    ``cond_rows``: the conditional CFG rows of ``lin``; a guess-mode
+    ControlNet runs only those and leaves zeros on the others."""
+    down_acc = mid_acc = None
+    b = lin.shape[0]
+    for cn in cns:
+        if step_i is not None and num_steps and \
+                _cn_keep(cn, step_i, num_steps) == 0.0:
+            continue
+        if cn.guess_mode and cond_rows:
+            rows = torch.as_tensor(cond_rows, device=lin.device)
+            n = len(cond_rows)
+            ehs = cn.encoder_hidden_states
+            if ehs is not None:
+                # a CFG-stacked [uncond; cond] context conditions on its
+                # cond half only (diffusers chunk(2)[1])
+                if ehs.shape[0] == 2:
+                    ehs = ehs[1:]
+                ehs = ehs.expand((n,) + tuple(ehs.shape[1:]))
+            else:
+                ehs = prompt_embeds[rows]
+            cond = cn.cond_image.expand((n,) + tuple(cn.cond_image.shape[1:]))
+            down, mid = cn.params(lin[rows], t, ehs, cond,
+                                  text_embeds=text_embeds[rows],
+                                  time_ids=time_ids[rows],
+                                  conditioning_scale=cn.scale,
+                                  guess_mode=True)
+
+            def spread(r):
+                return r.new_zeros((b,) + tuple(r.shape[1:])).index_copy(
+                    0, rows, r)
+            down, mid = [spread(r) for r in down], spread(mid)
+        else:
+            cond = cn.cond_image.expand((b,) + tuple(cn.cond_image.shape[1:]))
+            ehs = (cn.encoder_hidden_states
+                   if cn.encoder_hidden_states is not None else prompt_embeds)
+            if ehs.shape[0] != b:
+                ehs = ehs.expand((b,) + tuple(ehs.shape[1:]))
+            down, mid = cn.params(lin, t, ehs, cond, text_embeds=text_embeds,
+                                  time_ids=time_ids,
+                                  conditioning_scale=cn.scale)
+        if down_acc is None:
+            down_acc, mid_acc = list(down), mid
+        else:
+            down_acc = [a + d for a, d in zip(down_acc, down)]
+            mid_acc = mid_acc + mid
+    return down_acc, mid_acc
+
+
+def _concept_cn_residuals(concept_controlnets: Sequence, concept_inputs,
+                          rl: torch.Tensor, t: int, tembeds: torch.Tensor,
+                          tids: torch.Tensor, *, step_i: Optional[int] = None,
+                          num_steps: int = 0) -> tuple:
+    """ControlNet residuals over all 2K concept lanes ``rl`` in one
+    forward, or (None, None) when no concept has one.
+
+    Concepts without a ControlNet get zero-scale lanes (an exact no-op);
+    each concept's scale (times its guidance-window gate) applies to its
+    own (uncond, cond) pair; in guess mode the uncond rows get scale 0.
+    Every live entry must share one model (``validate_concept_controlnets``):
+    the merged forward runs the first one's for every lane."""
+    K = len(concept_controlnets)
+    live = [cn for cn in concept_controlnets if cn is not None]
+    if not live:
+        return None, None
+    template = live[0]
+    has_ehs = [cn.encoder_hidden_states is not None for cn in live]
+    if any(has_ehs) and not all(has_ehs):
+        raise ValueError(
+            "live concept ControlNets must consistently provide "
+            "encoder_hidden_states (IdentityNet image-prompt tokens) or "
+            "consistently omit them")
+    if any(cn.guess_mode != template.guess_mode for cn in live):
+        raise ValueError(
+            "live concept ControlNets must agree on guess_mode (the "
+            "merged forward runs one program over all lanes)")
+    conds, ehs_rows, scales = [], [], []
+    for k in range(K):
+        cn = concept_controlnets[k]
+        if cn is None:
+            conds.append(template.cond_image.new_zeros(
+                (2,) + tuple(template.cond_image.shape[1:])))
+            tmpl_ehs = template.encoder_hidden_states
+            ehs_rows.append(
+                tmpl_ehs.new_zeros((2,) + tuple(tmpl_ehs.shape[1:]))
+                if tmpl_ehs is not None else concept_inputs[k].prompt_embeds)
+            scales.append(0.0)
+            continue
+        conds.append(cn.cond_image.expand((2,) + tuple(cn.cond_image.shape[1:])))
+        ehs = (cn.encoder_hidden_states if cn.encoder_hidden_states is not None
+               else concept_inputs[k].prompt_embeds)
+        ehs_rows.append(ehs.expand((2,) + tuple(ehs.shape[1:])))
+        keep = (_cn_keep(cn, step_i, num_steps)
+                if step_i is not None and num_steps else 1.0)
+        scales.append(float(cn.scale) * keep)
+    lane_scale = torch.tensor(scales, dtype=torch.float32).repeat_interleave(2)
+    if template.guess_mode:
+        # residuals on the cond rows only (lanes are (uncond, cond) pairs)
+        lane_scale = lane_scale * torch.tensor([0.0, 1.0]).repeat(K)
+    return template.params(
+        rl, t, torch.cat(ehs_rows), torch.cat(conds), text_embeds=tembeds,
+        time_ids=tids,
+        conditioning_scale=lane_scale.to(rl.device)[:, None, None, None],
+        guess_mode=template.guess_mode)
+
+
+def validate_concept_controlnets(concept_controlnets) -> None:
+    """Every live per-concept ControlNet must be one model: one
+    IdentityNet serves every concept, and the lane-merged forward runs a
+    single model over all lanes, so distinct ones would be silently
+    dropped. Checked by module identity."""
+    live = [cn for cn in (concept_controlnets or ()) if cn is not None]
+    if any(cn.params is not live[0].params for cn in live[1:]):
+        raise ValueError(
+            "per-concept ControlNets must share one model (one IdentityNet "
+            "serves every concept in the reference); got distinct models - "
+            "run them as separate pipelines or share the module")
+
+
+def _lane_residuals(base: tuple, concept: tuple, n_base: int,
+                    n_concept: int) -> tuple:
+    """Base-lane and concept-lane residuals stacked over all lanes, with
+    zero rows for the side that has none -> (down, mid) or (None, None)."""
+    (b_down, b_mid), (c_down, c_mid) = base, concept
+    if b_down is None and c_down is None:
+        return None, None
+    if b_down is None:
+        b_down, b_mid = [_zero_rows(r, n_base) for r in c_down], \
+            _zero_rows(c_mid, n_base)
+    if c_down is None:
+        c_down, c_mid = [_zero_rows(r, n_concept) for r in b_down], \
+            _zero_rows(b_mid, n_concept)
+    return ([torch.cat([b, c]) for b, c in zip(b_down, c_down)],
+            torch.cat([b_mid, c_mid]))
+
+
+def _zero_rows(r: torch.Tensor, n: int) -> torch.Tensor:
+    return r.new_zeros((n,) + tuple(r.shape[1:]))
 
 
 class ConceptInputs(NamedTuple):
@@ -92,11 +284,11 @@ def make_concept_inputs(embeds_pos, pooled_pos, embeds_neg, pooled_neg,
 
 def _concept_lane_conditioning(concept_inputs, concept_loras,
                                n_base_rows: int) -> tuple:
-    """(embeds, text_embeds, time_ids) over the 2K concept lanes, and the
-    LoRA stacked over ``n_base_rows`` base lanes (no adapter) followed by
-    the concept lanes (concept k on lanes 2k, 2k+1)."""
-    if any(ci.ip_context is not None for ci in concept_inputs):
-        raise not_ported("the IP-Adapter branch", "InstantID")
+    """(embeds, text_embeds, time_ids) over the 2K concept lanes, then the
+    LoRA and the IP tokens over ``n_base_rows`` base lanes (no adapter,
+    zero tokens) followed by the concept lanes (concept k on lanes 2k,
+    2k+1; zero tokens for a concept without a face). The IP tokens are
+    None when no concept has any."""
     K = len(concept_inputs)
     c_embeds = torch.cat([ci.prompt_embeds for ci in concept_inputs])
     c_tembeds = torch.cat([ci.text_embeds for ci in concept_inputs])
@@ -106,7 +298,16 @@ def _concept_lane_conditioning(concept_inputs, concept_loras,
         + [(concept_loras[k].get("unet", concept_loras[k])
             if concept_loras[k] is not None else None)
            for k in range(K) for _ in range(2)])
-    return c_embeds, c_tembeds, c_tids, lane_lora
+    ip_ctx = None
+    with_ip = [ci.ip_context for ci in concept_inputs
+               if ci.ip_context is not None]
+    if with_ip:
+        zeros = torch.zeros_like(with_ip[0])
+        ip_ctx = torch.cat(
+            [zeros[:1].expand((n_base_rows,) + tuple(zeros.shape[1:]))]
+            + [ci.ip_context if ci.ip_context is not None else zeros
+               for ci in concept_inputs])
+    return c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx
 
 
 class StageCache(NamedTuple):
@@ -151,7 +352,7 @@ def _denoise_cfg_range_spatial(sched: schedulers.Schedule, unet,
                                i0: int, i1: int, spatial: Spatial) -> tuple:
     """``_denoise_cfg_range`` under a ``Spatial`` layout. Each rank runs
     its CFG lanes on its block of latent rows; the eps of both lanes are
-    gathered over the data axis, so CFG and the Euler step run on the
+    gathered over the data axis, so CFG and the scheduler step run on the
     rank's rows, and the rows are gathered over the model axis at the
     end: every rank returns the whole latents."""
     lanes, seq = _spatial_ctx(spatial)
@@ -172,7 +373,15 @@ def _denoise_cfg_range_spatial(sched: schedulers.Schedule, unet,
                    time_ids=tids2[lo:hi], seq_group=seq)
         eps = comm.all_gather(eps, 0, lanes.group, sizes=lanes.sizes)
         guided = sampling.cfg_combine(eps, guidance)
-        x, st = schedulers.step(sched, st, guided, i, x)
+        noise = None
+        if seq is not None and sched.kind == "lcm" and \
+                st.noise_seed is not None:
+            # the whole latent's draw, this rank's rows of it
+            noise = schedulers.step_noise(
+                st.noise_seed, i, (1,) + tuple(latents.shape[1:]),
+                x.device)[:, seq.index * rows:(seq.index + 1) * rows]
+        x, st = schedulers.step(sched, st, guided, i, x, noise=noise,
+                                shared_batch_noise=True)
     if seq is not None:
         x = comm.all_gather(x, 1, seq)
     return x, st
@@ -183,18 +392,22 @@ def _denoise_cfg_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                        state: schedulers.SchedulerState,
                        base_inputs: BaseInputs, *, i0: int, i1: int,
                        record_traj: bool = False,
-                       spatial: Optional[Spatial] = None) -> tuple:
+                       spatial: Optional[Spatial] = None,
+                       base_controlnets: Sequence = ()) -> tuple:
     """Plain b=1 CFG denoise over steps [i0, i1) on rows [uncond, cond].
 
     ``record_traj`` also returns each step's input latent stacked
     [i1-i0, 1, h, w, 4] (copy A's stage-2 lane inputs). ``spatial``: the
     multi-device layout (``_denoise_cfg_range_spatial``); it records no
-    trajectory."""
+    trajectory. ``base_controlnets``: spatial ControlNets on both rows
+    (row 1 is the conditional one for guess mode)."""
     rows = [0, 2]
     embeds2 = base_inputs.prompt_embeds[rows]
     tembeds2 = base_inputs.text_embeds[rows]
     tids2 = base_inputs.time_ids[rows]
     if spatial is not None:
+        if base_controlnets:
+            raise not_ported("ControlNet under the mesh layout", MESH_ITEM)
         if record_traj:
             raise ValueError("the spatial stage-1 layout records no "
                              "trajectory (its stage 2 is the 4+2K program)")
@@ -208,9 +421,14 @@ def _denoise_cfg_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
             traj.append(x)
         t = int(sched.timesteps[i])
         lin = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
-        eps = unet(lin, t, embeds2, text_embeds=tembeds2, time_ids=tids2)
+        down, mid = _controlnet_residuals(
+            base_controlnets, lin, t, embeds2, tembeds2, tids2, step_i=i,
+            num_steps=sched.num_steps, cond_rows=(1,))
+        eps = unet(lin, t, embeds2, text_embeds=tembeds2, time_ids=tids2,
+                   down_block_residuals=down, mid_block_residual=mid)
         guided = sampling.cfg_combine(eps, base_inputs.guidance_scale)
-        x, st = schedulers.step(sched, st, guided, i, x)
+        x, st = schedulers.step(sched, st, guided, i, x,
+                                shared_batch_noise=True)
     if not record_traj:
         return x, st
     traj = (torch.stack(traj) if traj else
@@ -224,15 +442,23 @@ def _denoise_mc_range_traj(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                            a_traj: torch.Tensor, base_inputs: BaseInputs,
                            controller, concept_inputs, concept_loras,
                            masks: torch.Tensor, *, i0: int,
-                           fusion_start: int = regions.FUSION_START_STEP
+                           fusion_start: int = regions.FUSION_START_STEP,
+                           concept_ip_adapters: Sequence = (),
+                           ip_scale: float = 1.0,
+                           base_controlnets: Sequence = (),
+                           concept_controlnets: Sequence = ()
                            ) -> torch.Tensor:
     """Stage-2 suffix over steps [i0, S) with copy A as one
     trajectory-fed lane: lanes [cond_A, uncond_B, cond_B, c1_unc,
-    c1_cond, c2_unc, ...]. latent_b: [1, h, w, 4] -> copy B's final."""
+    c1_cond, c2_unc, ...]. latent_b: [1, h, w, 4] -> copy B's final.
+
+    The base ControlNets run on lanes [:3] (rows 0 and 2 conditional), the
+    concept ControlNets (IdentityNet) on the 2K concept lanes."""
     K = len(concept_inputs)
     bidx = [2, 1, 3]    # [cond_A, uncond_B, cond_B] of the 4-row layout
-    c_embeds, c_tembeds, c_tids, lane_lora = _concept_lane_conditioning(
-        concept_inputs, concept_loras, 3)
+    c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx = \
+        _concept_lane_conditioning(concept_inputs, concept_loras, 3)
+    ipk = concept_ip_adapters[0] if concept_ip_adapters else None
     embeds = torch.cat([base_inputs.prompt_embeds[bidx], c_embeds])
     tembeds = torch.cat([base_inputs.text_embeds[bidx], c_tembeds])
     tids = torch.cat([base_inputs.time_ids[bidx], c_tids])
@@ -246,14 +472,26 @@ def _denoise_mc_range_traj(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                            lin_b[1:2].expand((2 * K,) + lin_b.shape[1:])])
         ctrl = (controller.at_step(i, src_lane=0, dst_lane=2)
                 if controller is not None else None)
+        down, mid = _lane_residuals(
+            _controlnet_residuals(
+                base_controlnets, lanes[:3], t, embeds[:3], tembeds[:3],
+                tids[:3], step_i=i, num_steps=sched.num_steps,
+                cond_rows=(0, 2)),
+            _concept_cn_residuals(
+                concept_controlnets, concept_inputs, lanes[3:], t,
+                tembeds[3:], tids[3:], step_i=i, num_steps=sched.num_steps),
+            3, 2 * K)
         eps_all = unet(lanes, t, embeds, text_embeds=tembeds, time_ids=tids,
-                       lora=lane_lora, control=ctrl)
+                       lora=lane_lora, control=ctrl,
+                       down_block_residuals=down, mid_block_residual=mid,
+                       ip_adapter=ipk, ip_context=ip_ctx, ip_scale=ip_scale)
         edit = eps_all[1:3]                          # [uncond_B, cond_B]
         region_preds = eps_all[3:].reshape((K, 2) + tuple(latent_b.shape[1:]))
         fused = regions.fuse_region_edit(edit, region_preds, masks,
                                          active=i > fusion_start)
         guided = sampling.cfg_combine(fused, base_inputs.guidance_scale)
-        x, st = schedulers.step(sched, st, guided, i, x)
+        x, st = schedulers.step(sched, st, guided, i, x,
+                                shared_batch_noise=True)
     return x
 
 
@@ -263,7 +501,11 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                       base_inputs: BaseInputs, controller, concept_inputs,
                       concept_loras, masks: torch.Tensor, *, i0: int,
                       fusion_start: int = regions.FUSION_START_STEP,
-                      lane_sharding: Optional[comm.Group] = None
+                      lane_sharding: Optional[comm.Group] = None,
+                      concept_ip_adapters: Sequence = (),
+                      ip_scale: float = 1.0,
+                      base_controlnets: Sequence = (),
+                      concept_controlnets: Sequence = ()
                       ) -> torch.Tensor:
     """Stage-2 loop over steps [i0, S) on the reference's 4+2K lanes:
     [uncond_A, uncond_B, cond_A, cond_B] from both latent copies, then
@@ -274,21 +516,32 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     ``lane_sharding``: the group whose ranks split the 4+2K lanes
     (``tensor_split`` order; at least one lane each). Each rank keeps the
     conditioning and LoRA rows of its lanes and runs them; the eps of all
-    lanes are then gathered, so region fusion, CFG and the Euler step run
-    the same on every rank and every rank carries the same latents."""
+    lanes are then gathered, so region fusion, CFG and the scheduler step run
+    the same on every rank and every rank carries the same latents.
+
+    Unsharded, the base ControlNets run on lanes [:4] (rows 2 and 3
+    conditional) and the concept ControlNets on the 2K concept lanes."""
     K = len(concept_inputs)
     if K == 0 and lane_sharding is not None:
         raise ValueError(
             "lane_sharding requires at least one concept (zero-concept "
             "stage 2 is a plain CFG denoise; run it unsharded)")
+    if lane_sharding is not None and (
+            concept_ip_adapters or base_controlnets
+            or any(c is not None for c in concept_controlnets)):
+        raise not_ported("ControlNet and InstantID under the mesh layout",
+                         MESH_ITEM)
     embeds = torch.cat([base_inputs.prompt_embeds]
                        + [ci.prompt_embeds for ci in concept_inputs])
     tembeds = torch.cat([base_inputs.text_embeds]
                         + [ci.text_embeds for ci in concept_inputs])
     tids = torch.cat([base_inputs.time_ids]
                      + [ci.time_ids for ci in concept_inputs])
-    lane_lora = (_concept_lane_conditioning(concept_inputs, concept_loras,
-                                            4)[3] if K else None)
+    lane_lora = ip_ctx = None
+    if K:
+        _, _, _, lane_lora, ip_ctx = _concept_lane_conditioning(
+            concept_inputs, concept_loras, 4)
+    ipk = concept_ip_adapters[0] if concept_ip_adapters else None
     n = 4 + 2 * K
     lanes = (mesh_lib.Split(n, lane_sharding) if lane_sharding is not None
              else None)
@@ -303,8 +556,19 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
         rows = torch.cat([lin4, lin4[3:4].expand((2 * K,) + lin4.shape[1:])])
         ctrl = (controller.at_step(i, lanes=lanes)
                 if controller is not None else None)
+        down, mid = _lane_residuals(
+            _controlnet_residuals(
+                base_controlnets, lin4, t, base_inputs.prompt_embeds,
+                base_inputs.text_embeds, base_inputs.time_ids, step_i=i,
+                num_steps=sched.num_steps, cond_rows=(2, 3)),
+            _concept_cn_residuals(
+                concept_controlnets, concept_inputs, rows[4:], t,
+                tembeds[4:], tids[4:], step_i=i, num_steps=sched.num_steps),
+            4, 2 * K)
         eps_all = unet(rows[lo:hi], t, embeds, text_embeds=tembeds,
-                       time_ids=tids, lora=lane_lora, control=ctrl)
+                       time_ids=tids, lora=lane_lora, control=ctrl,
+                       down_block_residuals=down, mid_block_residual=mid,
+                       ip_adapter=ipk, ip_context=ip_ctx, ip_scale=ip_scale)
         if lanes is not None:
             eps_all = comm.all_gather(eps_all, 0, lane_sharding,
                                       sizes=lanes.sizes)
@@ -312,7 +576,8 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
         eps = regions.fuse_region_noise(eps_all[:4], region_preds, masks,
                                         active=i > fusion_start)
         guided = sampling.cfg_combine(eps, base_inputs.guidance_scale)
-        x, st = schedulers.step(sched, st, guided, i, x)
+        x, st = schedulers.step(sched, st, guided, i, x,
+                                shared_batch_noise=True)
     return x
 
 
@@ -324,7 +589,8 @@ def sample_stage1_cached(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                          spatial: Optional[Spatial] = None,
                          record_trajectory: bool = True,
                          initial_noise=None,
-                         cache_interval: int = 0) -> tuple:
+                         cache_interval: int = 0,
+                         noise_seed: Optional[int] = None) -> tuple:
     """Stage 1 on the dedup fast path -> ([2, h, w, 4] latents, StageCache).
 
     ``initial_noise`` ([1, h, w, 4] unit noise) replaces the draw from
@@ -332,9 +598,9 @@ def sample_stage1_cached(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     ``spatial``: the multi-device layout (every rank draws the same noise
     and gets the whole latents back). ``record_trajectory=False`` skips
     the suffix's per-step store (cache.a_traj is None): the 4+2K stage 2
-    never reads it."""
-    if base_controlnets:
-        raise not_ported("ControlNet", "ControlNet")
+    never reads it. ``base_controlnets``: spatial ControlNets
+    (``ControlNetInputs``). ``noise_seed``: the request's seed, LCM's
+    re-noise seed (the state carries it into stage 2)."""
     if cache_interval > 1:
         raise not_ported("DeepCache", "approximate modes")
     device = base_inputs.prompt_embeds.device
@@ -345,14 +611,16 @@ def sample_stage1_cached(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     else:
         lat = sdxl.prepare_latents(generator, 1, height, width, sched,
                                    cfg.unet.dtype, device)
-    state = schedulers.init_state()
+    state = schedulers.init_state(noise_seed)
     boundary = min(fusion_start + 1, sched.num_steps)
     lat_b, st_b = _denoise_cfg_range(cfg, sched, unet, lat, state,
                                      base_inputs, i0=0, i1=boundary,
-                                     spatial=spatial)
+                                     spatial=spatial,
+                                     base_controlnets=base_controlnets)
     out = _denoise_cfg_range(
         cfg, sched, unet, lat_b, st_b, base_inputs, i0=boundary,
-        i1=sched.num_steps, record_traj=record_trajectory, spatial=spatial)
+        i1=sched.num_steps, record_traj=record_trajectory, spatial=spatial,
+        base_controlnets=base_controlnets)
     lat_end, traj = out[0], (out[2] if record_trajectory else None)
     cache = StageCache(lat_b, st_b, a_traj=traj, a_final=lat_end)
     return duplicate_latents(lat_end), cache
@@ -365,6 +633,7 @@ def sample_stage2_resumed(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                           masks: torch.Tensor,
                           fusion_start: int = regions.FUSION_START_STEP,
                           concept_ip_adapters: Sequence = (),
+                          ip_scale: float = 1.0,
                           base_controlnets: Sequence = (),
                           concept_controlnets: Sequence = (),
                           lane_sharding=None, concept_crop: bool = False,
@@ -376,11 +645,14 @@ def sample_stage2_resumed(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     is stage 1's). Otherwise the reference-layout 4+2K program carries
     both copies from the boundary; ``lane_sharding`` (a
     ``parallel.comm.Group``, multi-device latency mode) splits its lanes
-    over the group's ranks."""
-    if concept_ip_adapters:
-        raise not_ported("the IP-Adapter branch", "InstantID")
-    if base_controlnets or any(c is not None for c in concept_controlnets):
-        raise not_ported("ControlNet", "ControlNet")
+    over the group's ranks.
+
+    ``concept_ip_adapters``: per concept, the UNet's IP layers (one
+    ``IPKV`` per attn2; the first entry serves every lane, as in JAX),
+    scaled by ``ip_scale``. ``base_controlnets``/``concept_controlnets``:
+    ``ControlNetInputs`` on the base lanes and per concept (None for a
+    concept without one; the live ones share one model)."""
+    validate_concept_controlnets(concept_controlnets)
     if concept_crop:
         raise not_ported("concept_crop strips", "approximate modes")
     if cache_interval > 1:
@@ -392,12 +664,22 @@ def sample_stage2_resumed(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
             cfg, sched, unet, cache.latents, cache.sched_state, cache.a_traj,
             base_inputs, controller, tuple(concept_inputs),
             tuple(concept_loras), masks, i0=boundary,
-            fusion_start=fusion_start)
+            fusion_start=fusion_start,
+            concept_ip_adapters=tuple(concept_ip_adapters),
+            ip_scale=ip_scale, base_controlnets=tuple(base_controlnets),
+            concept_controlnets=tuple(concept_controlnets))
         return torch.cat([cache.a_final, lat_b])
-    # Both copies from the boundary latents. Euler keeps no per-row
-    # history, so the doubled scheduler state is the state itself.
+    # Both copies from the boundary latents: the state's per-row history
+    # (DPM++2M's previous x0) is doubled with them, as in JAX.
+    st = cache.sched_state
+    if st.prev_model_output is not None:
+        st = st._replace(prev_model_output=duplicate_latents(
+            st.prev_model_output))
     return _denoise_mc_range(
-        cfg, sched, unet, duplicate_latents(cache.latents), cache.sched_state,
+        cfg, sched, unet, duplicate_latents(cache.latents), st,
         base_inputs, controller, tuple(concept_inputs), tuple(concept_loras),
         masks, i0=boundary, fusion_start=fusion_start,
-        lane_sharding=lane_sharding)
+        lane_sharding=lane_sharding,
+        concept_ip_adapters=tuple(concept_ip_adapters), ip_scale=ip_scale,
+        base_controlnets=tuple(base_controlnets),
+        concept_controlnets=tuple(concept_controlnets))

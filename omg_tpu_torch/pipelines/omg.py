@@ -6,10 +6,18 @@ provider for per-concept masks on the stage-1 image (copy B, uint8), runs
 stage 2 with region fusion and decodes. The provider is any callable;
 ``segment.build_mask_provider`` builds the port's own (SAM over
 EfficientViT-SAM or the SAM ViT, optionally with the SAM-proposal x CLIP
-detector), whose device work ``timings["masks"]`` covers. It runs the
-two-concept LoRA path with Euler; the ControlNet, InstantID, DeepCache
-and scheduler options of the JAX signature raise ``NotImplementedError``
-until their slices land.
+detector), whose device work ``timings["masks"]`` covers.
+
+Beside the two-concept LoRA path it takes the JAX signature's
+conditioning: a spatial ControlNet on the base lanes of both stages
+(``controlnet_params`` with a ready ``spatial_condition`` image, its
+scale, guidance window and guess mode; BASELINE config #3) and InstantID
+(``InstantIDModels``: the resampler's face tokens through the concept
+lanes' IP cross-attention and the IdentityNet on the concept lanes in
+stage 2, from ``face_embeddings`` and ``face_kps_image`` or
+``face_kps_provider``; config #4), with any of the Euler, DDIM, DPM++2M
+and LCM schedulers. DeepCache raises ``NotImplementedError``; so do
+ControlNet and InstantID under a mesh.
 
 ``OMG(mesh=...)`` is the multi-device latency mode: every rank of the
 mesh builds the engine over its own copy of the same weights and calls
@@ -27,8 +35,10 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from omg_tpu_torch import instantid as iid
 from omg_tpu_torch import lora as lora_lib
 from omg_tpu_torch import rewrite
+from omg_tpu_torch.config import ControlNetConfig, ResamplerConfig
 from omg_tpu_torch.control import p2p, regions as regions_lib
 from omg_tpu_torch.diffusion import schedulers
 from omg_tpu_torch.parallel import mesh as mesh_lib
@@ -64,6 +74,20 @@ class GenerationResult:
         return out[1]
 
 
+@dataclasses.dataclass
+class InstantIDModels:
+    """The identity stack: the resampler, the UNet's IP layers (one
+    ``nn.attention.IPKV`` per attn2, traversal order) and the IdentityNet
+    (a ``models.controlnet.ControlNetModel``), on the engine's device."""
+    resampler_cfg: ResamplerConfig
+    resampler_params: object            # models.resampler.Resampler
+    ip_adapter_layers: Sequence         # [IPKV] in attn2 order
+    identitynet_params: Optional[object] = None
+    identitynet_cfg: Optional[ControlNetConfig] = None
+    ip_scale: float = 0.8
+    identitynet_scale: float = 0.8
+
+
 class _Clock:
     """Phase timer on the host clock; synchronizes a CUDA device before
     each reading, so a phase's time includes its device work."""
@@ -90,6 +114,9 @@ class OMG:
     tokenizer: object                   # text.tokenizer.Tokenizer (enc 1)
     tokenizer_2: object                 # (enc 2)
     mask_provider: Optional[MaskProvider] = None
+    # The geometry of the ControlNets handed to generate (checked against
+    # each model's own).
+    cn_cfg: Optional[ControlNetConfig] = None
     scheduler: str = "euler"
     num_steps: int = 50
     # Concept-LoRA strength on concept lanes (reference
@@ -174,12 +201,12 @@ class OMG:
                  num_steps: Optional[int] = None,
                  detection_classes: Sequence[str] = ("man", "woman"),
                  spatial_condition: Optional[np.ndarray] = None,
-                 controlnet_params: Optional[dict] = None,
+                 controlnet_params=None,
                  controlnet_scale: float = 1.0,
                  control_guidance_start: float = 0.0,
                  control_guidance_end: float = 1.0,
                  controlnet_guess_mode: bool = False,
-                 instantid=None,
+                 instantid: Optional[InstantIDModels] = None,
                  face_embeddings: Sequence[Optional[np.ndarray]] = (),
                  face_kps_image: Optional[np.ndarray] = None,
                  face_kps_provider=None,
@@ -190,14 +217,25 @@ class OMG:
                  cache_interval: Optional[int] = None,
                  cache_schedule: Optional[str] = None,
                  ) -> GenerationResult:
-        if controlnet_params is not None or spatial_condition is not None:
-            raise multiconcept.not_ported("ControlNet", "ControlNet")
-        if (instantid is not None or len(face_embeddings)
-                or face_kps_image is not None
-                or face_kps_provider is not None):
-            raise multiconcept.not_ported("InstantID", "InstantID")
+        """``controlnet_params``: a ``models.controlnet.ControlNetModel``;
+        ``spatial_condition``: its uint8 [H, W, C] condition image.
+        ``face_embeddings``: per concept, an ArcFace embedding or None."""
+        use_cn = (spatial_condition is not None
+                  and controlnet_params is not None)
+        if self.mesh is not None and (use_cn or instantid is not None):
+            raise multiconcept.not_ported(
+                "ControlNet and InstantID under the mesh layout",
+                multiconcept.MESH_ITEM)
         if (cache_interval or 0) > 1 or cache_schedule is not None:
             raise multiconcept.not_ported("DeepCache", "approximate modes")
+        checks = [(controlnet_params if use_cn else None, self.cn_cfg)]
+        if instantid is not None:
+            checks.append((instantid.identitynet_params,
+                           instantid.identitynet_cfg))
+        for model, want in checks:
+            if model is not None and want is not None and model.cfg != want:
+                raise ValueError(f"a ControlNet's geometry {model.cfg} is "
+                                 f"not the configured {want}")
         device = self.device
         clock = _Clock(device)
         steps = num_steps or self.num_steps
@@ -215,6 +253,7 @@ class OMG:
                                                     guidance_scale)
         region_specs = rewrite.parse_rewrite(prompt_rewrite)
         concept_inputs, loras_final = [], []
+        ip_adapters, concept_ip_ctxs = [], []
         for k, region in enumerate(region_specs):
             tree_k = concept_loras[k] if k < len(concept_loras) else None
             te_lora = (None, None)
@@ -234,8 +273,13 @@ class OMG:
             rep, rpp, ren, rpn = self.encode(region.prompt,
                                              region.negative_prompt,
                                              te_lora=te_lora)
+            ip_ctx = None
+            if instantid is not None and k < len(face_embeddings) \
+                    and face_embeddings[k] is not None:
+                ip_ctx = iid.encode_face_tokens(instantid.resampler_params,
+                                                face_embeddings[k])
             concept_inputs.append(multiconcept.make_concept_inputs(
-                rep, rpp, ren, rpn, tids))
+                rep, rpp, ren, rpn, tids, ip_context=ip_ctx))
             unet_tree = tree_k.get("unet", tree_k) if tree_k else None
             style_tree = (style_lora.get("unet", style_lora)
                           if style_lora is not None else None)
@@ -244,6 +288,23 @@ class OMG:
                       if style_tree is not None else unet_tree)
             loras_final.append(lora_lib.scale_lora(merged,
                                                    self.concept_lora_scale))
+            if instantid is not None:
+                ip_adapters.append(instantid.ip_adapter_layers)
+                # the IdentityNet's condition is built after stage 1 (the
+                # keypoints may come from the stage-1 image)
+                concept_ip_ctxs.append(ip_ctx)
+
+        base_cns = []
+        if use_cn:
+            base_cns.append(multiconcept.ControlNetInputs(
+                params=controlnet_params,
+                cond_image=torch.as_tensor(
+                    np.asarray(spatial_condition, np.float32),
+                    device=device)[None] / 255.0,
+                scale=float(controlnet_scale),
+                guidance_start=float(control_guidance_start),
+                guidance_end=float(control_guidance_end),
+                guess_mode=bool(controlnet_guess_mode)))
 
         controller = p2p.P2PControl.build(
             [prompt, prompt], steps, cross_replace_steps=1.0,
@@ -264,7 +325,8 @@ class OMG:
             fusion_start=fusion_start, spatial=spatial,
             # the 4+2K stage 2 of the mesh layout never reads it
             record_trajectory=self.mesh is None,
-            initial_noise=initial_noise)
+            initial_noise=initial_noise, base_controlnets=base_cns,
+            noise_seed=seed)
         clock.lap("stage1")
         img1 = self._decode(lat1)
         clock.lap("decode")
@@ -275,6 +337,20 @@ class OMG:
                                         detection_classes)
         masks = list(masks)
         clock.lap("masks")
+
+        # IdentityNet conditions: the keypoints of the faces on the stage-1
+        # image, at canvas coordinates; an explicit face_kps_image wins
+        concept_cns = []
+        if instantid is not None and instantid.identitynet_params is not None:
+            if face_kps_image is None and face_kps_provider is not None:
+                face_kps_image = face_kps_provider(img1[1])
+            if face_kps_image is not None:
+                kimg = iid.kps_image_to_cond(face_kps_image, device)
+                concept_cns = [multiconcept.ControlNetInputs(
+                    params=instantid.identitynet_params, cond_image=kimg,
+                    scale=float(instantid.identitynet_scale),
+                    encoder_hidden_states=ip_ctx)
+                    for ip_ctx in concept_ip_ctxs]
 
         # --- stage 2 ---------------------------------------------------
         # Under a mesh the spatial stage 1 gathered its rows at the end of
@@ -290,6 +366,10 @@ class OMG:
                 base_inputs=base_inputs, controller=controller,
                 concept_inputs=concept_inputs, concept_loras=loras_final,
                 masks=mask_stack, fusion_start=fusion_start,
+                concept_ip_adapters=ip_adapters,
+                ip_scale=(instantid.ip_scale if instantid is not None
+                          else 1.0),
+                base_controlnets=base_cns, concept_controlnets=concept_cns,
                 lane_sharding=(lane_sharding if len(region_specs) > 0
                                else None))
             clock.lap("stage2")

@@ -61,8 +61,11 @@ def test_euler_step_scale_and_cfg(i):
 
 
 def test_other_schedulers_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ddim"):
-        schedulers.make_schedule("ddim", 10)
+    """All four of the JAX package's kinds are ported; any other raises
+    and names them (test_torch_schedulers.py holds the four to JAX)."""
+    with pytest.raises(ValueError, match="ddim"):
+        schedulers.make_schedule("heun", 10)
+    assert schedulers.KINDS == tuple(jsched._KINDS)
 
 
 @pytest.mark.parametrize("prompts,cross", [

@@ -186,12 +186,21 @@ def test_predict_masks_rejects_short_provider(engines):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"controlnet_params": {}}, "ControlNet"),
-    ({"face_embeddings": [np.zeros(4)]}, "InstantID"),
+    ({"controlnet_params": "mesh", "spatial_condition": "mesh"}, "parallel/"),
+    ({"instantid": "mesh"}, "parallel/"),
     ({"cache_interval": 3}, "DeepCache"),
-    ({"scheduler": "dpmpp_2m"}, "dpmpp_2m"),
+    ({"cache_schedule": "front"}, "DeepCache"),
 ])
 def test_unported_options_raise(engines, kwargs, match):
+    """DeepCache, and ControlNet and InstantID under a mesh layout (here a
+    mesh that is never reached: the engine refuses first)."""
+    from omg_tpu_torch.parallel import mesh as mesh_lib
     _, teng = engines
+    if "mesh" in kwargs.values():
+        teng = omg.OMG(cfg=teng.cfg, params=teng.params,
+                       tokenizer=teng.tokenizer, tokenizer_2=teng.tokenizer_2,
+                       mesh=mesh_lib.Mesh(1, 2, 0, teng.device, None, None,
+                                          None))
+        kwargs = {k: object() for k in kwargs}
     with pytest.raises(NotImplementedError, match=match):
         teng.generate("the man", height=32, width=32, **kwargs)
