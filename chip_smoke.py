@@ -53,14 +53,33 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      7036 launches; (d) DDIM and DPM++2M at 25 steps and LCM at 4 (twice,
      identical images). Each run: phase seconds, peak memory, launches
      (with K1's launches by shape).
+  9. checkpoint — run after phase 8 while phase 5's SDXL weights are
+     live, in a temporary directory of the checkout that is removed at
+     the end (the free disk space printed first): (a) the live weights as
+     an HF-layout SDXL directory (the port's safetensors writer, each
+     model in its live dtype, the published config.json fields),
+     synthetic tokenizers at CLIP's vocab size (``tokenizer_2`` pads with
+     "!"), phase 5's LoRAs as kohya files and an EfficientViT-SAM-XL1
+     ``xl1.pt`` in the upstream layout, bytes and seconds of each write;
+     (b) ``loader.load_sdxl`` from it, every tensor bit-equal to the live
+     one, and ``load_lora`` equal to the live LoRAs, seconds and GB/s per
+     model and the peak memory; (c) ``cli.inference_lora.main`` in-process
+     as phase 5 (1024x1024, 50 Euler steps, seed 14, the two LoRAs, SAM
+     XL1 masks from the file): 5880 launches, both PNGs read back; (d)
+     ``cli.inference_instantid.main`` from an IdentityNet directory and an
+     ``ip-adapter.bin`` (upstream nested layout, phase 8's seeds) with two
+     face PNGs and their ``.arcface.npy`` sidecars, 20 steps: with no face
+     analysis of the stage-1 image the IdentityNet gets no condition, so
+     2310 launches (``path_launches(20, 70, 70)``). Each CLI: the wall
+     seconds from ``main``'s start, loading included, and its timings.
   6. mesh    — the multi-device latency mode, ``OMG(mesh=...)``, on 2 ranks
      that share this card through ``gloo`` (mesh data=1, model=2): the
      same seeded weights on both (checked), one H-split stage-1 UNet
      forward and one lane-split 8-lane stage-2 forward against the
      unsharded ones, then ``generate`` as in phase 5: 3500 K1b and 2380
      K1 launches per rank, identical images on both ranks.
-The last four lines are JSON records of the mask stage, of phase 8 and
-of the kernels, and ``{"ok": true, "device": {...}}``.
+The last five lines are JSON records of the mask stage, of phase 8, of
+phase 9 and of the kernels, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
 
@@ -78,15 +97,21 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from omg_tpu_torch import config, instantid, lora as lora_lib, segment
+from omg_tpu_torch import (config, convert, instantid, loader,
+                           lora as lora_lib, segment)
+from omg_tpu_torch.cli import inference_instantid as cli_iid
+from omg_tpu_torch.cli import inference_lora as cli_lora
 from omg_tpu_torch.control import p2p
 from omg_tpu_torch.diffusion import schedulers
 from omg_tpu_torch.models import (clip, clip_vision, controlnet, resampler,
@@ -97,6 +122,7 @@ from omg_tpu_torch.pipelines import multiconcept, omg as omg_lib, sdxl
 from omg_tpu_torch.segment import (detector, efficientvit, sam_decoder,
                                    sam_provider, vit_sam)
 from omg_tpu_torch.text.tokenizer import ToyTokenizer
+from omg_tpu_torch.utils import image as image_io
 
 HEIGHT = WIDTH = 1024
 STEPS = 50
@@ -594,9 +620,9 @@ def weights(device):
 
 
 def single_card_phases(device) -> tuple:
-    """Phases 4, 5, 7 and 8; the weights are freed on return. Returns
+    """Phases 4, 5, 7, 8 and 9; the weights are freed on return. Returns
     (phase 5's launches, phase 5's result, phase 7's record, phase 8's
-    record)."""
+    record, phase 9's record)."""
     with torch.inference_mode():
         log("== weights")
         cfg, params, loras = weights(device)
@@ -610,7 +636,11 @@ def single_card_phases(device) -> tuple:
         torch.cuda.empty_cache()
         log("== conditioned")
         cond = conditioned_phase(device, cfg, params, loras, res)
-        return launches, res, masks, cond
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== checkpoint")
+        ckpt = checkpoint_phase(device, cfg, params, loras)
+        return launches, res, masks, cond, ckpt
 
 
 # --------------------------------------------------------------- phase 7
@@ -1043,6 +1073,343 @@ def conditioned_phase(device, cfg, params, loras, single) -> dict:
     return rec
 
 
+# --------------------------------------------------------------- phase 9
+
+# The published SDXL-base config.json fields the loaders read, at their
+# published values (stable-diffusion-xl-base-1.0).
+SDXL_UNET_JSON = {
+    "_class_name": "UNet2DConditionModel", "sample_size": 128,
+    "in_channels": 4, "out_channels": 4,
+    "block_out_channels": [320, 640, 1280], "layers_per_block": 2,
+    "down_block_types": ["DownBlock2D", "CrossAttnDownBlock2D",
+                         "CrossAttnDownBlock2D"],
+    "mid_block_type": "UNetMidBlock2DCrossAttn",
+    "up_block_types": ["CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
+                       "UpBlock2D"],
+    "transformer_layers_per_block": [1, 2, 10],
+    "attention_head_dim": [5, 10, 20], "cross_attention_dim": 2048,
+    "addition_embed_type": "text_time", "addition_time_embed_dim": 256,
+    "projection_class_embeddings_input_dim": 2816, "norm_num_groups": 32,
+    "use_linear_projection": True}
+SDXL_VAE_JSON = {
+    "_class_name": "AutoencoderKL", "in_channels": 3, "out_channels": 3,
+    "latent_channels": 4, "block_out_channels": [128, 256, 512, 512],
+    "layers_per_block": 2, "norm_num_groups": 32, "sample_size": 1024,
+    "scaling_factor": 0.13025}
+SDXL_TE_JSON = {
+    "architectures": ["CLIPTextModel"], "vocab_size": 49408,
+    "hidden_size": 768, "intermediate_size": 3072, "num_hidden_layers": 12,
+    "num_attention_heads": 12, "max_position_embeddings": 77,
+    "hidden_act": "quick_gelu", "projection_dim": 768}
+SDXL_TE2_JSON = {
+    "architectures": ["CLIPTextModelWithProjection"], "vocab_size": 49408,
+    "hidden_size": 1280, "intermediate_size": 5120, "num_hidden_layers": 32,
+    "num_attention_heads": 20, "max_position_embeddings": 77,
+    "hidden_act": "gelu", "projection_dim": 1280}
+CONTROLNET_JSON = dict(
+    SDXL_UNET_JSON, _class_name="ControlNetModel", conditioning_channels=3,
+    conditioning_embedding_out_channels=[16, 32, 96, 256])
+BOS, EOS = "<|startoftext|>", "<|endoftext|>"
+CLI_PROMPT = "photo of the man and the woman at the beach"
+IID_STEPS = 20
+
+
+def _write_json(path: str, obj) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
+def write_tokenizer(folder: str, pad: str) -> int:
+    """A CLIP tokenizer folder at CLIP's vocab size, 49408: the 512 byte
+    symbols, 48894 synthetic merges (pairs of byte symbols, letters and
+    digits first), BOS 49406 and EOS 49407; ``pad`` "!" (id 0) makes it
+    SDXL's ``tokenizer_2``. Returns the vocab size."""
+    from omg_tpu_torch.text.tokenizer import bytes_to_unicode
+    os.makedirs(folder)
+    syms = list(bytes_to_unicode().values())
+    alnum = "abcdefghijklmnopqrstuvwxyz0123456789"
+    order = list(alnum) + [s for s in syms if s not in alnum]
+    merges = [(x, y + end) for x in order for y in order
+              for end in ("</w>", "")][:49408 - 512 - 2]
+    vocab = syms + [s + "</w>" for s in syms] + ["".join(m) for m in merges]
+    vocab = {s: i for i, s in enumerate(vocab + [BOS, EOS])}
+    _write_json(os.path.join(folder, "vocab.json"), vocab)
+    with open(os.path.join(folder, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(" ".join(m) for m in merges))
+    specials = {"bos_token": BOS, "eos_token": EOS, "unk_token": EOS,
+                "pad_token": pad}
+    _write_json(os.path.join(folder, "special_tokens_map.json"), specials)
+    _write_json(os.path.join(folder, "tokenizer_config.json"), dict(
+        specials, model_max_length=77, tokenizer_class="CLIPTokenizer",
+        added_tokens_decoder={str(vocab[t]): {"content": t, "special": True}
+                              for t in {pad, BOS, EOS}}))
+    return len(vocab)
+
+
+def _timed_write(rec: dict, name: str, fn) -> int:
+    t0 = time.perf_counter()
+    n = fn()
+    s = time.perf_counter() - t0
+    rec[name] = {"bytes": n, "s": s}
+    log(f"checkpoint: wrote {name}: {n / 1e9:.3f} GB in {s:.2f} s "
+        f"({n / 1e9 / s:.2f} GB/s)")
+    return n
+
+
+def write_sdxl_dir(root: str, params, rec: dict) -> None:
+    """(a) The live SDXL weights as an HF-layout directory, each model in
+    its live dtype (the UNet and text encoders bf16, the VAE decoder
+    fp32), with the published config.json of each."""
+    files = (("unet", "diffusion_pytorch_model.safetensors", SDXL_UNET_JSON),
+             ("vae", "diffusion_pytorch_model.safetensors", SDXL_VAE_JSON),
+             ("text_encoder", "model.safetensors", SDXL_TE_JSON),
+             ("text_encoder_2", "model.safetensors", SDXL_TE2_JSON))
+    for (name, fname, cfg_json), module in zip(files, params):
+        os.makedirs(os.path.join(root, name))
+        _write_json(os.path.join(root, name, "config.json"), cfg_json)
+        _timed_write(rec, name, lambda: convert.save_safetensors(
+            os.path.join(root, name, fname), module.state_dict()))
+    for name, pad in (("tokenizer", EOS), ("tokenizer_2", "!")):
+        n = write_tokenizer(os.path.join(root, name), pad)
+        log(f"checkpoint: {name}/: vocab {n}, pad {pad!r}")
+
+
+def write_kohya(path: str, tree: dict) -> int:
+    """A flat LoRA dict (down [in, r], up [r, out]) as a kohya file,
+    alpha = rank."""
+    sd = {}
+    for key, leaf in tree.items():
+        k = "lora_unet_" + key.replace(".", "_")
+        sd[k + ".lora_down.weight"] = leaf["down"].T.contiguous()
+        sd[k + ".lora_up.weight"] = leaf["up"].T.contiguous()
+        sd[k + ".alpha"] = torch.tensor(float(leaf["down"].shape[-1]))
+    return convert.save_safetensors(path, sd)
+
+
+def write_xl1(path: str, device) -> int:
+    """EfficientViT-SAM-XL1 from seed 21 in the upstream layout: the
+    BatchNorm counters and the mask-prompt downscaler included."""
+    sam = sam_provider.init_sam(torch.Generator(device).manual_seed(21),
+                                efficientvit.xl1_config(), device)
+    sd = {k: v.cpu() for k, v in sam.state_dict().items()}
+    for k in [k for k in sd if k.endswith(".running_var")]:
+        sd[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    g = torch.Generator().manual_seed(34)
+    for i, shape in ((0, (4, 1, 2, 2)), (1, (4,)), (3, (16, 4, 2, 2)),
+                     (4, (16,)), (6, (256, 16, 1, 1))):
+        pre = f"prompt_encoder.mask_downscaling.{i}."
+        sd[pre + "weight"] = torch.randn(shape, generator=g)
+        sd[pre + "bias"] = torch.zeros(shape[0])
+    torch.save(sd, path)
+    return os.path.getsize(path)
+
+
+def write_instantid(root: str, device, cfg, rec: dict) -> tuple:
+    """(d)'s inputs from phase 8's seeds: an IdentityNet directory (seed
+    33, bf16), an ``ip-adapter.bin`` in the upstream nested layout with IP
+    keys 1, 3, 5, ... (the resampler seed 31, the IP layers seed 32, fp16
+    as published) and two face PNGs with ``.arcface.npy`` sidecars."""
+    idnet = os.path.join(root, "ControlNetModel")
+    os.makedirs(idnet)
+    _write_json(os.path.join(idnet, "config.json"), CONTROLNET_JSON)
+    cn = controlnet.init_params(torch.Generator(device).manual_seed(33),
+                                config.sdxl_controlnet())
+    _timed_write(rec, "identitynet", lambda: convert.save_safetensors(
+        os.path.join(idnet, "diffusion_pytorch_model.safetensors"),
+        cn.state_dict()))
+    del cn
+    rs = resampler.init_params(torch.Generator(device).manual_seed(31),
+                               config.instantid_resampler())
+    ip = unet_lib.init_ip_layers(torch.Generator(device).manual_seed(32),
+                                 cfg.unet)
+    nested = {"image_proj": {k: v.half().cpu()
+                             for k, v in rs.state_dict().items()},
+              "ip_adapter": {f"{2 * int(k.split('.')[0]) + 1}."
+                             f"{k.split('.', 1)[1]}": v.half().cpu()
+                             for k, v in ip.state_dict().items()}}
+    adapter = os.path.join(root, "ip-adapter.bin")
+
+    def save():
+        torch.save(nested, adapter)
+        return os.path.getsize(adapter)
+    _timed_write(rec, "ip_adapter", save)
+    del rs, ip, nested
+    rng = np.random.default_rng(36)
+    faces = []
+    for i in range(2):
+        face = os.path.join(root, f"face{i}.png")
+        image_io.write_png(face, rng.integers(0, 256, (256, 256, 3),
+                                              dtype=np.uint8))
+        np.save(face + ".arcface.npy",
+                rng.standard_normal(512).astype(np.float32))
+        faces.append(face)
+    return idnet, adapter, faces
+
+
+@contextlib.contextmanager
+def copy_times(rows: list):
+    """Wrap ``convert.copy_into``: (module class, bytes, synchronized
+    seconds) of each module it fills go to ``rows``."""
+    copy = convert.copy_into
+
+    def timed_copy(model, sd):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = copy(model, sd)
+        torch.cuda.synchronize()
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in model.state_dict().values())
+        rows.append((type(model).__name__, nbytes, time.perf_counter() - t0))
+        return out
+
+    convert.copy_into = timed_copy
+    try:
+        yield
+    finally:
+        convert.copy_into = copy
+
+
+def load_back(device, root: str, cfg, params, loras,
+              lora_files) -> dict:
+    """(b) ``loader.load_sdxl`` from the directory: the config equals the
+    live one, every tensor equals the live module's bit for bit, and
+    ``load_lora`` gives the live LoRAs exactly."""
+    times: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with copy_times(times):
+        got_cfg, got, _, _ = loader.load_sdxl(root, device=device)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if got_cfg != cfg:
+        raise AssertionError(f"loaded config {got_cfg} is not {cfg}")
+    for name, a, b in zip(sdxl.SDXLParams._fields, got, params):
+        sa, sb = a.state_dict(), b.state_dict()
+        bad = [k for k in sb if k not in sa or sa[k].dtype != sb[k].dtype
+               or not torch.equal(sa[k], sb[k])]
+        if bad or set(sa) != set(sb):
+            raise AssertionError(f"{name}: {len(bad)} tensors differ from "
+                                 f"the live module's, e.g. {bad[:3]}")
+    rows = []
+    for (name, nbytes, s), field in zip(times, sdxl.SDXLParams._fields):
+        rows.append({"model": field, "bytes": nbytes, "s": s,
+                     "gb_per_s": nbytes / 1e9 / s})
+        log(f"checkpoint: load {field} ({name}): {nbytes / 1e9:.3f} GB in "
+            f"{s:.2f} s ({nbytes / 1e9 / s:.2f} GB/s), bit-equal")
+    del got
+    for path, live in zip(lora_files, loras):
+        got = lora_lib.load_lora(path, weight=0.8, device=device)["unet"]
+        if set(got) != set(live):
+            raise AssertionError(f"{path}: keys differ from the live LoRA")
+        for key, leaf in live.items():
+            for role in ("down", "up", "scale"):
+                if not torch.equal(got[key][role], leaf[role].float()):
+                    raise AssertionError(f"{path}: {key}.{role} differs")
+    log(f"checkpoint: load_sdxl {total:.2f} s in all, peak device memory "
+        f"{peak / 2**30:.2f} GiB (the live weights included); both LoRAs "
+        "load exactly")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"models": rows, "total_s": total, "peak_gib": peak / 2**30}
+
+
+def run_cli(name: str, cli, argv: list, expect: int) -> dict:
+    """A CLI's ``main(argv)`` in-process, K1's count zeroed just before
+    and read just after; its stage images read back finite and not
+    constant."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    if launches != expect:
+        raise AssertionError(f"{name}: kernel launches {launches}, want "
+                             f"{expect}")
+    out = os.path.join(argv[argv.index("--save_dir") + 1],
+                       f"seed_{argv[argv.index('--seed') + 1]}")
+    stats = {}
+    for png in ("stage-1.png", "stage-2.png"):
+        img = image_io.read_png(os.path.join(out, png))
+        if img.shape != (HEIGHT, WIDTH, 3) or img.std() == 0:
+            raise AssertionError(f"{name}: {png} is {img.shape}, std "
+                                 f"{img.std()}")
+        stats[png] = {"mean": float(img.mean()), "std": float(img.std())}
+    tm = res.timings
+    log(f"{name}: {wall:.2f} s from main's start (loading included); "
+        f"generate: " + ", ".join(f"{k} {v:.3f} s" for k, v in tm.items())
+        + f"; {launches} K1 launches; peak {peak / 2**30:.2f} GiB; "
+        f"masks {[m is not None for m in res.masks]}; images {stats}")
+    return {"wall_s": wall, "timings": tm, "launches": launches,
+            "peak_gib": peak / 2**30, "images": stats}
+
+
+def checkpoint_phase(device, cfg, params, loras) -> dict:
+    """Phase 9 in a temporary directory of the checkout, removed at the
+    end."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    log(f"checkpoint: {shutil.disk_usage(here).free / 1e9:.1f} GB free "
+        f"on the disk of {here}")
+    tmp = tempfile.mkdtemp(prefix=".phase9-", dir=here)
+    rec: dict = {"write": {}}
+    t0 = time.perf_counter()
+    try:
+        sdxl_dir = os.path.join(tmp, "stable-diffusion-xl-base-1.0")
+        write_sdxl_dir(sdxl_dir, params, rec["write"])
+        lora_files = []
+        for i, tree in enumerate(loras):
+            path = os.path.join(tmp, f"char{i}.safetensors")
+            _timed_write(rec["write"], f"lora{i}",
+                         lambda: write_kohya(path, tree))
+            lora_files.append(path)
+        xl1 = os.path.join(tmp, "xl1.pt")
+        _timed_write(rec["write"], "xl1", lambda: write_xl1(xl1, device))
+        rec["load"] = load_back(device, sdxl_dir, cfg, params, loras,
+                                lora_files)
+        rewrite = "[photo of the man]-*-[ugly]|[photo of the woman]-*-[ugly]"
+        rec["inference_lora"] = run_cli(
+            "cli inference_lora", cli_lora,
+            ["--pretrained_sdxl_model", sdxl_dir,
+             "--lora_path", "|".join(lora_files), "--prompt", CLI_PROMPT,
+             "--negative_prompt", "ugly", "--prompt_rewrite", rewrite,
+             "--efficientViT_checkpoint", xl1, "--seed", str(SEED),
+             "--num_steps", str(STEPS), "--height", str(HEIGHT),
+             "--width", str(WIDTH), "--save_dir", os.path.join(tmp, "lora"),
+             "--device", str(device)],
+            MAIN_PATH_LAUNCHES)
+        gc.collect()
+        torch.cuda.empty_cache()
+        idnet, adapter, faces = write_instantid(tmp, device, cfg,
+                                                rec["write"])
+        # no face analysis of the stage-1 image (insightface is the
+        # reference's): stage 2 runs without the IdentityNet, as the JAX
+        # CLI degrades, so K1 runs the UNet's 70 a step in both stages
+        rec["inference_instantid"] = run_cli(
+            "cli inference_instantid", cli_iid,
+            ["--pretrained_model", sdxl_dir, "--controlnet_path", idnet,
+             "--face_adapter_path", adapter, "--prompt", CLI_PROMPT,
+             "--prompt_rewrite",
+             f"[photo of the man]-*-[ugly]-*-[{faces[0]}]|"
+             f"[photo of the woman]-*-[ugly]-*-[{faces[1]}]",
+             "--efficientViT_checkpoint", xl1, "--seed", "53",
+             "--num_steps", str(IID_STEPS), "--height", str(HEIGHT),
+             "--width", str(WIDTH), "--save_dir", os.path.join(tmp, "iid"),
+             "--device", str(device)],
+            path_launches(IID_STEPS, 70, 70))
+        rec["phase_s"] = time.perf_counter() - t0
+        log(f"checkpoint: phase 9 took {rec['phase_s']:.1f} s")
+    finally:
+        shutil.rmtree(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
 # ------------------------------------------------------------ --profile
 
 def _profile_forward(name: str, forward) -> None:
@@ -1289,7 +1656,7 @@ def main() -> int:
     kstats, by_shape = kernel_phase(device)
     log("== K1b vs plain")
     sstats = seq_kernel_phase(device)
-    launches, single, masks, cond = single_card_phases(device)
+    launches, single, masks, cond, ckpt = single_card_phases(device)
     cond["k1_by_shape"] = {key: by_shape[key] for key in (
         "1,10,4096,64", "3,10,4096,64", "4,10,4096,64", "1,20,1024,64",
         "3,20,1024,64", "4,20,1024,64")}
@@ -1312,7 +1679,10 @@ def main() -> int:
         "conditioned_path_launches": {
             name: cond[name]["launches"]
             for name in ("config3", "config4", "ddim", "dpmpp_2m", "lcm")},
-        "mesh_launches_by_rank": mstats["launches"]}, {
+        "mesh_launches_by_rank": mstats["launches"],
+        "cli_path_launches": {
+            name: ckpt[name]["launches"]
+            for name in ("inference_lora", "inference_instantid")}}, {
         "name": "flash_attention_fwd_seq_local",
         "route": "cuda",
         "source": source,
@@ -1325,6 +1695,7 @@ def main() -> int:
     log("card:", power_line())
     log(json.dumps({"masks": masks}))
     log(json.dumps({"conditioned": cond}))
+    log(json.dumps({"checkpoint": ckpt}))
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

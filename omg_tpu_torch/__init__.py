@@ -18,6 +18,11 @@ Design stance:
   * Randomness comes from a seeded ``torch.Generator`` wherever the JAX
     code takes a ``jax.random`` key; the two give different numbers for
     one seed, so cross-package tests pass the noise in (``initial_noise``).
+    The seeded draws of a request (initial latents, LCM's re-noise) use a
+    CPU generator, so one seed gives one image on any device.
+  * Weights load from the reference's own checkpoint files (``loader.py``,
+    ``convert.py``, ``lora.py``) without the ``safetensors`` or
+    ``transformers`` packages; the CLIs are ``cli/``.
   * The one TPU kernel, flash attention, is CUDA C++ for sm_90a
     (``ops/csrc/flash_attention.cu``), built with nvcc at first use.
 """

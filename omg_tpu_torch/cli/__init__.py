@@ -1,0 +1,3 @@
+"""The reference's command-line entry points on the port:
+``python -m omg_tpu_torch.cli.inference_lora`` and
+``python -m omg_tpu_torch.cli.inference_instantid``."""

@@ -150,15 +150,14 @@ def scale_initial_noise(sched: Schedule, noise: torch.Tensor) -> torch.Tensor:
 
 def step_noise(noise_seed: int, i: int, shape: tuple,
                device: torch.device) -> torch.Tensor:
-    """LCM's unit noise at step i, fp32, drawn on ``device`` from a
-    generator seeded by a hash of (noise_seed, NOISE_SALT, i): the draw
-    depends on nothing else."""
+    """LCM's unit noise at step i, fp32, drawn on the CPU from a
+    generator seeded by a hash of (noise_seed, NOISE_SALT, i) and moved to
+    ``device``: the draw depends on nothing else, the device included."""
     digest = hashlib.blake2b(f"{noise_seed}/{NOISE_SALT}/{i}".encode(),
                              digest_size=8).digest()
-    g = torch.Generator(device).manual_seed(
+    g = torch.Generator("cpu").manual_seed(
         int.from_bytes(digest, "little") & (2 ** 63 - 1))
-    return torch.randn(shape, generator=g, device=device,
-                       dtype=torch.float32)
+    return torch.randn(shape, generator=g, dtype=torch.float32).to(device)
 
 
 def _euler(sched: Schedule, eps, i, x) -> torch.Tensor:

@@ -1,20 +1,152 @@
-"""LoRA adapter algebra (port of ``omg_tpu/lora.py``).
+"""LoRA adapters: files and algebra (port of ``omg_tpu/lora.py``).
 
 An adapter is data, not a weight edit: a flat dict
 ``{module_path: {"down": [in, r], "up": [r, out], "scale": ()}}`` keyed by
 the diffusers path of the ``Linear`` it applies to (see ``nn/layers.py``).
 A concept may also be ``{"unet": ..., "text_encoder": ...,
-"text_encoder_2": ...}`` with one such dict per model.
+"text_encoder_2": ...}`` with one such dict per model; ``load_lora``
+returns that form.
 
-Loading LoRA files (kohya and diffusers layouts) comes with weight
-loading (ROADMAP.md).
+LoRA files come in three layouts, all read here:
+  * kohya-ss: ``lora_unet_<path>.lora_down.weight`` / ``lora_up.weight``
+    and ``.alpha``, the module path flattened with "_" (``lora_te1_`` /
+    ``lora_te2_`` for the text encoders);
+  * diffusers/PEFT: ``unet.<path>.lora_A.weight`` / ``lora_B.weight``;
+  * the old unprefixed attn-procs export: ``<block path>.processor.
+    to_q_lora.down.weight``.
+The scale is ``weight * alpha / rank`` (alpha = rank when the file has
+none). 1x1 conv LoRAs are squeezed to linear ones; k x k conv LoRAs are
+skipped, as the JAX package skips them (a corner tap would corrupt the
+adapter). A key that names no ``Linear`` of the model does nothing at
+run time, so the tests hold every loaded key to a LoRA-bearing linear.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import re
+from typing import Mapping, Optional, Sequence
 
 import torch
+
+from omg_tpu_torch import convert
+from omg_tpu_torch.nn import layers
+
+MODELS = ("unet", "text_encoder", "text_encoder_2")
+
+_KOHYA_RE = re.compile(r"^lora_(unet|te1|te2|te)_(.+)$")
+_KOHYA_MODEL = {"unet": "unet", "te": "text_encoder", "te1": "text_encoder",
+                "te2": "text_encoder_2"}
+# kohya flattens module paths with "_": these multi-word module names are
+# re-joined before the split (the JAX package's list, and the names of the
+# embeddings and of conv_in/conv_out, which it splits apart).
+_MULTIWORD = sorted([
+    "down_blocks", "up_blocks", "mid_block", "transformer_blocks",
+    "attentions", "resnets", "to_q", "to_k", "to_v", "to_out",
+    "proj_in", "proj_out", "ff_net", "time_emb_proj", "conv_shortcut",
+    "text_model", "self_attn", "q_proj", "k_proj", "v_proj", "out_proj",
+    "time_embedding", "add_embedding", "linear_1", "linear_2", "conv_in",
+    "conv_out", "text_projection"], key=len, reverse=True)
+
+
+load_safetensors = convert.load_safetensors
+
+
+def _kohya_tokens(flat: str) -> list:
+    """'down_blocks_1_attentions_0_...' -> ['down_blocks', '1', ...]."""
+    s = flat
+    for tok in _MULTIWORD:
+        s = s.replace(tok, tok.replace("_", "\x00"))
+    return [p.replace("\x00", "_") for p in s.split("_") if p]
+
+
+def _module_path(tokens: list) -> str:
+    """Tokens -> the port's dotted module path: kohya's ``ff_net`` is
+    ``ff.net``, and ``to_out`` without its index is ``to_out.0``."""
+    out = []
+    for i, t in enumerate(tokens):
+        if t == "ff_net":
+            out += ["ff", "net"]
+        elif t == "to_out" and tokens[i + 1:i + 2] != ["0"]:
+            out += ["to_out", "0"]
+        else:
+            out.append(t)
+    return ".".join(out)
+
+
+def _parse_key(key: str):
+    """A LoRA file key -> (model, module tokens, role) or None, role being
+    "down", "up" or "alpha"."""
+    m = _KOHYA_RE.match(key)
+    if m:
+        prefix, rest = m.groups()
+        flat, _, tail = rest.partition(".")
+        role = ("down" if "lora_down" in tail else
+                "up" if "lora_up" in tail else
+                "alpha" if tail == "alpha" else None)
+        return _KOHYA_MODEL[prefix], _kohya_tokens(flat), role
+    parts = key.split(".")
+    if parts[0] in MODELS:
+        model = parts[0]
+    elif parts[0] in ("down_blocks", "up_blocks", "mid_block") and \
+            "lora" in key:
+        model, parts = "unet", ["unet"] + parts      # attn-procs export
+    else:
+        return None
+    if "lora_A" in parts:
+        return model, parts[1:parts.index("lora_A")], "down"
+    if "lora_B" in parts:
+        return model, parts[1:parts.index("lora_B")], "up"
+    if parts[-1] == "alpha":
+        return model, parts[1:-1], "alpha"
+    if "lora" in key and ("down" in parts or "up" in parts):
+        # ...processor.to_q_lora.down.weight: drop the processor wrapper
+        # and the _lora suffix
+        role = "down" if "down" in parts else "up"
+        idx = parts.index(role)
+        return model, [t[:-5] if t.endswith("_lora") else t
+                       for t in parts[1:idx] if t != "processor"], role
+    return None
+
+
+def lora_from_state_dict(sd: Mapping, *, weight: float = 1.0,
+                         device="cuda") -> dict:
+    """A LoRA state dict -> {"unet", "text_encoder", "text_encoder_2"}
+    flat adapter dicts of fp32 leaves on ``device``, keyed by the port's
+    module paths. Files store down [r, in] and up [out, r]; the leaves are
+    down [in, r] and up [r, out]."""
+    device = layers.target_device(device, "lora_from_state_dict")
+    groups: dict = {}
+    for key, val in sd.items():
+        parsed = _parse_key(key)
+        if parsed is None or parsed[2] is None:
+            continue
+        model, tokens, role = parsed
+        groups.setdefault((model, _module_path(tokens)), {})[role] = \
+            torch.as_tensor(val)
+    out: dict = {m: {} for m in MODELS}
+    for (model, path), roles in groups.items():
+        if "down" not in roles or "up" not in roles:
+            continue
+        down, up = roles["down"], roles["up"]
+        rank = down.shape[0]
+        alpha = float(roles["alpha"]) if "alpha" in roles else float(rank)
+        if down.dim() == 4:
+            if down.shape[2:] != (1, 1) or up.shape[2:] != (1, 1):
+                continue                    # k x k conv LoRA: skipped
+            down, up = down[:, :, 0, 0], up[:, :, 0, 0]
+        out[model][path] = {
+            "down": down.float().T.contiguous().to(device),
+            "up": up.float().T.contiguous().to(device),
+            "scale": torch.tensor(weight * alpha / rank,
+                                  dtype=torch.float32, device=device)}
+    return out
+
+
+def load_lora(path: str, *, weight: float = 1.0, device="cuda") -> dict:
+    """A LoRA file (safetensors, or a torch pickle) -> the concept form
+    ``{"unet", "text_encoder", "text_encoder_2"}`` on ``device``."""
+    return lora_from_state_dict(convert.load_state_dict(path),
+                                weight=weight, device=device)
 
 
 def scale_lora(tree: Optional[dict], s: float) -> Optional[dict]:

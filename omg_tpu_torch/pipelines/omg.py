@@ -243,7 +243,8 @@ class OMG:
             # the reference fuses after step 15 of 50; keep the fraction
             fusion_start = round(steps * regions_lib.FUSION_START_STEP / 50)
         sched = schedulers.make_schedule(scheduler or self.scheduler, steps)
-        generator = torch.Generator(device).manual_seed(seed)
+        # a CPU generator: one seed, one image, on any device
+        generator = torch.Generator("cpu").manual_seed(seed)
 
         # --- conditioning ---------------------------------------------
         ep, pp, en, pn = self.encode(prompt, negative_prompt)

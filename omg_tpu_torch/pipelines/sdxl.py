@@ -75,12 +75,14 @@ def add_time_ids(original_size: tuple, crops_coords_top_left: tuple,
 def prepare_latents(generator: torch.Generator, batch: int, height: int,
                     width: int, sched: schedulers.Schedule,
                     dtype=torch.float32, device=None) -> torch.Tensor:
-    """Unit noise [B, h, w, 4] from ``generator``, scaled by the
-    schedule's initial sigma."""
+    """Unit noise [B, h, w, 4] drawn in fp32 on the CPU from
+    ``generator`` (a CPU generator: one seed gives the same latents on
+    every device, as the JAX package's counter-based draws do), moved to
+    ``device`` and scaled by the schedule's initial sigma."""
     noise = torch.randn((batch, height // 8, width // 8, 4),
-                        generator=generator, device=device,
-                        dtype=torch.float32).to(dtype)
-    return schedulers.scale_initial_noise(sched, noise)
+                        generator=generator, dtype=torch.float32)
+    return schedulers.scale_initial_noise(
+        sched, noise.to(device=device, dtype=dtype))
 
 
 def decode_latents(cfg: SDXLConfig, vae_model: vae.AutoencoderKL,

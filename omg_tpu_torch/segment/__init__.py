@@ -16,8 +16,11 @@ builds providers:
   * "none": disables stage 2.
 
 The models are the port's modules, built by the caller (random weights
-from a seed, or ``from_jax``); loading checkpoint files waits for the
-weight-loading slice (ROADMAP item 12).
+from a seed, or ``from_jax``), or read from checkpoint files: SAM from
+``sam_checkpoint`` (either family, ``sam_provider.convert_sam_checkpoint``)
+and the CLIP B/32 towers from ``clip_checkpoint`` (a CLIPModel or
+CLIPVisionModelWithProjection file) and ``clip_text_checkpoint`` (the
+text tower's file; the CLIP file when empty).
 """
 
 from __future__ import annotations
@@ -44,12 +47,14 @@ def build_mask_provider(kind: str, *, sam=None,
                         sam_checkpoint: str = "", clip_checkpoint: str = "",
                         clip_text_checkpoint: str = "", device="cuda",
                         **_ignored):
-    """``sam``: a ``sam_provider.Sam``. ``clip_vision`` / ``clip_text``:
-    the matched CLIP ViT-B/32 pair (``config.clip_vit_b32_vision`` /
-    ``clip_vit_b32_text``, one 512-d embedding space) with ``tokenizer``;
-    given both and no ``box_provider``, detection is the open-vocabulary
-    detector. The models run on ``device``, the card unless the caller
-    asks for the CPU."""
+    """``sam``: a ``sam_provider.Sam``, or else ``sam_checkpoint``'s.
+    ``clip_vision`` / ``clip_text``: the matched CLIP ViT-B/32 pair
+    (``config.clip_vit_b32_vision`` / ``clip_vit_b32_text``, one 512-d
+    embedding space), or else ``clip_checkpoint``'s and
+    ``clip_text_checkpoint``'s, with ``tokenizer``; given both and no
+    ``box_provider``, detection is the open-vocabulary detector. The
+    models run on ``device``, the card unless the caller asks for the
+    CPU."""
     kind = (kind or "none").lower()
     if kind in ("none", ""):
         return None
@@ -59,13 +64,20 @@ def build_mask_provider(kind: str, *, sam=None,
         return external
     if kind not in ("sam", "yoloworld", "groundingdino", "openvocab"):
         raise ValueError(f"unknown segment kind: {kind}")
-    from omg_tpu_torch.segment.sam_provider import SamMaskProvider
-    if sam_checkpoint or clip_checkpoint or clip_text_checkpoint:
-        raise NotImplementedError("loading SAM and CLIP checkpoint files is "
-                                  "not ported yet (ROADMAP item 12); pass "
-                                  "the port's modules")
+    from omg_tpu_torch.segment.sam_provider import (SamMaskProvider,
+                                                    convert_sam_checkpoint)
+    if sam is None and sam_checkpoint:
+        sam = convert_sam_checkpoint(sam_checkpoint, device=device)
+    if clip_vision is None and clip_checkpoint:
+        from omg_tpu_torch import config, convert
+        clip_vision = convert.convert_clip_vision(
+            clip_checkpoint, config.clip_vit_b32_vision(), device=device)
+        clip_text = convert.convert_clip(
+            clip_text_checkpoint or clip_checkpoint,
+            config.clip_vit_b32_text(), device=device)
     if sam is None:
-        raise ValueError(f"segment kind {kind!r} needs `sam=`")
+        raise ValueError(f"segment kind {kind!r} needs `sam=` or "
+                         "`sam_checkpoint=`")
     provider = SamMaskProvider(sam=sam, box_provider=box_provider,
                                device=device)
     if box_provider is None and clip_vision is not None:

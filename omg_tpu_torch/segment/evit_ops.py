@@ -14,11 +14,13 @@ The resizes are torch's own (``F.interpolate``, taken in fp64), which the
 JAX package rebuilds as interpolation matrices: bicubic with a = -0.75
 and clamped taps, bilinear with and without ``align_corners``.
 ``resize_uint8`` is PIL's antialiased bilinear on uint8 images, rounded
-back to uint8.
+back to uint8; ``pil_bicubic_uint8`` is PIL's bicubic resampling itself
+(the resize of the CLIs' condition image).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -283,3 +285,69 @@ def resize_uint8(image: np.ndarray, size: tuple,
     y = F.interpolate(x.permute(2, 0, 1)[None], size=tuple(size),
                       mode="bilinear", align_corners=False, antialias=True)
     return y[0].permute(1, 2, 0).round().clamp(0, 255)
+
+
+def _bicubic(x: float) -> float:
+    """PIL's bicubic kernel, a = -0.5, support 2."""
+    a, x = -0.5, abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+_PRECISION_BITS = 22                    # PIL's 8-bit resampling: 32 - 8 - 2
+
+
+def _pil_taps(n_in: int, n_out: int) -> tuple:
+    """PIL's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the
+    bicubic filter: (source index [n_out, k], fixed-point weight
+    [n_out, k]), unused taps weight 0."""
+    scale = n_in / n_out
+    fscale = max(scale, 1.0)
+    support = 2.0 * fscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    idx = np.zeros((n_out, ksize), np.int64)
+    kk = np.zeros((n_out, ksize), np.int64)
+    for xx in range(n_out):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), n_in) - xmin
+        w = [_bicubic((x + xmin - center + 0.5) * (1.0 / fscale))
+             for x in range(xmax)]
+        ww = sum(w)
+        w = [v / ww if ww != 0.0 else v for v in w]
+        idx[xx, :xmax] = np.arange(xmin, xmin + xmax)
+        kk[xx, :xmax] = [int(v * (1 << _PRECISION_BITS)
+                             + (0.5 if v >= 0 else -0.5)) for v in w]
+    return idx, kk
+
+
+def _pil_pass(x: np.ndarray, axis: int, n_out: int) -> np.ndarray:
+    """One PIL resampling pass of uint8 data along ``axis`` (0 or 1):
+    fixed-point sums, rounded and clipped to uint8."""
+    idx, kk = _pil_taps(x.shape[axis], n_out)
+    xs = x.astype(np.int64)
+    acc = np.full(x.shape[:axis] + (n_out,) + x.shape[axis + 1:],
+                  1 << (_PRECISION_BITS - 1), np.int64)
+    shape = (-1, 1) if axis == 0 else (1, -1)
+    for k in range(idx.shape[1]):
+        acc += np.take(xs, idx[:, k], axis=axis) * \
+            kk[:, k].reshape(shape + (1,) * (x.ndim - 2))
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def pil_bicubic_uint8(image: np.ndarray, size: tuple) -> np.ndarray:
+    """PIL's ``Image.resize((w, h), BICUBIC)`` of uint8 [H, W, C] to
+    ``size`` (H, W), bit for bit: its two fixed-point passes, horizontal
+    first, each rounded and clipped to uint8. No single interpolation
+    reproduces it: the a = -0.5 kernel overshoots, and PIL clips the
+    overshoot between the passes."""
+    h, w = size
+    x = np.asarray(image, np.uint8)
+    if w != x.shape[1]:
+        x = _pil_pass(x, 1, w)
+    if h != x.shape[0]:
+        x = _pil_pass(x, 0, h)
+    return x

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from omg_tpu_torch import convert
 from omg_tpu_torch.nn import layers
 from omg_tpu_torch.segment import efficientvit as evit
 from omg_tpu_torch.segment import evit_ops as ops
@@ -56,6 +57,33 @@ def make_encoder(cfg: EncoderConfig, device=None) -> nn.Module:
     if isinstance(cfg, vit_sam.VitSamConfig):
         return vit_sam.ImageEncoderViT(cfg, device)
     return evit.EfficientViTSamImageEncoder(cfg, device)
+
+
+# Upstream keys with no module here: BatchNorm counters, the mask-prompt
+# downscaler (the port prompts with boxes and points only) and
+# segment_anything's pixel normalization buffers.
+SAM_SKIP = (r"num_batches_tracked$", r"^prompt_encoder\.mask_downscaling\.",
+            r"^pixel_(mean|std)$")
+
+
+def convert_sam_checkpoint(path_or_sd, *,
+                           cfg: Optional[EncoderConfig] = None,
+                           device="cuda") -> Sam:
+    """A SAM checkpoint, EfficientViT-SAM (``xl1.pt``) or SAM ViT-B/L/H
+    (``sam_vit_h_4b8939.pth``), file or state dict -> the port's ``Sam``
+    on ``device``. The encoder's family and geometry are ``cfg``, or else
+    read off its keys (``encoder_config``). The upstream layouts load as
+    they are: the decoder's ConvTranspose kernels are torch's
+    [in, out, k, k] and the prompt/mask tokens [n, 256] tables."""
+    device = layers.target_device(device, "convert_sam_checkpoint")
+    sd = convert.filter_keys(convert.as_state_dict(path_or_sd), SAM_SKIP)
+    if cfg is None:
+        pre = "image_encoder."
+        cfg = encoder_config({k[len(pre):]: v for k, v in sd.items()
+                              if k.startswith(pre)})
+    sam = Sam(make_encoder(cfg, device), dec.PromptEncoder(device),
+              dec.MaskDecoder(device))
+    return convert.copy_into(sam, sd)
 
 
 def init_sam(generator: torch.Generator, cfg: EncoderConfig,
@@ -133,17 +161,18 @@ def full_image_box(image: np.ndarray, text: str):
 
 class SamMaskProvider:
     """MaskProvider: detector box -> SAM mask (the reference's
-    predict_mask, inference_lora.py:91-126). ``sam`` is moved to
-    ``device``, the card unless the caller asks for the CPU."""
+    predict_mask, inference_lora.py:91-126). The model is ``sam``, or else
+    the ``checkpoint`` file's (``convert_sam_checkpoint``, the encoder's
+    geometry ``cfg`` or read off the file), on ``device``, the card unless
+    the caller asks for the CPU."""
 
     def __init__(self, checkpoint: str = "",
                  box_provider: Optional[Callable] = None,
-                 sam: Optional[Sam] = None, *, device="cuda"):
-        if sam is None:
-            raise NotImplementedError(
-                f"loading the SAM checkpoint {checkpoint!r} is not ported "
-                "yet (ROADMAP item 12); pass the port's modules as sam=")
+                 sam: Optional[Sam] = None,
+                 cfg: Optional[EncoderConfig] = None, *, device="cuda"):
         device = layers.target_device(device, "SamMaskProvider")
+        if sam is None:
+            sam = convert_sam_checkpoint(checkpoint, cfg=cfg, device=device)
         self.predictor = SamPredictor(sam.to(device))
         self.box_provider = box_provider or full_image_box
         self._cached_image_id = None

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from omg_tpu_torch import convert
 from omg_tpu_torch.nn import layers
 from omg_tpu_torch.segment import evit_ops as ops
 
@@ -225,11 +226,15 @@ class ImageEncoderViT(nn.Module):
         return x.permute(0, 2, 3, 1)
 
 
-def convert_encoder(sd: dict, **_):
-    """Loading ``sam_vit_h_4b8939.pth`` waits for the weight-loading slice
-    (ROADMAP item 12)."""
-    raise NotImplementedError("SAM ViT checkpoint conversion is not ported "
-                              "yet (ROADMAP item 12)")
+def convert_encoder(sd: Mapping, *, device="cuda") -> ImageEncoderViT:
+    """The ``image_encoder.``-stripped state dict of a SAM ViT checkpoint
+    (``sam_vit_h_4b8939.pth``) -> an encoder of the geometry its shapes
+    give, on ``device``. The torch layouts load as they are: ``pos_embed``
+    is token-major [1, g, g, C] and the rel-pos tables [2s - 1, hd] in
+    both."""
+    device = layers.target_device(device, "vit_sam.convert_encoder")
+    return convert.copy_into(ImageEncoderViT(config_from_params(sd), device),
+                             sd)
 
 
 def init_params(generator: torch.Generator, cfg: VitSamConfig,

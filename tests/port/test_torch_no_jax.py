@@ -1,5 +1,8 @@
-"""The port stands without jax (and without PIL or cv2), and its chip
-smoke refuses to run on a machine without a CUDA device."""
+"""The port stands without jax, and without the packages the GPU host
+lacks (PIL, cv2, transformers, tokenizers, safetensors, regex, ftfy); its
+CLIs answer --help and refuse to run without a card unless asked for the
+CPU, and its chip smoke refuses to run on a machine without a CUDA
+device."""
 
 import importlib.util
 import os
@@ -32,11 +35,33 @@ def test_port_never_imports_jax():
             "import omg_tpu_torch.models.resampler\n"
             "import omg_tpu_torch.instantid\n"
             "import omg_tpu_torch.diffusion.schedulers\n"
+            "import omg_tpu_torch.convert, omg_tpu_torch.loader\n"
+            "import omg_tpu_torch.checkpoint, omg_tpu_torch.utils.image\n"
+            "import omg_tpu_torch.cli.inference_lora\n"
+            "import omg_tpu_torch.cli.inference_instantid\n"
+            "import omg_tpu_torch.text.tokenizer\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('jax', 'jaxlib', 'omg_tpu', 'PIL', 'cv2'))\n"
+            "             ('jax', 'jaxlib', 'omg_tpu', 'PIL', 'cv2',\n"
+            "              'transformers', 'safetensors', 'regex', 'ftfy',\n"
+            "              'tokenizers'))\n"
             "assert not bad, bad\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
+
+
+def test_cli_help_and_no_card():
+    """``--help`` needs no card; a run that asks for none fails at once
+    for want of one, before any file is read."""
+    proc = _run(["-m", "omg_tpu_torch.cli.inference_lora", "--help"])
+    assert proc.returncode == 0, proc.stderr
+    assert "--lora_path" in proc.stdout and "--device" in proc.stdout
+    proc = _run(["-m", "omg_tpu_torch.cli.inference_instantid", "--help"])
+    assert proc.returncode == 0 and "--face_adapter_path" in proc.stdout
+    proc = _run(["-m", "omg_tpu_torch.cli.inference_lora",
+                 "--pretrained_sdxl_model", "no/such/dir"])
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "no/such/dir" not in proc.stderr
 
 
 def test_chip_smoke_fails_without_a_card():

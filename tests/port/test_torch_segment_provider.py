@@ -118,9 +118,19 @@ def test_provider_caches_the_embedding_by_content(sams):
         assert _mask_diff(g, w) <= MASK_FRAC
 
 
-def test_sam_provider_needs_modules():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sp.SamMaskProvider("sam_vit_h_4b8939.pth", device="cpu")
+def test_sam_provider_needs_modules(sams, tmp_path):
+    """Without modules the provider reads them from the checkpoint file;
+    a missing file raises."""
+    with pytest.raises(FileNotFoundError):
+        sp.SamMaskProvider(str(tmp_path / "sam_vit_h_4b8939.pth"),
+                           device="cpu")
+    _, _, sam = sams
+    torch.save(sam.state_dict(), tmp_path / "xl1.pt")
+    loaded = sp.SamMaskProvider(str(tmp_path / "xl1.pt"),
+                                cfg=sam.image_encoder.cfg, device="cpu")
+    want = sam.state_dict()
+    for k, v in loaded.predictor.sam.state_dict().items():
+        assert torch.equal(v, want[k]), k
 
 
 PROPOSER = dict(iou_thresh=-10.0, min_area_frac=0.0, max_area_frac=1.0,
@@ -224,8 +234,9 @@ def test_build_mask_provider_kinds(sams):
     assert build_mask_provider("external", external=ext) is ext
     with pytest.raises(ValueError, match="unknown segment kind"):
         build_mask_provider("maskrcnn", sam=sam, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_mask_provider("sam", sam_checkpoint="xl1.pt", device="cpu")
+    with pytest.raises(FileNotFoundError):
+        build_mask_provider("sam", sam_checkpoint="no/such/xl1.pt",
+                            device="cpu")
     with pytest.raises(ValueError, match="needs `sam=`"):
         build_mask_provider("sam", device="cpu")
     provider = build_mask_provider("yoloworld", sam=sam, device="cpu")

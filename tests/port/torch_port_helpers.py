@@ -114,6 +114,209 @@ def tiny_sdxl_numpy(seed=0):
         enumerate(zip((junet, jvae, jclip, jclip), jsdxl.tiny_config()))))
 
 
+TOKENIZER_CORPUS = (
+    "close-up photo of the cool man and the beautiful woman at the beach, "
+    "4k. a man and a woman in surprised expressions; the man's hat, the "
+    "woman's dress, they'll smile. portrait of a young girl with red hair "
+    "in a garden, cinematic lighting, highly detailed, 8k uhd, dslr, soft "
+    "light, high quality, film grain. noisy, blurry, soft, deformed, ugly. "
+    "a cat and a dog playing on the grass under the blue sky in summer")
+
+
+def learn_merges(corpus: str, n: int) -> list:
+    """Byte-level BPE merges learned from ``corpus``: the most frequent
+    adjacent pair of symbols (ties: the smallest pair) merged ``n``
+    times, CLIP's way of marking the last symbol of a word with
+    ``</w>``."""
+    from collections import Counter
+
+    from omg_tpu_torch.text import tokenizer as tk
+    enc = tk.bytes_to_unicode()
+    words = Counter()
+    for tok in tk.pre_tokenize(tk.basic_clean(corpus)):
+        chars = [enc[b] for b in tok.encode("utf-8")]
+        words[tuple(chars[:-1]) + (chars[-1] + "</w>",)] += 1
+    merges = []
+    for _ in range(n):
+        pairs = Counter()
+        for w, c in words.items():
+            for p in zip(w, w[1:]):
+                pairs[p] += c
+        if not pairs:
+            break
+        best = min(pairs, key=lambda p: (-pairs[p], p))
+        merges.append(best)
+        new = Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            new[tuple(out)] += c
+        words = new
+    return merges
+
+
+def write_clip_tokenizer(folder, merges, *, pad="<|endoftext|>"):
+    """A CLIP tokenizer folder as SDXL ships it: vocab.json (the 256 byte
+    symbols, the same with ``</w>``, one symbol per merge, then BOS and
+    EOS last), merges.txt, special_tokens_map.json and
+    tokenizer_config.json (``pad`` "!" for ``tokenizer_2``, an added
+    special token at id 0)."""
+    import json
+    import os
+
+    from omg_tpu_torch.text import tokenizer as tk
+    os.makedirs(folder, exist_ok=True)
+    syms = list(tk.bytes_to_unicode().values())
+    syms += [s + "</w>" for s in syms]
+    syms += ["".join(m) for m in merges]
+    syms += ["<|startoftext|>", "<|endoftext|>"]
+    vocab = {s: i for i, s in enumerate(dict.fromkeys(syms))}
+    with open(os.path.join(folder, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(folder, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(" ".join(m) for m in merges)
+                + "\n")
+
+    def added(content):
+        return {"content": content, "lstrip": False, "normalized": True,
+                "rstrip": False, "single_word": False}
+
+    specials = {"bos_token": added("<|startoftext|>"),
+                "eos_token": added("<|endoftext|>"), "pad_token": pad,
+                "unk_token": added("<|endoftext|>")}
+    with open(os.path.join(folder, "special_tokens_map.json"), "w") as f:
+        json.dump(specials, f)
+    config = dict({k: v["content"] if isinstance(v, dict) else v
+                   for k, v in specials.items()},
+                  do_lower_case=True, errors="replace",
+                  model_max_length=77, tokenizer_class="CLIPTokenizer",
+                  clean_up_tokenization_spaces=True)
+    if pad != "<|endoftext|>":
+        config["added_tokens_decoder"] = {
+            str(vocab[c]): dict(added(c), special=True)
+            for c in (pad, "<|startoftext|>", "<|endoftext|>")}
+    with open(os.path.join(folder, "tokenizer_config.json"), "w") as f:
+        json.dump(config, f)
+    return vocab
+
+
+def write_safetensors(path, sd, np_dtype=np.float32):
+    """A flat numpy state dict -> a safetensors file written by the
+    ``safetensors`` package, float arrays cast to ``np_dtype``."""
+    from safetensors import numpy as stnp
+    stnp.save_file({k: np.array(v.astype(np_dtype) if v.dtype.kind == "f"
+                                else v, order="C")
+                    for k, v in map(lambda kv: (kv[0], np.asarray(kv[1])),
+                                    sd.items())}, str(path))
+
+
+def _json(path, obj):
+    import json
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
+def unet_config_json(ucfg, **extra):
+    """The diffusers config.json fields of a UNet geometry, with the
+    block types that say which levels carry transformers."""
+    return dict({
+        "sample_size": ucfg.sample_size,
+        "block_out_channels": list(ucfg.block_out_channels),
+        "down_block_types": ["CrossAttnDownBlock2D" if d else "DownBlock2D"
+                             for d in ucfg.transformer_layers_per_block],
+        "layers_per_block": ucfg.layers_per_block,
+        "transformer_layers_per_block":
+            list(ucfg.transformer_layers_per_block),
+        "attention_head_dim": ucfg.attention_head_dim,
+        "cross_attention_dim": ucfg.cross_attention_dim,
+        "addition_time_embed_dim": ucfg.addition_time_embed_dim,
+        "projection_class_embeddings_input_dim":
+            ucfg.projection_class_embeddings_input_dim,
+        "norm_num_groups": ucfg.norm_num_groups}, **extra)
+
+
+def write_tiny_checkpoint(root, *, seed=0, np_dtype=np.float32):
+    """A tiny SDXL checkout in the HF layout under ``root``: unet/, vae/
+    (the encoder half included, as real files have it), text_encoder/
+    and text_encoder_2/ (with transformers' ``position_ids`` buffer)
+    safetensors in ``np_dtype`` with their config.json, and tokenizer/
+    and tokenizer_2/ (pad "!") with merges learned from a corpus. The
+    weights are ``numpy_params`` of the JAX tiny configs, written through
+    the JAX package's own inverse of its converter."""
+    import os
+
+    from tests.test_convert import _emit_torch_sd
+    root = str(root)
+    trees = tiny_sdxl_numpy(seed)
+    jc = jsdxl_tiny()
+    for name, tree, fname in (
+            ("unet", trees.unet, "diffusion_pytorch_model.safetensors"),
+            ("vae", trees.vae, "diffusion_pytorch_model.safetensors"),
+            ("text_encoder", trees.text_encoder, "model.safetensors"),
+            ("text_encoder_2", trees.text_encoder_2, "model.safetensors")):
+        os.makedirs(os.path.join(root, name), exist_ok=True)
+        sd = _emit_torch_sd(tree)
+        if name.startswith("text_encoder"):
+            sd["text_model.embeddings.position_ids"] = \
+                np.arange(77, dtype=np.int64)[None]
+        write_safetensors(os.path.join(root, name, fname), sd, np_dtype)
+    _json(os.path.join(root, "unet", "config.json"),
+          unet_config_json(jc.unet))
+    v = jc.vae
+    _json(os.path.join(root, "vae", "config.json"), {
+        "block_out_channels": list(v.block_out_channels),
+        "layers_per_block": v.layers_per_block,
+        "norm_num_groups": v.norm_num_groups,
+        "scaling_factor": v.scaling_factor})
+    for name, t_cfg, arch in (
+            ("text_encoder", jc.text_encoder, "CLIPTextModel"),
+            ("text_encoder_2", jc.text_encoder_2,
+             "CLIPTextModelWithProjection")):
+        _json(os.path.join(root, name, "config.json"), {
+            "architectures": [arch], "vocab_size": t_cfg.vocab_size,
+            "hidden_size": t_cfg.hidden_size,
+            "intermediate_size": t_cfg.intermediate_size,
+            "num_hidden_layers": t_cfg.num_layers,
+            "num_attention_heads": t_cfg.num_heads,
+            "hidden_act": t_cfg.hidden_act,
+            "projection_dim": t_cfg.projection_dim or 8})
+    merges = learn_merges(TOKENIZER_CORPUS, 486)
+    write_clip_tokenizer(os.path.join(root, "tokenizer"), merges)
+    write_clip_tokenizer(os.path.join(root, "tokenizer_2"), merges, pad="!")
+    return root
+
+
+def kohya_lora_sd(rng, ucfg, te_hidden, rank=4, alpha=None):
+    """A kohya-ss LoRA state dict (numpy) on the first mid-block
+    transformer block's projections and feed-forward of a UNet of
+    ``ucfg``, and on text encoder 1's first q_proj (width ``te_hidden``);
+    ``alpha`` per module (None: rank)."""
+    dim, ctx = ucfg.block_out_channels[-1], ucfg.cross_attention_dim
+    blk = "lora_unet_mid_block_attentions_0_transformer_blocks_0_"
+    shapes = {blk + "attn1_to_q": (dim, dim), blk + "attn1_to_out_0":
+              (dim, dim), blk + "attn2_to_k": (ctx, dim),
+              blk + "attn2_to_v": (ctx, dim), blk + "ff_net_2": (4 * dim, dim),
+              "lora_te1_text_model_encoder_layers_0_self_attn_q_proj":
+              (te_hidden, te_hidden)}
+    sd = {}
+    for key, (d_in, d_out) in shapes.items():
+        sd[key + ".lora_down.weight"] = normal(rng, rank, d_in, scale=0.3)
+        sd[key + ".lora_up.weight"] = normal(rng, d_out, rank, scale=0.3)
+        sd[key + ".alpha"] = np.float32(rank if alpha is None else alpha)
+    return sd
+
+
+def jsdxl_tiny():
+    from omg_tpu.pipelines import sdxl as jsdxl
+    return jsdxl.tiny_config()
+
+
 def tiny_sdxl(seed=0):
     """(JAX tiny SDXLParams, port SDXLParams) holding the same random
     weights."""
