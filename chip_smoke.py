@@ -12,7 +12,8 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      spills.
   3. kernel  — K1 vs its plain PyTorch version on seeded bf16 inputs
      at the UNet's and the ControlNets' self-attention shapes (batch 1,
-     2, 3, 4 and 7); for every shape the error
+     2, 3, 4 and 7, and 8 and 28 for four requests in one batch); for
+     every shape the error
      bound, kernel / plain / SDPA (the library yardstick, never called by
      the port) ms per call, the bound (the larger of FLOPs over the bf16
      peak and bytes over the memory rate) and the kernel's share of it;
@@ -72,14 +73,37 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      analysis of the stage-1 image the IdentityNet gets no condition, so
      2310 launches (``path_launches(20, 70, 70)``). Each CLI: the wall
      seconds from ``main``'s start, loading included, and its timings.
+  10. serving — run after phase 9 while phase 5's SDXL weights are live,
+     at 1024x1024: (a) one ``OMG.generate_batch`` of R = 4 config #2
+     requests (50 Euler steps, seeds 14-17, guidance 7.5/7.5/5.0/7.5,
+     adapters: phase 5's two rank-32 LoRAs, the two swapped, one rank-32
+     with one rank-16, one with None): 5880 K1 launches at B = 8 (stage
+     1) and 28 (stage 2), stage and total seconds, peak memory, the
+     per-lane LoRA copies' bytes, images per minute beside phase 5's
+     single request, request 0's image against phase 5's; (b) R = 2 at 6
+     steps, each request's stage-1 and stage-2 latents against its own
+     serial ``generate`` within MODEL_REL_BOUND; (c) BASELINE config #5:
+     a batch of 2 requests at 20 steps, guidance 3.0, each with InstantID
+     (phase 8's seeds, two face embeddings, a ``draw_kps`` image), the
+     spatial ControlNet on ``serving.conditions.prepare_condition(photo,
+     "canny", 1024, 1024)`` of a seeded photo and a rank-16 style LoRA:
+     3874 launches; then one guess-mode ControlNet request, served
+     serially: 3432 launches, K1 at B = 1; (d) ``OMGServer.serve`` on
+     127.0.0.1, port 0, in a thread, with a registry of two characters
+     whose LoRAs are kohya files: /healthz, /registry, one POST
+     /generate of 4 prompts at 20 steps (one batch: 2310 launches), every
+     PNG 1024x1024x3 with stage 2 run, /metrics counting 4 batched
+     requests; then ``serving.warmup.warmup`` of the 1024² bucket with
+     batch width 4, seconds per program.
   6. mesh    — the multi-device latency mode, ``OMG(mesh=...)``, on 2 ranks
      that share this card through ``gloo`` (mesh data=1, model=2): the
      same seeded weights on both (checked), one H-split stage-1 UNet
      forward and one lane-split 8-lane stage-2 forward against the
      unsharded ones, then ``generate`` as in phase 5: 3500 K1b and 2380
      K1 launches per rank, identical images on both ranks.
-The last five lines are JSON records of the mask stage, of phase 8, of
-phase 9 and of the kernels, and ``{"ok": true, "device": {...}}``.
+The last six lines are JSON records of the mask stage, of phase 8, of
+phase 9, of phase 10 and of the kernels, and ``{"ok": true, "device":
+{...}}``.
 
     python3 chip_smoke.py --profile
 
@@ -93,6 +117,7 @@ the largest kernels.
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import dataclasses
 import gc
@@ -103,6 +128,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -121,6 +147,9 @@ from omg_tpu_torch.parallel import comm, launch, mesh as mesh_lib
 from omg_tpu_torch.pipelines import multiconcept, omg as omg_lib, sdxl
 from omg_tpu_torch.segment import (detector, efficientvit, sam_decoder,
                                    sam_provider, vit_sam)
+from omg_tpu_torch.serving import conditions, registry as registry_lib
+from omg_tpu_torch.serving import warmup as warmup_lib
+from omg_tpu_torch.serving.server import OMGServer
 from omg_tpu_torch.text.tokenizer import ToyTokenizer
 from omg_tpu_torch.utils import image as image_io
 
@@ -162,6 +191,41 @@ CN_PATH_LAUNCHES = path_launches(STEPS, 70 + CN_LAUNCHES, 70 + CN_LAUNCHES)
 IID_PATH_LAUNCHES = path_launches(STEPS, 70, 70 + CN_LAUNCHES)
 SCHEDULER_RUNS = (("ddim", 25), ("dpmpp_2m", 25), ("lcm", 4))
 
+
+def serve_shapes(steps: int, lanes1: int, lanes2: int, cn1: tuple = (),
+                 cn2: tuple = ()) -> dict:
+    """K1 launches by q shape "B,H,N,D" of one two-stage run at HEIGHT x
+    WIDTH: the UNet (10 self-attentions at level 1, 60 at level 2) on
+    ``lanes1`` lanes every stage-1 step and on ``lanes2`` every stage-2
+    step after fusion_start, and a ControlNet (4 and 30) at each lane
+    count of ``cn1`` in stage 1 and ``cn2`` in stage 2."""
+    n2 = steps - round(steps * 15 / 50) - 1
+    tokens = ((10, (HEIGHT // 16) * (WIDTH // 16)),
+              (20, (HEIGHT // 32) * (WIDTH // 32)))
+    out: dict = {}
+    for b, n, per in ([(lanes1, steps, (10, 60)), (lanes2, n2, (10, 60))]
+                      + [(c, steps, (4, 30)) for c in cn1]
+                      + [(c, n2, (4, 30)) for c in cn2]):
+        for (heads, nt), k in zip(tokens, per):
+            key = f"{b},{heads},{nt},64"
+            out[key] = out.get(key, 0) + n * k
+    return out
+
+
+# Phase 10. (a) four requests at 50 steps: 2R = 8 lanes in stage 1, R(3 +
+# 2K) = 28 in stage 2; (c) config #5, two requests at 20 steps with the
+# ControlNet on the 2R stage-1 lanes and the 3R stage-2 base lanes and
+# the IdentityNet on the 2KR concept lanes; guess mode alone: the
+# ControlNet on the cond row in stage 1 and on the two conditional base
+# rows in stage 2; (d) the HTTP batch of four at 20 steps.
+SERVE_R = 4
+BATCH_SHAPE_LAUNCHES = serve_shapes(STEPS, 2 * SERVE_R, 7 * SERVE_R)
+SERVE_CHECK_STEPS = 6
+CONFIG5_STEPS = 20
+CONFIG5_SHAPES = serve_shapes(CONFIG5_STEPS, 4, 14, (4,), (6, 8))
+GUESS_SHAPES = serve_shapes(CONFIG5_STEPS, 2, 7, (1,), (2,))
+HTTP_SHAPES = serve_shapes(CONFIG5_STEPS, 2 * SERVE_R, 7 * SERVE_R)
+
 # Kernel vs plain, bf16 in and out: bf16 keeps 8 mantissa bits. The
 # kernel rounds the unnormalized probabilities to bf16 before P.V and
 # both sides round O, so they may differ by a few ulps of the output's
@@ -197,7 +261,10 @@ KERNEL_SHAPES = [  # (B, H, N, D): main-path, bucket, D=128, ragged tiles
     (1, 20, 1024, 64), (3, 20, 1024, 64), (4, 20, 1024, 64),
     (2, 10, 3952, 64), (2, 20, 988, 64),
     (2, 20, 960, 64), (2, 20, 1008, 64), (2, 10, 3840, 64),
-    (2, 10, 1024, 128), (2, 20, 1088, 64), (2, 20, 1025, 64)]
+    (2, 10, 1024, 128), (2, 20, 1088, 64), (2, 20, 1025, 64),
+    # four requests in one batch (phase 10): stage 1, stage 2
+    (8, 10, 4096, 64), (8, 20, 1024, 64), (28, 10, 4096, 64),
+    (28, 20, 1024, 64)]
 TIMED_SHAPE = (7, 10, 4096, 64)
 SEQ_SHAPES = [  # (B, H, Nq local, Nk): q rows of a shard against all K/V
     (2, 10, 2048, 4096), (2, 20, 512, 1024),     # 2-way seq at 1024^2
@@ -489,10 +556,12 @@ def model_phase(device, cfg, params, loras) -> None:
 
 
 @contextlib.contextmanager
-def record_latents(store: dict):
-    """Keep the two stages' output latents (the engine returns images)."""
-    s1, s2 = multiconcept.sample_stage1_cached, \
-        multiconcept.sample_stage2_resumed
+def record_latents(store: dict, batch: bool = False):
+    """Keep the two stages' output latents (the engine returns images);
+    ``batch``: of ``generate_batch``'s programs ([R, 2, h, w, 4])."""
+    names = (("sample_stage1_batch", "sample_stage2_batch") if batch else
+             ("sample_stage1_cached", "sample_stage2_resumed"))
+    s1, s2 = (getattr(multiconcept, n) for n in names)
 
     def stage1(*args, **kwargs):
         lat, cache = s1(*args, **kwargs)
@@ -503,13 +572,13 @@ def record_latents(store: dict):
         store["stage2"] = s2(*args, **kwargs)
         return store["stage2"]
 
-    multiconcept.sample_stage1_cached = stage1
-    multiconcept.sample_stage2_resumed = stage2
+    setattr(multiconcept, names[0], stage1)
+    setattr(multiconcept, names[1], stage2)
     try:
         yield
     finally:
-        multiconcept.sample_stage1_cached = s1
-        multiconcept.sample_stage2_resumed = s2
+        setattr(multiconcept, names[0], s1)
+        setattr(multiconcept, names[1], s2)
 
 
 def left_right_masks(image, cls):
@@ -620,9 +689,9 @@ def weights(device):
 
 
 def single_card_phases(device) -> tuple:
-    """Phases 4, 5, 7, 8 and 9; the weights are freed on return. Returns
-    (phase 5's launches, phase 5's result, phase 7's record, phase 8's
-    record, phase 9's record)."""
+    """Phases 4, 5, 7, 8, 9 and 10; the weights are freed on return.
+    Returns (phase 5's launches, phase 5's result, phase 7's record, phase
+    8's record, phase 9's record, phase 10's record)."""
     with torch.inference_mode():
         log("== weights")
         cfg, params, loras = weights(device)
@@ -640,7 +709,9 @@ def single_card_phases(device) -> tuple:
         torch.cuda.empty_cache()
         log("== checkpoint")
         ckpt = checkpoint_phase(device, cfg, params, loras)
-        return launches, res, masks, cond, ckpt
+        log("== serving")
+        serve = serving_phase(device, cfg, params, loras, res)
+        return launches, res, masks, cond, ckpt, serve
 
 
 # --------------------------------------------------------------- phase 7
@@ -1410,6 +1481,287 @@ def checkpoint_phase(device, cfg, params, loras) -> dict:
     return rec
 
 
+# -------------------------------------------------------------- phase 10
+
+def serve_request(loras, seed: int, guidance: float, **kw) -> dict:
+    """A config #2 request for ``generate_batch`` (phase 5's prompts)."""
+    return dict(dict(prompt="photo of the man and the woman at the beach",
+                     negative_prompt="ugly",
+                     prompt_rewrite="[photo of the man]-*-[ugly]|"
+                                    "[photo of the woman]-*-[ugly]",
+                     concept_loras=loras, seed=seed, height=HEIGHT,
+                     width=WIDTH, guidance_scale=guidance, num_steps=STEPS),
+                **kw)
+
+
+def run_batch(name: str, engine, requests: list, expect: dict,
+              latents: dict = None) -> tuple:
+    """``engine.generate_batch(requests)`` with K1's counts zeroed just
+    before and read just after; raises unless K1 launched ``expect`` (by
+    q shape) or a result lacks stage 2. -> (results, record)."""
+    by_shape: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(launch_shapes(by_shape))
+        if latents is not None:
+            stack.enter_context(record_latents(latents, batch=True))
+        results = engine.generate_batch(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, peak = fa.LAUNCHES, torch.cuda.max_memory_allocated()
+    if by_shape != expect or launches != sum(expect.values()):
+        raise AssertionError(f"{name}: K1 launches {launches} by q shape "
+                             f"{by_shape}, want {expect}")
+    for r in results:
+        if r.stage2 is None or r.stage2.shape != (2, HEIGHT, WIDTH, 3):
+            raise AssertionError(f"{name}: stage 2 missing or misshapen")
+    tm = results[0].timings
+    log(f"{name}: {len(requests)} requests in {wall:.3f} s; "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in tm.items())
+        + f"; {launches} K1 launches {by_shape}; peak {peak / 2**30:.2f} GiB")
+    return results, {"requests": len(requests), "wall_s": wall,
+                     "timings": tm, "launches": launches,
+                     "launches_by_shape": by_shape, "peak_gib": peak / 2**30}
+
+
+def lane_lora_gib(requests: list) -> float:
+    """GiB of the stage-2 lane-stacked LoRA of ``requests`` (each adapter
+    copied once per lane: 3 zero lanes and 2 per concept, per request)."""
+    stacked = lora_lib.stack_loras([
+        lo for r in requests for lo in
+        [None] * 3 + [x for x in r["concept_loras"] for _ in range(2)]])
+    return sum(t.numel() * t.element_size() for leaf in stacked.values()
+               for t in leaf.values()) / 2**30
+
+
+def throughput_phase(engine, loras, rank16, single) -> dict:
+    """(a) four config #2 requests in one batch at 50 steps."""
+    l0, l1 = loras
+    reqs = [serve_request([l0, l1], 14, 7.5),
+            serve_request([l1, l0], 15, 7.5),
+            serve_request([l0, rank16], 16, 5.0),
+            serve_request([l1, None], 17, 7.5)]
+    results, rec = run_batch("serving (a)", engine, reqs,
+                             BATCH_SHAPE_LAUNCHES)
+    single_s = sum(single.timings.values())
+    rec["images_per_min"] = 60 * len(reqs) / rec["wall_s"]
+    rec["single_images_per_min"] = 60 / single_s
+    rec["lane_lora_gib"] = lane_lora_gib(reqs)
+    diff = np.abs(results[0].image.astype(int) - single.image.astype(int))
+    rec["request0_vs_phase5"] = {"max": int(diff.max()),
+                                 "mean": float(diff.mean())}
+    log(f"serving (a): {rec['images_per_min']:.2f} images per minute "
+        f"batched, phase 5's single request {rec['single_images_per_min']:.2f}"
+        f" ({single_s:.3f} s); stage-2 lane LoRA copies "
+        f"{rec['lane_lora_gib']:.3f} GiB; request 0's image vs phase 5's: "
+        f"max |diff| {diff.max()}, mean {diff.mean():.3f}")
+    for r in results:
+        log(f"  image mean {r.image.mean():.2f} std {r.image.std():.2f}")
+    return rec
+
+
+def batch_vs_serial_phase(engine, loras) -> dict:
+    """(b) two requests at SERVE_CHECK_STEPS: each one's latents from the
+    batch against its own serial ``generate``."""
+    l0, l1 = loras
+    reqs = [serve_request([l0, l1], 21, 7.5, num_steps=SERVE_CHECK_STEPS),
+            serve_request([l1, None], 22, 5.0, num_steps=SERVE_CHECK_STEPS)]
+    batched: dict = {}
+    run_batch("serving (b) batch", engine, reqs,
+              serve_shapes(SERVE_CHECK_STEPS, 4, 14), latents=batched)
+    errs = {}
+    for i, r in enumerate(reqs):
+        serial: dict = {}
+        r = dict(r)
+        with record_latents(serial):
+            engine.generate(r.pop("prompt"), **r)
+        for stage in ("stage1", "stage2"):
+            errs[f"request{i}_{stage}"] = compare_eps(
+                f"serving (b) request {i} {stage} batched vs serial",
+                batched[stage][i], serial[stage])
+    return errs
+
+
+def photo(seed: int, h: int, w: int) -> np.ndarray:
+    """A seeded uint8 "photo": discs of random colour over a ramp, with
+    a little noise (edges for the canny condition)."""
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    img = np.zeros((h, w, 3))
+    for _ in range(12):
+        cx, cy, rad = r.uniform(0, w), r.uniform(0, h), r.uniform(40, h / 4)
+        img[(xx - cx) ** 2 + (yy - cy) ** 2 < rad ** 2] += r.uniform(
+            -120, 120, 3)
+    img += 40 * np.sin(xx / 37 + yy / 53)[..., None] + r.normal(0, 6,
+                                                                 (h, w, 3))
+    return np.clip(img + 128, 0, 255).astype(np.uint8)
+
+
+def config5_phase(device, engine, cfg, loras) -> dict:
+    """(c) config #5 as a batch of two, then guess mode alone."""
+    t0 = time.perf_counter()
+    cn = controlnet.init_params(torch.Generator(device).manual_seed(30),
+                                config.sdxl_controlnet())
+    iid = omg_lib.InstantIDModels(
+        resampler_cfg=config.instantid_resampler(),
+        resampler_params=resampler.init_params(
+            torch.Generator(device).manual_seed(31),
+            config.instantid_resampler()),
+        ip_adapter_layers=unet_lib.init_ip_layers(
+            torch.Generator(device).manual_seed(32), cfg.unet),
+        identitynet_params=controlnet.init_params(
+            torch.Generator(device).manual_seed(33), config.sdxl_controlnet()),
+        identitynet_cfg=config.sdxl_controlnet(), ip_scale=0.8,
+        identitynet_scale=0.8)
+    style = mid_block_lora(device, 13, cfg, rank=16)
+    t1 = time.perf_counter()
+    cond = conditions.prepare_condition(photo(37, 768, 1152), "canny",
+                                        HEIGHT, WIDTH)
+    cond_s = time.perf_counter() - t1
+    if cond.shape != (HEIGHT, WIDTH, 3) or not 0 < (cond > 0).mean() < 0.5:
+        raise AssertionError(f"canny condition {cond.shape}, edge share "
+                             f"{(cond > 0).mean()}")
+    torch.cuda.synchronize()
+    log(f"serving (c): ControlNet, InstantID stack and style LoRA built in "
+        f"{t1 - t0:.2f} s; canny condition (768x1152 photo, Lanczos cover "
+        f"crop) in {cond_s:.2f} s, {(cond[..., 0] > 0).mean():.4f} edges")
+    rng = np.random.default_rng(38)
+    kps = instantid.draw_kps(HEIGHT, WIDTH, [face_kps(300, 380),
+                                             face_kps(724, 380)])
+
+    def request(seed):
+        faces = [rng.standard_normal(config.instantid_resampler()
+                                     .embedding_dim).astype(np.float32)
+                 for _ in range(2)]
+        return serve_request([], seed, 3.0, num_steps=CONFIG5_STEPS,
+                             style_lora=style, instantid=iid,
+                             face_embeddings=faces, face_kps_image=kps,
+                             spatial_condition=cond, controlnet_params=cn,
+                             controlnet_scale=0.8)
+    _, rec = run_batch("serving (c) config #5", engine,
+                       [request(41), request(42)], CONFIG5_SHAPES)
+    rec["canny_s"] = cond_s
+    guess = serve_request(loras, 43, 7.5, num_steps=CONFIG5_STEPS,
+                          spatial_condition=cond, controlnet_params=cn,
+                          controlnet_guess_mode=True)
+    _, grec = run_batch("serving (c) guess mode", engine, [guess],
+                        GUESS_SHAPES)
+    del cn, iid
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, grec
+
+
+def http_phase(device, engine, loras) -> dict:
+    """(d) the HTTP server on a registry of kohya files, one POST of four
+    prompts, then the warmup of the 1024² bucket at batch width 4."""
+    import urllib.request
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix=".phase10-", dir=here)
+    rec: dict = {}
+    srv = None
+    try:
+        chars = []
+        for i, (group, tree) in enumerate(zip(("man", "woman"), loras)):
+            path = os.path.join(tmp, f"char{i}.safetensors")
+            write_kohya(path, tree)
+            chars.append({"name": f"char{i}", "path": path,
+                          "prompt": f"photo of the {group}",
+                          "negative_prompt": "ugly"})
+        reg_path = os.path.join(tmp, "registry.json")
+        _write_json(reg_path, {"man": chars[:1], "woman": chars[1:]})
+        srv = OMGServer(engine, registry_lib.Registry.from_json(reg_path),
+                        max_batch=SERVE_R)
+        threading.Thread(target=srv.serve, args=("127.0.0.1", 0),
+                         daemon=True).start()
+        url = "http://" + srv.wait_bound()
+
+        def call(path, body=None):
+            req = urllib.request.Request(
+                url + path, data=None if body is None else
+                json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return json.loads(r.read())
+        health, reg = call("/healthz"), call("/registry")
+        if not health["ok"] or reg["man"] != ["char0"] or \
+                reg["deepcache_per_request"] is not False:
+            raise AssertionError(f"serving (d): {health} {reg}")
+        before = call("/metrics")["counters"].get("batched_requests", 0)
+        by_shape: dict = {}
+        torch.cuda.synchronize()
+        fa.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with launch_shapes(by_shape):
+            out = call("/generate", {
+                "prompts": [f"photo of the man and the woman in scene {i}"
+                            for i in range(SERVE_R)],
+                "character1": "char0", "character2": "char1",
+                "negative_prompt": "ugly", "seed": 60, "steps": CONFIG5_STEPS,
+                "height": HEIGHT, "width": WIDTH})
+        wall = time.perf_counter() - t0
+        launches = fa.LAUNCHES
+        if by_shape != HTTP_SHAPES or launches != sum(HTTP_SHAPES.values()):
+            raise AssertionError(f"serving (d): K1 launches {launches} "
+                                 f"{by_shape}, want {HTTP_SHAPES}")
+        for res in out["results"]:
+            img = image_io.decode_png(base64.b64decode(res["image"]))
+            if img.shape != (HEIGHT, WIDTH, 3) or not res["stage2_ran"]:
+                raise AssertionError(f"serving (d): image {img.shape}, "
+                                     f"stage 2 {res['stage2_ran']}")
+        batched = call("/metrics")["counters"]["batched_requests"] - before
+        if batched != SERVE_R:
+            raise AssertionError(f"serving (d): {batched} batched requests")
+        rec.update(wall_s=wall, launches=launches, launches_by_shape=by_shape,
+                   batched_requests=batched,
+                   seconds=[r["seconds"] for r in out["results"]])
+        log(f"serving (d): POST /generate of {SERVE_R} prompts at "
+            f"{CONFIG5_STEPS} steps in {wall:.3f} s (server's seconds "
+            f"{rec['seconds']}), {launches} K1 launches, /metrics "
+            f"batched_requests +{batched}")
+        lines: list = []
+        t0 = time.perf_counter()
+        sample = next(iter(srv.loras.values()))
+        rec["warmup_programs"] = warmup_lib.warmup(
+            engine.cfg, unet_params=engine.params.unet,
+            steps=CONFIG5_STEPS, buckets=((HEIGHT, WIDTH),),
+            sample_lora=sample["unet"], vae_params=engine.params.vae,
+            batch_sizes=(SERVE_R,), log=lines.append)
+        rec["warmup_s"] = time.perf_counter() - t0
+        rec["warmup_log"] = lines
+        for line in lines:
+            log("  " + line)
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        shutil.rmtree(tmp)
+    return rec
+
+
+def serving_phase(device, cfg, params, loras, single) -> dict:
+    """Phase 10 on phase 5's live weights; ``single`` is phase 5's
+    result."""
+    t0 = time.perf_counter()
+    tok = ToyTokenizer(cfg.text_encoder.vocab_size)
+    engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok,
+                         tokenizer_2=tok, mask_provider=left_right_masks,
+                         num_steps=STEPS, cn_cfg=config.sdxl_controlnet())
+    rec = {"throughput": throughput_phase(
+        engine, loras, mid_block_lora(device, 12, cfg, rank=16), single)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["batched_vs_serial"] = batch_vs_serial_phase(engine, loras)
+    rec["config5"], rec["guess_mode"] = config5_phase(device, engine, cfg,
+                                                      loras)
+    rec["http"] = http_phase(device, engine, loras)
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"serving: phase 10 took {rec['phase_s']:.1f} s")
+    return rec
+
+
 # ------------------------------------------------------------ --profile
 
 def _profile_forward(name: str, forward) -> None:
@@ -1654,12 +2006,15 @@ def main() -> int:
         return 0
     log("== kernel vs plain")
     kstats, by_shape = kernel_phase(device)
+    torch.cuda.empty_cache()     # the plain version's scores at B = 28
     log("== K1b vs plain")
     sstats = seq_kernel_phase(device)
-    launches, single, masks, cond, ckpt = single_card_phases(device)
+    launches, single, masks, cond, ckpt, serve = single_card_phases(device)
     cond["k1_by_shape"] = {key: by_shape[key] for key in (
         "1,10,4096,64", "3,10,4096,64", "4,10,4096,64", "1,20,1024,64",
         "3,20,1024,64", "4,20,1024,64")}
+    serve["k1_by_shape"] = {key: by_shape[key] for key in (
+        "8,10,4096,64", "8,20,1024,64", "28,10,4096,64", "28,20,1024,64")}
     gc.collect()
     torch.cuda.empty_cache()
     log("== mesh")
@@ -1682,7 +2037,10 @@ def main() -> int:
         "mesh_launches_by_rank": mstats["launches"],
         "cli_path_launches": {
             name: ckpt[name]["launches"]
-            for name in ("inference_lora", "inference_instantid")}}, {
+            for name in ("inference_lora", "inference_instantid")},
+        "serving_path_launches": {
+            name: serve[name]["launches"]
+            for name in ("throughput", "config5", "guess_mode", "http")}}, {
         "name": "flash_attention_fwd_seq_local",
         "route": "cuda",
         "source": source,
@@ -1696,6 +2054,7 @@ def main() -> int:
     log(json.dumps({"masks": masks}))
     log(json.dumps({"conditioned": cond}))
     log(json.dumps({"checkpoint": ckpt}))
+    log(json.dumps({"serving": serve}))
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,10 @@ The controller is host-side data plus a per-step view:
 
 The step index is a Python int here, so the window test is a host branch.
 
+Request-batched stage 2 (``OMG.generate_batch``): the lanes of several
+requests sit side by side, and ``at_step(i, pairs=...)`` edits one
+(source, destination) lane pair per request with the same schedule.
+
 Lane-sharded batches (the multi-device stage 2): with a ``Split`` of the
 lanes over a group, each rank holds a block of lanes and applies the
 edits to the lanes it holds. Where the source and destination lanes sit on
@@ -164,13 +168,15 @@ class P2PControl:
             self_seq_limit=width * height)
 
     def at_step(self, step: int, *, src_lane: int = 2, dst_lane: int = 3,
-                lanes=None) -> "P2PStepControl":
+                lanes=None, pairs=None) -> "P2PStepControl":
         """``src_lane``/``dst_lane``: the batch rows of cond-A (edit
         source) and cond-B (edit target); the 3-row stage-2 layout uses
         0/2. ``lanes``: a ``parallel.mesh.Split`` when the batch's lanes
-        are split over ranks (lane numbers stay global)."""
+        are split over ranks (lane numbers stay global). ``pairs``: a list
+        of (src, dst) lane pairs, one per request of a batch, in place of
+        the single pair."""
         return P2PStepControl(self, step, src_lane=src_lane,
-                              dst_lane=dst_lane, lanes=lanes)
+                              dst_lane=dst_lane, lanes=lanes, pairs=pairs)
 
 
 def _substitute(t: torch.Tensor, row: int, new: torch.Tensor) -> torch.Tensor:
@@ -182,12 +188,16 @@ class P2PStepControl:
     """The attention-control protocol bound to one step."""
 
     def __init__(self, ctl: P2PControl, step: int, *, src_lane: int = 2,
-                 dst_lane: int = 3, lanes=None):
+                 dst_lane: int = 3, lanes=None, pairs=None):
         self.ctl = ctl
         self.step = int(step)
         self.src_lane = src_lane
         self.dst_lane = dst_lane
         self.lanes = lanes
+        if pairs is not None and lanes is not None:
+            raise ValueError("lane pairs of a request batch run unsharded")
+        self.pairs = (tuple((int(s), int(d)) for s, d in pairs)
+                      if pairs is not None else ((src_lane, dst_lane),))
 
     def wants(self, *, is_cross: bool, num_queries: int) -> bool:
         """Cross-attn is always edited (alpha may be 0 at some steps);
@@ -208,34 +218,37 @@ class P2PStepControl:
         if not self._in_window():
             return q, k
         rows = list(range(q.shape[0]))
-        rows[self.dst_lane] = self.src_lane
+        for s, d in self.pairs:
+            rows[d] = s
         idx = torch.as_tensor(rows, device=q.device)
         return q.index_select(0, idx), k.index_select(0, idx)
 
     def _cross_edit(self, q_s, k_s, q_d, k_d, v_d, sdpa_fn) -> torch.Tensor:
-        """The dst lane's rewritten cross-attn output [1, H, Nq, D] from the
-        src lane's q/k and the dst lane's q/k/v (each [1, H, N, D])."""
+        """The dst lanes' rewritten cross-attn outputs [P, H, Nq, D] from
+        the src lanes' q/k and the dst lanes' q/k/v (each [P, H, N, D], one
+        row per edited pair)."""
         ctl = self.ctl
         nk = k_d.shape[2]
         alpha = ctl.cross_alpha[self.step, :nk].to(device=v_d.device,
                                                    dtype=v_d.dtype)
-        alpha = alpha[None, :, None]                          # [1, Nk, 1]
+        alpha = alpha[None, None, :, None]                    # [1, 1, Nk, 1]
         mapper = ctl.mapper[:nk, :nk].to(device=v_d.device, dtype=v_d.dtype)
-        va = torch.einsum("wn,hnd->hwd", mapper, v_d[0] * alpha)
-        vb = v_d[0] * (1.0 - alpha)
-        return sdpa_fn(q_s, k_s, va[None]) + sdpa_fn(q_d, k_d, vb[None])
+        va = torch.einsum("wn,phnd->phwd", mapper, v_d * alpha)
+        vb = v_d * (1.0 - alpha)
+        return sdpa_fn(q_s, k_s, va) + sdpa_fn(q_d, k_d, vb)
 
     def cross_lane_out(self, out: torch.Tensor, q: torch.Tensor,
                        k: torch.Tensor, v: torch.Tensor,
                        sdpa_fn) -> torch.Tensor:
-        """Rewrite the dst lane of a cross-attn output without probs.
+        """Rewrite the dst lanes of a cross-attn output without probs.
         out/q/k/v: [B, H, N(q/k), D]; sdpa_fn(q, k, v) -> attention out."""
         if self.lanes is not None:
             return self.cross_lane_out_sharded(out, q, k, v, sdpa_fn)
-        s, d = self.src_lane, self.dst_lane
-        new = self._cross_edit(q[s:s + 1], k[s:s + 1], q[d:d + 1],
-                               k[d:d + 1], v[d:d + 1], sdpa_fn)
-        return _substitute(out, d, new)
+        src = torch.as_tensor([s for s, _ in self.pairs], device=q.device)
+        dst = torch.as_tensor([d for _, d in self.pairs], device=q.device)
+        new = self._cross_edit(q[src], k[src], q[dst], k[dst], v[dst],
+                               sdpa_fn)
+        return out.index_copy(0, dst, new.to(out.dtype))
 
     # -- lane-sharded forms (multi-device stage 2) -------------------------
 

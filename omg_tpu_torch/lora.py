@@ -194,6 +194,18 @@ def stack_loras(trees: Sequence[Optional[dict]], *,
     return out
 
 
+def align_loras(trees: Sequence[Optional[dict]]) -> list:
+    """Make adapters structurally identical: the union of their paths,
+    zero-filled gaps and ranks zero-padded to the largest, as
+    ``stack_loras`` stacks them (stacked, then unstacked, so the padding
+    rules live in one place). A request batch stacks the result."""
+    stacked = stack_loras(trees)
+    if stacked is None:
+        return [None] * len(trees)
+    return [{k: {role: leaf[i] for role, leaf in lf.items()}
+             for k, lf in stacked.items()} for i in range(len(trees))]
+
+
 def lane_slice(stacked: Optional[dict], lo: int, hi: int) -> Optional[dict]:
     """Lanes [lo, hi) of a ``stack_loras`` result: the rows one rank keeps
     when a batch's lanes split over ranks."""

@@ -40,6 +40,17 @@ the concept crop strips, they raise ``NotImplementedError``.
 
 The scheduler state carries LCM's noise seed; every loop steps with
 ``shared_batch_noise``: the batch axis holds copies of one image.
+
+Request batching (``sample_stage1_batch``/``sample_stage2_batch``, the
+JAX package's ``vmap`` over requests): R compatible requests (one
+geometry, step count and scheduler) run as one UNet forward per step over
+their lanes side by side, 2R in stage 1 and R(3+2K) in stage 2, each
+request's lanes contiguous. CFG, region fusion and the scheduler step run
+on each request's slice of the eps, with its own guidance scale and
+scheduler state (DPM++2M's previous x0, LCM's seed), so each request
+follows ``generate``'s arithmetic. A shared ControlNet or IdentityNet runs
+once over the lanes it serves with per-lane scales; lanes without a
+condition get scale 0, an exact no-op.
 """
 
 from __future__ import annotations
@@ -84,14 +95,56 @@ class ControlNetInputs(NamedTuple):
     guess_mode: bool = False
 
 
-def _cn_keep(cn: ControlNetInputs, step_i: int, num_steps: int) -> float:
+def _window_keep(start: float, end: float, step_i: int,
+                 num_steps: int) -> float:
     """The reference's ``controlnet_keep`` at step ``step_i``: 1.0 inside
-    the guidance window, else 0.0 (fp32 fractions, as in JAX)."""
+    the guidance window [start, end], else 0.0 (fp32 fractions, as in
+    JAX)."""
     f0 = np.float32(step_i) / np.float32(num_steps)
     f1 = (np.float32(step_i) + np.float32(1.0)) / np.float32(num_steps)
-    drop = (f0 < np.float32(cn.guidance_start)
-            or f1 > np.float32(cn.guidance_end))
+    drop = f0 < np.float32(start) or f1 > np.float32(end)
     return 0.0 if drop else 1.0
+
+
+def _cn_keep(cn: ControlNetInputs, step_i: int, num_steps: int) -> float:
+    return _window_keep(cn.guidance_start, cn.guidance_end, step_i,
+                        num_steps)
+
+
+class LaneControlNet(NamedTuple):
+    """One ControlNet over the lanes of a request batch, everything per
+    lane: the condition image, the scale (0 on lanes it does not serve),
+    the guidance window and the context (the lanes' text embeddings when
+    None)."""
+    params: object                          # ControlNetModel
+    cond_image: torch.Tensor                # [N, H, W, C] in [0, 1]
+    scale: Sequence[float]                  # [N]
+    guidance_start: Sequence[float]         # [N]
+    guidance_end: Sequence[float]           # [N]
+    encoder_hidden_states: Optional[torch.Tensor] = None    # [N, T, D]
+
+
+def _lane_cn_residuals(cn: Optional[LaneControlNet], lin: torch.Tensor,
+                       t: int, prompt_embeds: torch.Tensor,
+                       text_embeds: torch.Tensor, time_ids: torch.Tensor, *,
+                       step_i: int, num_steps: int) -> tuple:
+    """``cn`` on all lanes ``lin`` at step ``step_i`` with each lane's
+    scale times its window gate -> (down list, mid), or (None, None) when
+    no lane keeps a non-zero scale (the forward is skipped)."""
+    if cn is None:
+        return None, None
+    scales = [float(s) * _window_keep(g0, g1, step_i, num_steps)
+              for s, g0, g1 in zip(cn.scale, cn.guidance_start,
+                                   cn.guidance_end)]
+    if not any(scales):
+        return None, None
+    ehs = (cn.encoder_hidden_states if cn.encoder_hidden_states is not None
+           else prompt_embeds)
+    return cn.params(lin, t, ehs, cn.cond_image, text_embeds=text_embeds,
+                     time_ids=time_ids,
+                     conditioning_scale=torch.tensor(
+                         scales, dtype=torch.float32,
+                         device=lin.device)[:, None, None, None])
 
 
 def _controlnet_residuals(cns: Sequence[ControlNetInputs], lin: torch.Tensor,
@@ -226,18 +279,27 @@ def validate_concept_controlnets(concept_controlnets) -> None:
 def _lane_residuals(base: tuple, concept: tuple, n_base: int,
                     n_concept: int) -> tuple:
     """Base-lane and concept-lane residuals stacked over all lanes, with
-    zero rows for the side that has none -> (down, mid) or (None, None)."""
+    zero rows for the side that has none -> (down, mid) or (None, None).
+    With R requests side by side (R * n_base and R * n_concept rows), each
+    request's block is [its base rows; its concept rows]."""
     (b_down, b_mid), (c_down, c_mid) = base, concept
     if b_down is None and c_down is None:
         return None, None
+    R = (b_mid if b_mid is not None else c_mid).shape[0] // (
+        n_base if b_mid is not None else n_concept)
     if b_down is None:
-        b_down, b_mid = [_zero_rows(r, n_base) for r in c_down], \
-            _zero_rows(c_mid, n_base)
+        b_down, b_mid = [_zero_rows(r, R * n_base) for r in c_down], \
+            _zero_rows(c_mid, R * n_base)
     if c_down is None:
-        c_down, c_mid = [_zero_rows(r, n_concept) for r in b_down], \
-            _zero_rows(b_mid, n_concept)
-    return ([torch.cat([b, c]) for b, c in zip(b_down, c_down)],
-            torch.cat([b_mid, c_mid]))
+        c_down, c_mid = [_zero_rows(r, R * n_concept) for r in b_down], \
+            _zero_rows(b_mid, R * n_concept)
+
+    def interleave(b, c):
+        return torch.cat([b.reshape((R, n_base) + tuple(b.shape[1:])),
+                          c.reshape((R, n_concept) + tuple(c.shape[1:]))],
+                         1).flatten(0, 1)
+    return ([interleave(b, c) for b, c in zip(b_down, c_down)],
+            interleave(b_mid, c_mid))
 
 
 def _zero_rows(r: torch.Tensor, n: int) -> torch.Tensor:
@@ -683,3 +745,218 @@ def sample_stage2_resumed(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
         concept_ip_adapters=tuple(concept_ip_adapters), ip_scale=ip_scale,
         base_controlnets=tuple(base_controlnets),
         concept_controlnets=tuple(concept_controlnets))
+
+
+# --------------------------------------------------------------------------
+# Request-axis batching (serving): R requests of one geometry, step count
+# and scheduler as one UNet forward per step. Each request's lanes are
+# contiguous; CFG, fusion and the scheduler step run on its slice.
+# --------------------------------------------------------------------------
+
+
+def _base_cn_lanes(params, conds_r: Optional[tuple],
+                   lanes: int) -> Optional[LaneControlNet]:
+    """A shared spatial ControlNet's per-request conditioning (cond
+    [R, 1, H, W, C], scale [R], guidance_start [R], guidance_end [R]) over
+    ``lanes`` contiguous lanes per request."""
+    if params is None or conds_r is None:
+        return None
+    cond, scale, gs, ge = conds_r
+
+    def rep(v):
+        return [float(x) for x in v for _ in range(lanes)]
+    return LaneControlNet(
+        params, cond.repeat_interleave(lanes, 0).flatten(0, 1), rep(scale),
+        rep(gs), rep(ge))
+
+
+def sample_stage1_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
+                        unet, seeds: Sequence[int],
+                        base_inputs_r: Sequence[BaseInputs], *, height: int,
+                        width: int,
+                        fusion_start: int = regions.FUSION_START_STEP,
+                        base_cn_params=None,
+                        base_cn_conds_r: Optional[tuple] = None,
+                        cache_interval: int = 0) -> tuple:
+    """Batched stage 1: per-request seeds and ``BaseInputs`` ->
+    (latents [R, 2, h, w, 4], one ``StageCache`` per request, its
+    trajectory recorded).
+
+    Request r's initial latents come from a CPU generator seeded with
+    ``seeds[r]`` (``generate``'s draw); its scheduler state carries the
+    seed (LCM). The 2R lanes [uncond_0, cond_0, uncond_1, ...] run as one
+    forward per step. ``base_cn_params`` + ``base_cn_conds_r``: a shared
+    spatial ControlNet with per-request conditioning (cond_image
+    [R, 1, H, W, C], scale [R], guidance_start [R], guidance_end [R]);
+    requests without a condition ride along with scale 0."""
+    if cache_interval > 1:
+        raise not_ported("DeepCache", "approximate modes")
+    R = len(seeds)
+    device = base_inputs_r[0].prompt_embeds.device
+    xs = [sdxl.prepare_latents(torch.Generator("cpu").manual_seed(int(s)),
+                               1, height, width, sched, cfg.unet.dtype,
+                               device) for s in seeds]
+    states = [schedulers.init_state(int(s)) for s in seeds]
+    embeds = torch.cat([b.prompt_embeds[[0, 2]] for b in base_inputs_r])
+    tembeds = torch.cat([b.text_embeds[[0, 2]] for b in base_inputs_r])
+    tids = torch.cat([b.time_ids[[0, 2]] for b in base_inputs_r])
+    cn = _base_cn_lanes(base_cn_params, base_cn_conds_r, 2)
+    boundary = min(fusion_start + 1, sched.num_steps)
+    trajs: list = [[] for _ in range(R)]
+    caches: list = [None] * R
+    for i in range(sched.num_steps):
+        if i == boundary:
+            caches = [StageCache(x, st) for x, st in zip(xs, states)]
+        if i >= boundary:
+            for r in range(R):
+                trajs[r].append(xs[r])
+        t = int(sched.timesteps[i])
+        lin = schedulers.scale_model_input(
+            sched, torch.cat(xs).repeat_interleave(2, 0), i)
+        down, mid = _lane_cn_residuals(cn, lin, t, embeds, tembeds, tids,
+                                       step_i=i, num_steps=sched.num_steps)
+        eps = unet(lin, t, embeds, text_embeds=tembeds, time_ids=tids,
+                   down_block_residuals=down, mid_block_residual=mid)
+        for r in range(R):
+            guided = sampling.cfg_combine(eps[2 * r:2 * r + 2],
+                                          base_inputs_r[r].guidance_scale)
+            xs[r], states[r] = schedulers.step(sched, states[r], guided, i,
+                                               xs[r], shared_batch_noise=True)
+    if boundary >= sched.num_steps:
+        caches = [StageCache(x, st) for x, st in zip(xs, states)]
+    out = []
+    for r in range(R):
+        traj = (torch.stack(trajs[r]) if trajs[r] else
+                xs[r].new_zeros((0,) + tuple(xs[r].shape)))
+        out.append(caches[r]._replace(a_traj=traj, a_final=xs[r]))
+    return torch.stack([duplicate_latents(x) for x in xs]), out
+
+
+def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
+                        unet, cache_r: Sequence[StageCache],
+                        base_inputs_r: Sequence[BaseInputs], controller,
+                        concept_inputs_r: Sequence[Sequence[ConceptInputs]],
+                        concept_loras_r: Sequence[Sequence[Optional[dict]]],
+                        masks_r: torch.Tensor, *,
+                        fusion_start: int = regions.FUSION_START_STEP,
+                        ip_scale: float = 1.0,
+                        concept_ip_adapters: Sequence = (),
+                        concept_cn_params=None,
+                        concept_cn_conds_r: Optional[tuple] = None,
+                        base_cn_params=None,
+                        base_cn_conds_r: Optional[tuple] = None,
+                        cache_interval: int = 0) -> torch.Tensor:
+    """Batched stage 2 -> [R, 2, h, w, 4]: the 3+2K trajectory program of
+    every request in one forward per step over R(3+2K) lanes.
+
+    ``concept_inputs_r``/``concept_loras_r``: [request][concept], every
+    request with the same K (pad with neutral concepts and zero masks);
+    ``masks_r`` [R, K, h, w]. The controller is shared (``OMG`` builds it
+    from [prompt, prompt], so it does not depend on the request) and
+    edits each request's (cond_A, cond_B) lane pair. InstantID: the
+    concepts' ``ip_context`` tokens (zeros for a slot without a face) with
+    the shared ``concept_ip_adapters`` at ``ip_scale``;
+    ``concept_cn_params`` + ``concept_cn_conds_r``, a tuple over K of None
+    or (cond_image [R, 1, H, W, C], scale [R], ehs [R, 2, T, D] or None):
+    the shared IdentityNet on the concept lanes. ``base_cn_params`` +
+    ``base_cn_conds_r``: the spatial ControlNet on the 3 base lanes, as in
+    ``sample_stage1_batch``. With an empty suffix (``fusion_start + 1 >=
+    steps``) every request returns stage 1's copy A twice."""
+    if cache_interval > 1:
+        raise not_ported("DeepCache", "approximate modes")
+    boundary = min(fusion_start + 1, sched.num_steps)
+    if boundary >= sched.num_steps:
+        return torch.stack([duplicate_latents(c.a_final) for c in cache_r])
+    R, K = len(cache_r), len(concept_inputs_r[0])
+    L = 3 + 2 * K
+    bidx = [2, 1, 3]    # [cond_A, uncond_B, cond_B] of the 4-row layout
+
+    def lane_cat(field):
+        return torch.cat([
+            torch.cat([getattr(base_inputs_r[r], field)[bidx]]
+                      + [getattr(ci, field) for ci in concept_inputs_r[r]])
+            for r in range(R)])
+    embeds, tembeds, tids = (lane_cat(f) for f in
+                             ("prompt_embeds", "text_embeds", "time_ids"))
+    lane_lora = lora_lib.stack_loras([
+        lora for r in range(R) for lora in
+        [None] * 3 + [(concept_loras_r[r][k].get("unet", concept_loras_r[r][k])
+                       if concept_loras_r[r][k] is not None else None)
+                      for k in range(K) for _ in range(2)]])
+    ipk = concept_ip_adapters[0] if concept_ip_adapters else None
+    ip_ctx = None
+    with_ip = [ci.ip_context for cl in concept_inputs_r for ci in cl
+               if ci.ip_context is not None]
+    if with_ip:
+        zeros = torch.zeros_like(with_ip[0])
+        ip_ctx = torch.cat([
+            torch.cat([zeros[:1].expand((3,) + tuple(zeros.shape[1:]))]
+                      + [ci.ip_context if ci.ip_context is not None
+                         else zeros for ci in concept_inputs_r[r]])
+            for r in range(R)])
+
+    base_rows = [r * L + j for r in range(R) for j in range(3)]
+    concept_rows = [r * L + j for r in range(R) for j in range(3, L)]
+    base_cn = _base_cn_lanes(base_cn_params, base_cn_conds_r, 3)
+    concept_cn = None
+    if concept_cn_params is not None and concept_cn_conds_r is not None:
+        live = [c for c in concept_cn_conds_r if c is not None]
+        tmpl_cond = live[0][0]
+        conds, scales, ehs_rows = [], [], []
+        for r in range(R):
+            for k in range(K):
+                c = concept_cn_conds_r[k]
+                cond = tmpl_cond[r] if c is None else c[0][r]
+                conds.append(cond.expand((2,) + tuple(cond.shape[1:])))
+                scales += [0.0 if c is None else float(c[1][r])] * 2
+                ehs = (None if c is None or c[2] is None else c[2][r])
+                ehs_rows.append(
+                    ehs if ehs is not None else
+                    concept_inputs_r[r][k].prompt_embeds)
+        concept_cn = LaneControlNet(
+            concept_cn_params, torch.cat(conds), scales,
+            [0.0] * len(scales), [1.0] * len(scales), torch.cat(ehs_rows))
+
+    pairs = [(r * L, r * L + 2) for r in range(R)]
+    masks_r = masks_r.to(cache_r[0].latents.dtype)
+    xs = [c.latents for c in cache_r]
+    states = [c.sched_state for c in cache_r]
+    for i in range(boundary, sched.num_steps):
+        t = int(sched.timesteps[i])
+        lanes = []
+        for r in range(R):
+            lin_a = schedulers.scale_model_input(
+                sched, cache_r[r].a_traj[i - boundary], i)
+            lin_b = schedulers.scale_model_input(
+                sched, torch.cat([xs[r], xs[r]]), i)
+            lanes += [lin_a, lin_b,
+                      lin_b[1:2].expand((2 * K,) + lin_b.shape[1:])]
+        lanes = torch.cat(lanes)
+        ctrl = (controller.at_step(i, pairs=pairs)
+                if controller is not None else None)
+        down, mid = _lane_residuals(
+            _lane_cn_residuals(base_cn, lanes[base_rows], t,
+                               embeds[base_rows], tembeds[base_rows],
+                               tids[base_rows], step_i=i,
+                               num_steps=sched.num_steps),
+            _lane_cn_residuals(concept_cn, lanes[concept_rows], t,
+                               embeds[concept_rows], tembeds[concept_rows],
+                               tids[concept_rows], step_i=i,
+                               num_steps=sched.num_steps),
+            3, 2 * K)
+        eps_all = unet(lanes, t, embeds, text_embeds=tembeds, time_ids=tids,
+                       lora=lane_lora, control=ctrl,
+                       down_block_residuals=down, mid_block_residual=mid,
+                       ip_adapter=ipk, ip_context=ip_ctx, ip_scale=ip_scale)
+        for r in range(R):
+            e = eps_all[r * L:(r + 1) * L]
+            region_preds = e[3:].reshape((K, 2) + tuple(xs[r].shape[1:]))
+            fused = regions.fuse_region_edit(e[1:3], region_preds,
+                                             masks_r[r],
+                                             active=i > fusion_start)
+            guided = sampling.cfg_combine(fused,
+                                          base_inputs_r[r].guidance_scale)
+            xs[r], states[r] = schedulers.step(sched, states[r], guided, i,
+                                               xs[r], shared_batch_noise=True)
+    return torch.stack([torch.cat([c.a_final, x])
+                        for c, x in zip(cache_r, xs)])

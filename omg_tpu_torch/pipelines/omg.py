@@ -88,6 +88,17 @@ class InstantIDModels:
     identitynet_scale: float = 0.8
 
 
+def _check_exact(cache_interval, cache_schedule) -> None:
+    if (cache_interval or 0) > 1 or cache_schedule is not None:
+        raise multiconcept.not_ported("DeepCache", "approximate modes")
+
+
+def _given(value) -> bool:
+    """A request field that is set: not None and not False (arrays are
+    never tested for truth)."""
+    return value is not None and value is not False
+
+
 class _Clock:
     """Phase timer on the host clock; synchronizes a CUDA device before
     each reading, so a phase's time includes its device work."""
@@ -192,6 +203,63 @@ class OMG:
                 masks[k] = self.mask_provider(image, cls)
         return masks
 
+    def _check_cn_geometry(self, controlnet_params, instantid) -> None:
+        """Every ControlNet handed in has the engine's ``cn_cfg`` geometry."""
+        checks = [(controlnet_params, self.cn_cfg)]
+        if instantid is not None:
+            checks.append((instantid.identitynet_params,
+                           instantid.identitynet_cfg))
+        for model, want in checks:
+            if model is not None and want is not None and model.cfg != want:
+                raise ValueError(f"a ControlNet's geometry {model.cfg} is "
+                                 f"not the configured {want}")
+
+    def _region_conditioning(self, prompt_rewrite: str,
+                             concept_loras: Sequence[Optional[dict]],
+                             style_lora: Optional[dict], tids,
+                             instantid: Optional[InstantIDModels] = None,
+                             face_embeddings: Sequence = ()) -> tuple:
+        """A request's region prompts -> (specs, concept inputs, LoRAs):
+        each region prompt encoded with its concept's text-encoder adapters
+        (mixed with the style's), the InstantID tokens of its face when
+        there is one, and its UNet adapter mixed with the style's and
+        scaled by ``concept_lora_scale``."""
+        region_specs = rewrite.parse_rewrite(prompt_rewrite)
+        concept_inputs, loras_final = [], []
+        for k, region in enumerate(region_specs):
+            tree_k = concept_loras[k] if k < len(concept_loras) else None
+            te_lora = (None, None)
+            if tree_k is not None:
+                def te_merged(key):
+                    char = tree_k.get(key)
+                    style = (style_lora.get(key)
+                             if isinstance(style_lora, dict) else None)
+                    if style is not None and char is not None:
+                        return lora_lib.merge_loras(
+                            [char, style], list(self.char_style_weights))
+                    return char if char is not None else style
+                te_lora = (te_merged("text_encoder") or None,
+                           te_merged("text_encoder_2") or None)
+            rep, rpp, ren, rpn = self.encode(region.prompt,
+                                             region.negative_prompt,
+                                             te_lora=te_lora)
+            ip_ctx = None
+            if instantid is not None and k < len(face_embeddings) \
+                    and face_embeddings[k] is not None:
+                ip_ctx = iid.encode_face_tokens(instantid.resampler_params,
+                                                face_embeddings[k])
+            concept_inputs.append(multiconcept.make_concept_inputs(
+                rep, rpp, ren, rpn, tids, ip_context=ip_ctx))
+            unet_tree = tree_k.get("unet", tree_k) if tree_k else None
+            style_tree = (style_lora.get("unet", style_lora)
+                          if style_lora is not None else None)
+            merged = (lora_lib.merge_loras([unet_tree, style_tree],
+                                           list(self.char_style_weights))
+                      if style_tree is not None else unet_tree)
+            loras_final.append(lora_lib.scale_lora(merged,
+                                                   self.concept_lora_scale))
+        return region_specs, concept_inputs, loras_final
+
     def generate(self, prompt: str, *, negative_prompt: str = "",
                  prompt_rewrite: str = "",
                  concept_loras: Sequence[Optional[dict]] = (),
@@ -226,16 +294,9 @@ class OMG:
             raise multiconcept.not_ported(
                 "ControlNet and InstantID under the mesh layout",
                 multiconcept.MESH_ITEM)
-        if (cache_interval or 0) > 1 or cache_schedule is not None:
-            raise multiconcept.not_ported("DeepCache", "approximate modes")
-        checks = [(controlnet_params if use_cn else None, self.cn_cfg)]
-        if instantid is not None:
-            checks.append((instantid.identitynet_params,
-                           instantid.identitynet_cfg))
-        for model, want in checks:
-            if model is not None and want is not None and model.cfg != want:
-                raise ValueError(f"a ControlNet's geometry {model.cfg} is "
-                                 f"not the configured {want}")
+        _check_exact(cache_interval, cache_schedule)
+        self._check_cn_geometry(controlnet_params if use_cn else None,
+                                instantid)
         device = self.device
         clock = _Clock(device)
         steps = num_steps or self.num_steps
@@ -252,48 +313,11 @@ class OMG:
                                  device=device)
         base_inputs = multiconcept.make_base_inputs(ep, pp, en, pn, tids,
                                                     guidance_scale)
-        region_specs = rewrite.parse_rewrite(prompt_rewrite)
-        concept_inputs, loras_final = [], []
-        ip_adapters, concept_ip_ctxs = [], []
-        for k, region in enumerate(region_specs):
-            tree_k = concept_loras[k] if k < len(concept_loras) else None
-            te_lora = (None, None)
-            if tree_k is not None:
-                # region prompts encode with the concept's text-encoder
-                # adapters active (mixed with the style adapter)
-                def te_merged(key):
-                    char = tree_k.get(key)
-                    style = (style_lora.get(key)
-                             if isinstance(style_lora, dict) else None)
-                    if style is not None and char is not None:
-                        return lora_lib.merge_loras(
-                            [char, style], list(self.char_style_weights))
-                    return char if char is not None else style
-                te_lora = (te_merged("text_encoder") or None,
-                           te_merged("text_encoder_2") or None)
-            rep, rpp, ren, rpn = self.encode(region.prompt,
-                                             region.negative_prompt,
-                                             te_lora=te_lora)
-            ip_ctx = None
-            if instantid is not None and k < len(face_embeddings) \
-                    and face_embeddings[k] is not None:
-                ip_ctx = iid.encode_face_tokens(instantid.resampler_params,
-                                                face_embeddings[k])
-            concept_inputs.append(multiconcept.make_concept_inputs(
-                rep, rpp, ren, rpn, tids, ip_context=ip_ctx))
-            unet_tree = tree_k.get("unet", tree_k) if tree_k else None
-            style_tree = (style_lora.get("unet", style_lora)
-                          if style_lora is not None else None)
-            merged = (lora_lib.merge_loras([unet_tree, style_tree],
-                                           list(self.char_style_weights))
-                      if style_tree is not None else unet_tree)
-            loras_final.append(lora_lib.scale_lora(merged,
-                                                   self.concept_lora_scale))
-            if instantid is not None:
-                ip_adapters.append(instantid.ip_adapter_layers)
-                # the IdentityNet's condition is built after stage 1 (the
-                # keypoints may come from the stage-1 image)
-                concept_ip_ctxs.append(ip_ctx)
+        region_specs, concept_inputs, loras_final = self._region_conditioning(
+            prompt_rewrite, concept_loras, style_lora, tids,
+            instantid=instantid, face_embeddings=face_embeddings)
+        ip_adapters = ([instantid.ip_adapter_layers] * len(region_specs)
+                       if instantid is not None else [])
 
         base_cns = []
         if use_cn:
@@ -350,8 +374,8 @@ class OMG:
                 concept_cns = [multiconcept.ControlNetInputs(
                     params=instantid.identitynet_params, cond_image=kimg,
                     scale=float(instantid.identitynet_scale),
-                    encoder_hidden_states=ip_ctx)
-                    for ip_ctx in concept_ip_ctxs]
+                    encoder_hidden_states=ci.ip_context)
+                    for ci in concept_inputs]
 
         # --- stage 2 ---------------------------------------------------
         # Under a mesh the spatial stage 1 gathered its rows at the end of
@@ -386,3 +410,200 @@ class OMG:
         img = sdxl.decode_latents(self.cfg, self.params.vae, latents,
                                   spatial=spatial)
         return (img * 255).to(torch.uint8).cpu().numpy()
+
+    # --------------------------------------------------- batched serving
+
+    def generate_batch(self, requests: Sequence[dict]
+                       ) -> List[GenerationResult]:
+        """R compatible requests as one stage-1 and one stage-2 program:
+        each UNet forward runs the lanes of every request (2R in stage 1,
+        R(3+2K) in stage 2), and each request keeps its own prompt, seed,
+        guidance scale, adapters and scheduler state.
+
+        Request dicts take ``generate``'s keyword arguments. They must
+        share height, width, steps, scheduler and fusion start (the server
+        buckets by these), else ``ValueError``. Masks are predicted per
+        request on the host between the stages; requests padded to the
+        largest concept count get neutral concepts with zero masks. Face
+        requests batch when they share one ``InstantIDModels`` (no-face
+        slots get zero IP tokens and IdentityNet scale 0, exact no-ops);
+        spatial-condition requests batch when they share one ControlNet
+        (per-request images, scales and windows; the others get scale 0).
+        One request, a mesh engine, explicit ``masks``, guess mode,
+        ``initial_noise``, or distinct InstantID stacks or ControlNets run
+        serially through ``generate``. Every result's ``timings`` holds the
+        batch's phase seconds."""
+        for r in requests:
+            _check_exact(r.get("cache_interval"), r.get("cache_schedule"))
+
+        def serial(rs):
+            out = []
+            for r in rs:
+                r = dict(r)
+                out.append(self.generate(r.pop("prompt"), **r))
+            return out
+
+        unsupported = ("masks", "controlnet_guess_mode", "initial_noise")
+        if len(requests) <= 1 or self.mesh is not None or any(
+                _given(r.get(k)) for r in requests for k in unsupported):
+            return serial(requests)
+        live_iids = [r["instantid"] for r in requests if r.get("instantid")]
+        live_cnp = [r["controlnet_params"] for r in requests
+                    if r.get("controlnet_params") is not None]
+        if any(x is not live_iids[0] for x in live_iids) or \
+                any(c is not live_cnp[0] for c in live_cnp):
+            return serial(requests)
+        iid_models = live_iids[0] if live_iids else None
+        cn_params = live_cnp[0] if live_cnp else None
+        self._check_cn_geometry(cn_params, iid_models)
+
+        def bucket(r):
+            steps = r.get("num_steps") or self.num_steps
+            fs = r.get("fusion_start")
+            return (steps, r.get("height", 1024), r.get("width", 1024),
+                    r.get("scheduler") or self.scheduler,
+                    round(steps * regions_lib.FUSION_START_STEP / 50)
+                    if fs is None else fs)
+        steps, height, width, sched_name, fusion_start = bucket(requests[0])
+        if any(bucket(r) != bucket(requests[0]) for r in requests[1:]):
+            raise ValueError("batched requests must share height/width/"
+                             "steps/scheduler/fusion_start (bucket them)")
+        device = self.device
+        clock = _Clock(device)
+        sched = schedulers.make_schedule(sched_name, steps)
+        tids = sdxl.add_time_ids((height, width), (0, 0), (height, width),
+                                 device=device)
+
+        bases, concepts, loras, specs = [], [], [], []
+        for r in requests:
+            ep, pp, en, pn = self.encode(r["prompt"],
+                                         r.get("negative_prompt", ""))
+            bases.append(multiconcept.make_base_inputs(
+                ep, pp, en, pn, tids, r.get("guidance_scale", 7.5)))
+            sp, ci, lo = self._region_conditioning(
+                r.get("prompt_rewrite", ""), r.get("concept_loras", ()),
+                r.get("style_lora"), tids,
+                instantid=iid_models if r.get("instantid") else None,
+                face_embeddings=r.get("face_embeddings", ()))
+            specs.append(sp)
+            concepts.append(ci)
+            loras.append(lo)
+        # pad every request to one concept count with neutral concepts
+        # (their zero masks make the fusion a no-op)
+        max_k = max(len(c) for c in concepts)
+        if any(len(c) < max_k for c in concepts):
+            ep, pp, en, pn = self.encode("", "")
+            neutral = multiconcept.make_concept_inputs(ep, pp, en, pn, tids)
+            for r_i in range(len(requests)):
+                pad = max_k - len(concepts[r_i])
+                concepts[r_i] = list(concepts[r_i]) + [neutral] * pad
+                loras[r_i] = list(loras[r_i]) + [None] * pad
+
+        def cond_rows(images):
+            """uint8 images (None: zeros) -> [R, 1, H, W, C] in [0, 1]."""
+            c = next(x for x in images if x is not None).shape[-1]
+            return torch.stack([
+                torch.as_tensor(np.asarray(x, np.float32),
+                                device=device)[None] / 255.0
+                if x is not None else
+                torch.zeros((1, height, width, c), device=device)
+                for x in images])
+
+        base_cn_conds = None
+        has = [r.get("spatial_condition") is not None
+               and r.get("controlnet_params") is not None for r in requests]
+        if any(has):
+            base_cn_conds = (
+                cond_rows([r.get("spatial_condition") if h else None
+                           for r, h in zip(requests, has)]),
+                [float(r.get("controlnet_scale", 1.0)) if h else 0.0
+                 for r, h in zip(requests, has)],
+                [float(r.get("control_guidance_start", 0.0))
+                 for r in requests],
+                [float(r.get("control_guidance_end", 1.0))
+                 for r in requests])
+        clock.lap("encode")
+
+        lat1_r, caches = multiconcept.sample_stage1_batch(
+            self.cfg, sched, self.params.unet,
+            [int(r.get("seed", 14)) for r in requests], bases,
+            height=height, width=width, fusion_start=fusion_start,
+            base_cn_params=cn_params, base_cn_conds_r=base_cn_conds)
+        clock.lap("stage1")
+        img1s = [self._decode(lat) for lat in lat1_r]
+        clock.lap("decode")
+        masks_r = [self._predict_masks(
+            img1[1], r["prompt"], len(sp),
+            r.get("detection_classes", ("man", "woman")))
+            for img1, r, sp in zip(img1s, requests, specs)]
+        clock.lap("masks")
+        results = [GenerationResult(stage1=img1, stage2=None, masks=m)
+                   for img1, m in zip(img1s, masks_r)]
+        live2 = [any(m is not None for m in ms) for ms in masks_r]
+        if max_k == 0 or not any(live2):
+            return self._with_timings(results, clock)
+
+        # InstantID stage 2: the shared IP layers, and the IdentityNet on
+        # the keypoints of each request's own stage-1 faces
+        ip_adapters, ip_scale = (), 1.0
+        concept_cn_conds = None
+        if iid_models is not None:
+            ip_adapters, ip_scale = ((iid_models.ip_adapter_layers,),
+                                     iid_models.ip_scale)
+            if iid_models.identitynet_params is not None:
+                kimgs = []
+                for r, res in zip(requests, results):
+                    kimg = None
+                    if r.get("instantid"):
+                        kimg = r.get("face_kps_image")
+                        if kimg is None and r.get("face_kps_provider"):
+                            kimg = r["face_kps_provider"](res.stage1[1])
+                    kimgs.append(kimg)
+                if any(k is not None for k in kimgs):
+                    cond = cond_rows(kimgs)
+                    conds_k = []
+                    for k in range(max_k):
+                        scales, ehs = [], []
+                        for r_i, r in enumerate(requests):
+                            fe = r.get("face_embeddings", ())
+                            live = (r.get("instantid")
+                                    and kimgs[r_i] is not None
+                                    and k < len(fe) and fe[k] is not None)
+                            scales.append(iid_models.identitynet_scale
+                                          if live else 0.0)
+                            ehs.append(concepts[r_i][k].ip_context)
+                        tmpl = next((e for e in ehs if e is not None), None)
+                        conds_k.append((cond, scales, None if tmpl is None
+                                        else torch.stack([
+                                            e if e is not None else
+                                            torch.zeros_like(tmpl)
+                                            for e in ehs])))
+                    concept_cn_conds = tuple(conds_k)
+
+        mask_stacks = torch.stack([
+            regions_lib.make_concept_mask_stack(
+                m, (height // 8, width // 8), max_k, device=device)
+            for m in masks_r])
+        controller = p2p.P2PControl.build(
+            [requests[0]["prompt"]] * 2, steps, cross_replace_steps=1.0,
+            self_replace_steps=0.4, width=width // 32, height=height // 32,
+            tokenizer=self.tokenizer, device=device)
+        lat2_r = multiconcept.sample_stage2_batch(
+            self.cfg, sched, self.params.unet, caches, bases, controller,
+            concepts, loras, mask_stacks, fusion_start=fusion_start,
+            ip_scale=ip_scale, concept_ip_adapters=ip_adapters,
+            concept_cn_params=(iid_models.identitynet_params
+                               if concept_cn_conds is not None else None),
+            concept_cn_conds_r=concept_cn_conds,
+            base_cn_params=cn_params, base_cn_conds_r=base_cn_conds)
+        clock.lap("stage2")
+        results = [dataclasses.replace(res, stage2=self._decode(lat))
+                   if live else res
+                   for res, lat, live in zip(results, lat2_r, live2)]
+        clock.lap("decode")
+        return self._with_timings(results, clock)
+
+    @staticmethod
+    def _with_timings(results: list, clock: _Clock) -> list:
+        return [dataclasses.replace(r, timings=dict(clock.timings))
+                for r in results]

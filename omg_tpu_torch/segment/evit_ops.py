@@ -14,8 +14,9 @@ The resizes are torch's own (``F.interpolate``, taken in fp64), which the
 JAX package rebuilds as interpolation matrices: bicubic with a = -0.75
 and clamped taps, bilinear with and without ``align_corners``.
 ``resize_uint8`` is PIL's antialiased bilinear on uint8 images, rounded
-back to uint8; ``pil_bicubic_uint8`` is PIL's bicubic resampling itself
-(the resize of the CLIs' condition image).
+back to uint8; ``pil_resize_uint8`` is PIL's bicubic or Lanczos
+resampling itself (the resize of the CLIs' and the server's condition
+images).
 """
 
 from __future__ import annotations
@@ -297,16 +298,33 @@ def _bicubic(x: float) -> float:
     return 0.0
 
 
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: float) -> float:
+    """PIL's Lanczos kernel: sinc truncated to [-3, 3)."""
+    if -3.0 <= x < 3.0:
+        return _sinc(x) * _sinc(x / 3)
+    return 0.0
+
+
+# PIL's 8-bit resampling filters: (kernel, support)
+PIL_FILTERS = {"bicubic": (_bicubic, 2.0), "lanczos": (_lanczos, 3.0)}
 _PRECISION_BITS = 22                    # PIL's 8-bit resampling: 32 - 8 - 2
 
 
-def _pil_taps(n_in: int, n_out: int) -> tuple:
-    """PIL's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the
-    bicubic filter: (source index [n_out, k], fixed-point weight
+def _pil_taps(n_in: int, n_out: int, filt: str = "bicubic") -> tuple:
+    """PIL's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for one of
+    ``PIL_FILTERS``: (source index [n_out, k], fixed-point weight
     [n_out, k]), unused taps weight 0."""
+    kernel, base_support = PIL_FILTERS[filt]
     scale = n_in / n_out
     fscale = max(scale, 1.0)
-    support = 2.0 * fscale
+    support = base_support * fscale
     ksize = int(math.ceil(support)) * 2 + 1
     idx = np.zeros((n_out, ksize), np.int64)
     kk = np.zeros((n_out, ksize), np.int64)
@@ -314,7 +332,7 @@ def _pil_taps(n_in: int, n_out: int) -> tuple:
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), n_in) - xmin
-        w = [_bicubic((x + xmin - center + 0.5) * (1.0 / fscale))
+        w = [kernel((x + xmin - center + 0.5) * (1.0 / fscale))
              for x in range(xmax)]
         ww = sum(w)
         w = [v / ww if ww != 0.0 else v for v in w]
@@ -324,10 +342,11 @@ def _pil_taps(n_in: int, n_out: int) -> tuple:
     return idx, kk
 
 
-def _pil_pass(x: np.ndarray, axis: int, n_out: int) -> np.ndarray:
+def _pil_pass(x: np.ndarray, axis: int, n_out: int,
+              filt: str = "bicubic") -> np.ndarray:
     """One PIL resampling pass of uint8 data along ``axis`` (0 or 1):
     fixed-point sums, rounded and clipped to uint8."""
-    idx, kk = _pil_taps(x.shape[axis], n_out)
+    idx, kk = _pil_taps(x.shape[axis], n_out, filt)
     xs = x.astype(np.int64)
     acc = np.full(x.shape[:axis] + (n_out,) + x.shape[axis + 1:],
                   1 << (_PRECISION_BITS - 1), np.int64)
@@ -338,16 +357,17 @@ def _pil_pass(x: np.ndarray, axis: int, n_out: int) -> np.ndarray:
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def pil_bicubic_uint8(image: np.ndarray, size: tuple) -> np.ndarray:
-    """PIL's ``Image.resize((w, h), BICUBIC)`` of uint8 [H, W, C] to
-    ``size`` (H, W), bit for bit: its two fixed-point passes, horizontal
-    first, each rounded and clipped to uint8. No single interpolation
-    reproduces it: the a = -0.5 kernel overshoots, and PIL clips the
+def pil_resize_uint8(image: np.ndarray, size: tuple,
+                     filt: str = "bicubic") -> np.ndarray:
+    """PIL's ``Image.resize((w, h), BICUBIC or LANCZOS)`` of uint8
+    [H, W, C] to ``size`` (H, W), bit for bit: its two fixed-point passes,
+    horizontal first, each rounded and clipped to uint8. No single
+    interpolation reproduces it: both kernels overshoot, and PIL clips the
     overshoot between the passes."""
     h, w = size
     x = np.asarray(image, np.uint8)
     if w != x.shape[1]:
-        x = _pil_pass(x, 1, w)
+        x = _pil_pass(x, 1, w, filt)
     if h != x.shape[0]:
-        x = _pil_pass(x, 0, h)
+        x = _pil_pass(x, 0, h, filt)
     return x

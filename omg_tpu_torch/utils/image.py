@@ -9,8 +9,10 @@ interlaced) raises and names it. The Average and Paeth filters undo
 byte by byte in Python: a 1024x1024 RGB file that uses them takes
 seconds. ``read_rgb`` converts as PIL's ``convert("RGB")`` does: gray
 repeated over three channels, alpha dropped. ``resize`` is
-``Image.resize((w, h))``'s default for RGB, antialiased bicubic: PIL's
-own passes (``segment/evit_ops.pil_bicubic_uint8``), bit for bit.
+``Image.resize((w, h))``'s default for RGB, antialiased bicubic, or PIL's
+Lanczos: PIL's own passes (``segment/evit_ops.pil_resize_uint8``), bit
+for bit. ``encode_png``/``decode_png`` are the same formats in memory
+(the server's base64 payloads).
 """
 
 from __future__ import annotations
@@ -34,6 +36,12 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 def write_png(path: str, image: np.ndarray) -> None:
     """uint8 [H, W] or [H, W, C] (C = 1, 3 or 4) -> an 8-bit PNG file."""
+    with open(path, "wb") as f:
+        f.write(encode_png(image))
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """uint8 [H, W] or [H, W, C] (C = 1, 3 or 4) -> 8-bit PNG bytes."""
     img = np.asarray(image)
     if img.dtype != np.uint8:
         raise ValueError(f"write_png takes uint8, not {img.dtype}")
@@ -44,12 +52,11 @@ def write_png(path: str, image: np.ndarray) -> None:
         raise ValueError(f"write_png: {c} channels (1, 3 or 4 only)")
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
                            np.ascontiguousarray(img).reshape(h, w * c)], 1)
-    with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
-                                            _COLOR_TYPES[c], 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(_chunk(b"IEND", b""))
+    return (_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                          _COLOR_TYPES[c], 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))
 
 
 def _paeth(a: int, b: int, c: int) -> int:
@@ -87,7 +94,11 @@ def _unfilter(kind: int, row: np.ndarray, prev: np.ndarray,
 def read_png(path: str) -> np.ndarray:
     """An 8-bit gray, RGB or RGBA PNG -> uint8 [H, W, C], C = 1, 3 or 4."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "PNG data") -> np.ndarray:
+    """``read_png`` of bytes in memory (``path`` names them in errors)."""
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, header = 8, [], None
@@ -125,13 +136,19 @@ def read_png(path: str) -> np.ndarray:
 
 def read_rgb(path: str) -> np.ndarray:
     """A PNG -> uint8 [H, W, 3], as PIL's ``convert("RGB")`` gives it."""
-    img = read_png(path)
+    return to_rgb(read_png(path))
+
+
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """uint8 [H, W, 1|3|4] -> [H, W, 3]: gray repeated, alpha dropped."""
     if img.shape[2] == 1:
         return np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[:, :, :3])
 
 
-def resize(image: np.ndarray, height: int, width: int) -> np.ndarray:
-    """uint8 [H, W, C] -> [height, width, C]: PIL's default
-    ``resize((width, height))`` for RGB (antialiased bicubic)."""
-    return evit_ops.pil_bicubic_uint8(image, (height, width))
+def resize(image: np.ndarray, height: int, width: int,
+           filt: str = "bicubic") -> np.ndarray:
+    """uint8 [H, W, C] -> [height, width, C]: PIL's
+    ``resize((width, height))`` with its default filter for RGB
+    (antialiased bicubic) or ``filt="lanczos"``."""
+    return evit_ops.pil_resize_uint8(image, (height, width), filt)

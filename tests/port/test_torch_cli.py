@@ -30,6 +30,7 @@ from omg_tpu_torch.segment import build_mask_provider, sam_provider, vit_sam
 from omg_tpu_torch.utils import image
 
 from tests.test_convert import _emit_torch_sd
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import (kohya_lora_sd, left_right_masks, normal,
                                 numpy_params, unet_config_json,
                                 write_safetensors, write_tiny_checkpoint)

@@ -29,6 +29,7 @@ from omg_tpu_torch.parallel import mesh as mesh_lib
 from omg_tpu_torch.pipelines import multiconcept, omg, sdxl
 from omg_tpu_torch.text.tokenizer import ToyTokenizer
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import (left_right_masks, normal, numpy_params, t,
                                 tiny_sdxl, to_jax)
 

@@ -18,6 +18,7 @@ from omg_tpu_torch import lora as lora_lib
 from omg_tpu_torch.control import p2p, regions
 from omg_tpu_torch.diffusion import sampling, schedulers
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import lora_leaf, normal, t, to_jax
 
 

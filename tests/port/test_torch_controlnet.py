@@ -16,6 +16,7 @@ from omg_tpu.pipelines import multiconcept as jmc
 from omg_tpu_torch import config, from_jax
 from omg_tpu_torch.pipelines import multiconcept
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import normal, numpy_params, t, to_jax
 
 REL = 2e-4          # of max |residual|, per module, fp32

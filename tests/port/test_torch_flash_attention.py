@@ -14,6 +14,7 @@ from omg_tpu.ops import flash_attention as jfa
 from omg_tpu_torch.nn import attention
 from omg_tpu_torch.ops import flash_attention as fa
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import normal
 
 ATOL = 1e-5   # fp32 on both sides; only the summation order differs

@@ -22,6 +22,7 @@ from omg_tpu_torch.control import p2p
 from omg_tpu_torch.models import resampler, unet
 from omg_tpu_torch.nn import attention
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import normal, np_tree, numpy_params, t, tiny_sdxl, \
     to_jax
 

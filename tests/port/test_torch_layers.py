@@ -13,6 +13,7 @@ from omg_tpu_torch import from_jax
 from omg_tpu_torch.control import p2p
 from omg_tpu_torch.nn import attention, layers
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import lora_leaf, normal, np_tree, t, to_jax
 
 ATOL = 2e-4

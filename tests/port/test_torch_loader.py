@@ -29,6 +29,7 @@ from omg_tpu_torch.segment import sam_provider as sp
 from omg_tpu_torch.segment import vit_sam
 
 from tests.test_convert import _emit_torch_sd
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import (np_tree, numpy_params, sam_numpy,
                                 unet_config_json, write_safetensors,
                                 write_tiny_checkpoint)

@@ -15,6 +15,7 @@ from omg_tpu_torch.models import clip, unet
 from omg_tpu_torch.nn import layers
 from omg_tpu_torch.pipelines import sdxl
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import write_safetensors
 
 CFG = sdxl.tiny_config()

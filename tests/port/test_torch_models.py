@@ -18,6 +18,7 @@ from omg_tpu_torch.control import p2p
 from omg_tpu_torch.models import unet
 from omg_tpu_torch.pipelines import sdxl
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import (lora_leaf, mid_block_lora, normal, np_tree,
                                 t, tiny_sdxl, to_jax)
 

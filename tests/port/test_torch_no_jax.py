@@ -40,10 +40,16 @@ def test_port_never_imports_jax():
             "import omg_tpu_torch.cli.inference_lora\n"
             "import omg_tpu_torch.cli.inference_instantid\n"
             "import omg_tpu_torch.text.tokenizer\n"
+            "import omg_tpu_torch.serving.conditions\n"
+            "import omg_tpu_torch.serving.registry\n"
+            "import omg_tpu_torch.serving.server\n"
+            "import omg_tpu_torch.serving.warmup\n"
+            "import omg_tpu_torch.utils.profiling\n"
+            "import omg_tpu_torch.cli.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'omg_tpu', 'PIL', 'cv2',\n"
             "              'transformers', 'safetensors', 'regex', 'ftfy',\n"
-            "              'tokenizers'))\n"
+            "              'tokenizers', 'insightface'))\n"
             "assert not bad, bad\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
@@ -58,6 +64,17 @@ def test_cli_help_and_no_card():
     proc = _run(["-m", "omg_tpu_torch.cli.inference_instantid", "--help"])
     assert proc.returncode == 0 and "--face_adapter_path" in proc.stdout
     proc = _run(["-m", "omg_tpu_torch.cli.inference_lora",
+                 "--pretrained_sdxl_model", "no/such/dir"])
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "no/such/dir" not in proc.stderr
+
+
+def test_serve_cli_help_and_no_card():
+    proc = _run(["-m", "omg_tpu_torch.cli.serve", "--help"])
+    assert proc.returncode == 0, proc.stderr
+    assert "--registry" in proc.stdout and "--device" in proc.stdout
+    proc = _run(["-m", "omg_tpu_torch.cli.serve",
                  "--pretrained_sdxl_model", "no/such/dir"])
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
@@ -83,3 +100,20 @@ def test_chip_smoke_times_k1_at_the_controlnet_batches():
             for h, n in ((10, 4096), (20, 1024))}
     assert want <= set(mod.KERNEL_SHAPES)
     assert (mod.CN_PATH_LAUNCHES, mod.IID_PATH_LAUNCHES) == (8736, 7036)
+
+
+def test_chip_smoke_serving_counts():
+    """Phase 3 holds K1 at the request-batched shapes of phase 10 (R = 4:
+    B = 8 in stage 1, 28 in stage 2), and phase 10 (a) expects their
+    launches per shape."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_serving",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    want = {(b, h, n, 64) for b in (8, 28)
+            for h, n in ((10, 4096), (20, 1024))}
+    assert want <= set(mod.KERNEL_SHAPES)
+    assert mod.BATCH_SHAPE_LAUNCHES == {
+        "8,10,4096,64": 500, "8,20,1024,64": 3000,
+        "28,10,4096,64": 340, "28,20,1024,64": 2040}
+    assert sum(mod.BATCH_SHAPE_LAUNCHES.values()) == 5880

@@ -21,6 +21,7 @@ from omg_tpu_torch.pipelines import omg, sdxl
 from omg_tpu_torch.text.tokenizer import ToyTokenizer
 
 import torch_mesh_workers as workers
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import (left_right_masks, mid_block_lora, normal,
                                 tiny_sdxl_numpy, to_jax)
 

@@ -22,6 +22,7 @@ from omg_tpu_torch.parallel import comm, launch, mesh as mesh_lib
 from omg_tpu_torch.pipelines import sdxl
 
 import torch_mesh_workers as workers
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import normal, numpy_params, t
 
 LAYER_ATOL = 1e-5       # the spatial layers against the unsharded port

@@ -22,6 +22,7 @@ from omg_tpu_torch.pipelines import multiconcept as mc
 from omg_tpu_torch.pipelines import omg, sdxl
 
 import torch_mesh_workers as workers
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import np_tree
 
 ATOL = 2e-4             # tests/test_parallel.py:129-165

@@ -27,6 +27,7 @@ from omg_tpu_torch.pipelines import multiconcept as mc
 from omg_tpu_torch.pipelines import sdxl
 
 import torch_mesh_workers as workers
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import normal, np_tree, t
 
 ATOL = 2e-5             # tests/test_parallel.py:35-79

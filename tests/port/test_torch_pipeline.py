@@ -22,6 +22,7 @@ from omg_tpu_torch.models import unet
 from omg_tpu_torch.pipelines import multiconcept, omg, sdxl
 from omg_tpu_torch.text.tokenizer import ToyTokenizer
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import (left_right_masks, mid_block_lora, normal,
                                 np_tree, t, tiny_sdxl, to_jax)
 

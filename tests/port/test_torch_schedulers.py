@@ -12,6 +12,7 @@ import torch
 from omg_tpu.diffusion import schedulers as jsched
 from omg_tpu_torch.diffusion import schedulers
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import normal, t
 
 TOL = 1e-6

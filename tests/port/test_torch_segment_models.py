@@ -24,6 +24,7 @@ from omg_tpu_torch.segment import sam_decoder as dec
 from omg_tpu_torch.segment import sam_provider
 from omg_tpu_torch.segment import vit_sam
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import normal, numpy_params, sam_numpy, t, to_jax
 
 ATOL = 1e-4

@@ -13,6 +13,7 @@ from omg_tpu.segment import evit_ops as jops
 from omg_tpu_torch import from_jax
 from omg_tpu_torch.segment import evit_ops as ops
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import (normal, numpy_params, positive_variances,
                                 t, to_jax)
 

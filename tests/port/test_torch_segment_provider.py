@@ -30,6 +30,7 @@ from omg_tpu_torch.segment import efficientvit as evit
 from omg_tpu_torch.segment import sam_provider as sp
 from omg_tpu_torch.text.tokenizer import ToyTokenizer
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import numpy_params, sam_numpy, t, tiny_sdxl, to_jax
 
 MASK_FRAC = 1e-3        # masks may differ in at most 0.1% of the pixels

@@ -12,6 +12,7 @@ from omg_tpu.text.tokenizer import HFCLIPTokenizer as JaxTokenizer
 from omg_tpu_torch.control import p2p
 from omg_tpu_torch.text.tokenizer import HFCLIPTokenizer
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import (TOKENIZER_CORPUS, learn_merges,
                                 write_clip_tokenizer)
 

@@ -3,11 +3,26 @@ inputs, the left/right stand-in mask provider and random LoRA trees."""
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from omg_tpu.models import clip as jclip
 from omg_tpu.models import unet as junet
 from omg_tpu.models import vae as jvae
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """A port test module runs torch on one intra-op thread (autouse in
+    every module that imports it). The test workers share the host's
+    cores, and a pool of one thread per core in each worker oversubscribes
+    them: the tiny models' ops then wait on each other's threads (on an
+    8-core host with every core busy, three tiny ``generate`` calls took
+    36 s on eight threads and 0.25 s on one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def np_tree(tree):
