@@ -80,9 +80,14 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      with one rank-16, one with None): 5880 K1 launches at B = 8 (stage
      1) and 28 (stage 2), stage and total seconds, peak memory, the
      per-lane LoRA copies' bytes, images per minute beside phase 5's
-     single request, request 0's image against phase 5's; (b) R = 2 at 6
-     steps, each request's stage-1 and stage-2 latents against its own
-     serial ``generate`` within MODEL_REL_BOUND; (c) BASELINE config #5:
+     single request, request 0's image against phase 5's; (b) batches of
+     R = 2 at 6 steps, each request's stage-1 and stage-2 latents against
+     its own serial ``generate`` within MODEL_REL_BOUND: two config #2
+     requests, then a config #5 request (InstantID, the canny ControlNet,
+     a style LoRA) beside a ControlNet-only request with a guidance
+     window (per-lane ControlNet scales and windows, zero IP tokens and
+     zero-scale IdentityNet rows, each request's own keypoints); (c)
+     BASELINE config #5:
      a batch of 2 requests at 20 steps, guidance 3.0, each with InstantID
      (phase 8's seeds, two face embeddings, a ``draw_kps`` image), the
      spatial ControlNet on ``serving.conditions.prepare_condition(photo,
@@ -264,7 +269,11 @@ KERNEL_SHAPES = [  # (B, H, N, D): main-path, bucket, D=128, ragged tiles
     (2, 10, 1024, 128), (2, 20, 1088, 64), (2, 20, 1025, 64),
     # four requests in one batch (phase 10): stage 1, stage 2
     (8, 10, 4096, 64), (8, 20, 1024, 64), (28, 10, 4096, 64),
-    (28, 20, 1024, 64)]
+    (28, 20, 1024, 64),
+    # two requests in one batch (phase 10 (b), (c)): the base ControlNet
+    # on 3R stage-2 lanes, the stage-2 UNet on 7R
+    (6, 10, 4096, 64), (6, 20, 1024, 64), (14, 10, 4096, 64),
+    (14, 20, 1024, 64)]
 TIMED_SHAPE = (7, 10, 4096, 64)
 SEQ_SHAPES = [  # (B, H, Nq local, Nk): q rows of a shard against all K/V
     (2, 10, 2048, 4096), (2, 20, 512, 1024),     # 2-way seq at 1024^2
@@ -1563,25 +1572,46 @@ def throughput_phase(engine, loras, rank16, single) -> dict:
     return rec
 
 
-def batch_vs_serial_phase(engine, loras) -> dict:
-    """(b) two requests at SERVE_CHECK_STEPS: each one's latents from the
-    batch against its own serial ``generate``."""
-    l0, l1 = loras
-    reqs = [serve_request([l0, l1], 21, 7.5, num_steps=SERVE_CHECK_STEPS),
-            serve_request([l1, None], 22, 5.0, num_steps=SERVE_CHECK_STEPS)]
+def batch_vs_serial(name: str, engine, reqs: list, expect: dict,
+                    errs: dict) -> None:
+    """Each request's stage-1 and stage-2 latents from one
+    ``generate_batch`` of ``reqs`` against its own serial ``generate``
+    (into ``errs``)."""
     batched: dict = {}
-    run_batch("serving (b) batch", engine, reqs,
-              serve_shapes(SERVE_CHECK_STEPS, 4, 14), latents=batched)
-    errs = {}
+    run_batch(f"{name} batch", engine, reqs, expect, latents=batched)
     for i, r in enumerate(reqs):
         serial: dict = {}
         r = dict(r)
         with record_latents(serial):
             engine.generate(r.pop("prompt"), **r)
         for stage in ("stage1", "stage2"):
-            errs[f"request{i}_{stage}"] = compare_eps(
-                f"serving (b) request {i} {stage} batched vs serial",
+            errs[f"{name} request{i}_{stage}"] = compare_eps(
+                f"{name} request {i} {stage} batched vs serial",
                 batched[stage][i], serial[stage])
+
+
+def batch_vs_serial_phase(engine, loras, c5) -> dict:
+    """(b) batches of two at SERVE_CHECK_STEPS against serial runs: two
+    config #2 requests; then config #5 (InstantID, ControlNet, style
+    LoRA) beside a ControlNet-only request whose guidance window drops
+    the ControlNet on some steps (fusion at step 2 of 6: the window
+    [0.2, 0.8] keeps steps 2 and 3)."""
+    l0, l1 = loras
+    errs: dict = {}
+    batch_vs_serial(
+        "serving (b) config #2", engine,
+        [serve_request([l0, l1], 21, 7.5, num_steps=SERVE_CHECK_STEPS),
+         serve_request([l1, None], 22, 5.0, num_steps=SERVE_CHECK_STEPS)],
+        serve_shapes(SERVE_CHECK_STEPS, 4, 14), errs)
+    windowed = serve_request([l1, l0], 24, 5.0, num_steps=SERVE_CHECK_STEPS,
+                             spatial_condition=c5["cond"],
+                             controlnet_params=c5["cn"], controlnet_scale=0.6,
+                             control_guidance_start=0.2,
+                             control_guidance_end=0.8)
+    batch_vs_serial(
+        "serving (b) config #5", engine,
+        [config5_request(c5, 23, SERVE_CHECK_STEPS, [l0, l1], 0), windowed],
+        serve_shapes(SERVE_CHECK_STEPS, 4, 14, (4,), (6, 8)), errs)
     return errs
 
 
@@ -1600,58 +1630,74 @@ def photo(seed: int, h: int, w: int) -> np.ndarray:
     return np.clip(img + 128, 0, 255).astype(np.uint8)
 
 
-def config5_phase(device, engine, cfg, loras) -> dict:
-    """(c) config #5 as a batch of two, then guess mode alone."""
+def config5_models(device, cfg) -> dict:
+    """Config #5's shared models (the spatial ControlNet, the InstantID
+    stack, a rank-16 style LoRA), the canny condition of a seeded photo,
+    and two face-keypoint images and their face embeddings."""
     t0 = time.perf_counter()
-    cn = controlnet.init_params(torch.Generator(device).manual_seed(30),
-                                config.sdxl_controlnet())
-    iid = omg_lib.InstantIDModels(
-        resampler_cfg=config.instantid_resampler(),
-        resampler_params=resampler.init_params(
-            torch.Generator(device).manual_seed(31),
-            config.instantid_resampler()),
-        ip_adapter_layers=unet_lib.init_ip_layers(
-            torch.Generator(device).manual_seed(32), cfg.unet),
-        identitynet_params=controlnet.init_params(
-            torch.Generator(device).manual_seed(33), config.sdxl_controlnet()),
-        identitynet_cfg=config.sdxl_controlnet(), ip_scale=0.8,
-        identitynet_scale=0.8)
-    style = mid_block_lora(device, 13, cfg, rank=16)
+    iid_cfg = config.instantid_resampler()
+    c5 = {"cn": controlnet.init_params(torch.Generator(device).manual_seed(30),
+                                       config.sdxl_controlnet()),
+          "iid": omg_lib.InstantIDModels(
+              resampler_cfg=iid_cfg,
+              resampler_params=resampler.init_params(
+                  torch.Generator(device).manual_seed(31), iid_cfg),
+              ip_adapter_layers=unet_lib.init_ip_layers(
+                  torch.Generator(device).manual_seed(32), cfg.unet),
+              identitynet_params=controlnet.init_params(
+                  torch.Generator(device).manual_seed(33),
+                  config.sdxl_controlnet()),
+              identitynet_cfg=config.sdxl_controlnet(), ip_scale=0.8,
+              identitynet_scale=0.8),
+          "style": mid_block_lora(device, 13, cfg, rank=16),
+          "kps": [instantid.draw_kps(HEIGHT, WIDTH, [face_kps(300, 380),
+                                                     face_kps(724, 380)]),
+                  instantid.draw_kps(HEIGHT, WIDTH, [face_kps(280, 420),
+                                                     face_kps(700, 360)])],
+          "rng": np.random.default_rng(38)}
     t1 = time.perf_counter()
-    cond = conditions.prepare_condition(photo(37, 768, 1152), "canny",
-                                        HEIGHT, WIDTH)
-    cond_s = time.perf_counter() - t1
+    c5["cond"] = conditions.prepare_condition(photo(37, 768, 1152), "canny",
+                                              HEIGHT, WIDTH)
+    c5["canny_s"] = time.perf_counter() - t1
+    cond = c5["cond"]
     if cond.shape != (HEIGHT, WIDTH, 3) or not 0 < (cond > 0).mean() < 0.5:
         raise AssertionError(f"canny condition {cond.shape}, edge share "
                              f"{(cond > 0).mean()}")
     torch.cuda.synchronize()
-    log(f"serving (c): ControlNet, InstantID stack and style LoRA built in "
+    log(f"serving: ControlNet, InstantID stack and style LoRA built in "
         f"{t1 - t0:.2f} s; canny condition (768x1152 photo, Lanczos cover "
-        f"crop) in {cond_s:.2f} s, {(cond[..., 0] > 0).mean():.4f} edges")
-    rng = np.random.default_rng(38)
-    kps = instantid.draw_kps(HEIGHT, WIDTH, [face_kps(300, 380),
-                                             face_kps(724, 380)])
+        f"crop) in {c5['canny_s']:.2f} s, {(cond[..., 0] > 0).mean():.4f} "
+        f"edges")
+    return c5
 
-    def request(seed):
-        faces = [rng.standard_normal(config.instantid_resampler()
-                                     .embedding_dim).astype(np.float32)
-                 for _ in range(2)]
-        return serve_request([], seed, 3.0, num_steps=CONFIG5_STEPS,
-                             style_lora=style, instantid=iid,
-                             face_embeddings=faces, face_kps_image=kps,
-                             spatial_condition=cond, controlnet_params=cn,
-                             controlnet_scale=0.8)
+
+def config5_request(c5, seed: int, steps: int, loras, kps: int) -> dict:
+    """A config #5 request: InstantID (two seeded face embeddings and
+    keypoint image ``kps``), the canny ControlNet and the style LoRA."""
+    dim = config.instantid_resampler().embedding_dim
+    faces = [c5["rng"].standard_normal(dim).astype(np.float32)
+             for _ in range(2)]
+    return serve_request(loras, seed, 3.0, num_steps=steps,
+                         style_lora=c5["style"], instantid=c5["iid"],
+                         face_embeddings=faces, face_kps_image=c5["kps"][kps],
+                         spatial_condition=c5["cond"],
+                         controlnet_params=c5["cn"], controlnet_scale=0.8)
+
+
+def config5_phase(engine, loras, c5) -> tuple:
+    """(c) config #5 as a batch of two (each with its own keypoints), then
+    guess mode alone."""
     _, rec = run_batch("serving (c) config #5", engine,
-                       [request(41), request(42)], CONFIG5_SHAPES)
-    rec["canny_s"] = cond_s
+                       [config5_request(c5, 41, CONFIG5_STEPS, [], 0),
+                        config5_request(c5, 42, CONFIG5_STEPS, [], 1)],
+                       CONFIG5_SHAPES)
+    rec["canny_s"] = c5["canny_s"]
     guess = serve_request(loras, 43, 7.5, num_steps=CONFIG5_STEPS,
-                          spatial_condition=cond, controlnet_params=cn,
+                          spatial_condition=c5["cond"],
+                          controlnet_params=c5["cn"],
                           controlnet_guess_mode=True)
     _, grec = run_batch("serving (c) guess mode", engine, [guess],
                         GUESS_SHAPES)
-    del cn, iid
-    gc.collect()
-    torch.cuda.empty_cache()
     return rec, grec
 
 
@@ -1753,9 +1799,12 @@ def serving_phase(device, cfg, params, loras, single) -> dict:
         engine, loras, mid_block_lora(device, 12, cfg, rank=16), single)}
     gc.collect()
     torch.cuda.empty_cache()
-    rec["batched_vs_serial"] = batch_vs_serial_phase(engine, loras)
-    rec["config5"], rec["guess_mode"] = config5_phase(device, engine, cfg,
-                                                      loras)
+    c5 = config5_models(device, cfg)
+    rec["batched_vs_serial"] = batch_vs_serial_phase(engine, loras, c5)
+    rec["config5"], rec["guess_mode"] = config5_phase(engine, loras, c5)
+    del c5
+    gc.collect()
+    torch.cuda.empty_cache()
     rec["http"] = http_phase(device, engine, loras)
     rec["phase_s"] = time.perf_counter() - t0
     log(f"serving: phase 10 took {rec['phase_s']:.1f} s")
@@ -2014,7 +2063,8 @@ def main() -> int:
         "1,10,4096,64", "3,10,4096,64", "4,10,4096,64", "1,20,1024,64",
         "3,20,1024,64", "4,20,1024,64")}
     serve["k1_by_shape"] = {key: by_shape[key] for key in (
-        "8,10,4096,64", "8,20,1024,64", "28,10,4096,64", "28,20,1024,64")}
+        "8,10,4096,64", "8,20,1024,64", "28,10,4096,64", "28,20,1024,64",
+        "6,10,4096,64", "6,20,1024,64", "14,10,4096,64", "14,20,1024,64")}
     gc.collect()
     torch.cuda.empty_cache()
     log("== mesh")

@@ -198,7 +198,10 @@ def align_loras(trees: Sequence[Optional[dict]]) -> list:
     """Make adapters structurally identical: the union of their paths,
     zero-filled gaps and ranks zero-padded to the largest, as
     ``stack_loras`` stacks them (stacked, then unstacked, so the padding
-    rules live in one place). A request batch stacks the result."""
+    rules live in one place). The reference's ``generate_batch`` needs this
+    to map one program over requests; the port folds requests into the
+    lane axis, where ``stack_loras`` pads directly, so its batch path does
+    not call it."""
     stacked = stack_loras(trees)
     if stacked is None:
         return [None] * len(trees)

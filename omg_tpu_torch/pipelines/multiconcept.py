@@ -85,13 +85,14 @@ class ControlNetInputs(NamedTuple):
     at step i of S the residuals are kept only when i/S >= start and
     (i+1)/S <= end. ``guess_mode``: residuals from the conditional rows
     only (zeros on the uncond rows), with diffusers' log-linear depth
-    ramp."""
+    ramp. A request batch gives ``scale`` (and the window, or one window
+    for all) per lane, with scale 0 on the lanes it does not serve."""
     params: object                     # models.controlnet.ControlNetModel
     cond_image: torch.Tensor           # [B or 1, H, W, C], in [0, 1]
-    scale: float | torch.Tensor = 1.0  # conditioning strength
+    scale: float | torch.Tensor | Sequence[float] = 1.0
     encoder_hidden_states: Optional[torch.Tensor] = None
-    guidance_start: float = 0.0
-    guidance_end: float = 1.0
+    guidance_start: float | Sequence[float] = 0.0
+    guidance_end: float | Sequence[float] = 1.0
     guess_mode: bool = False
 
 
@@ -111,40 +112,28 @@ def _cn_keep(cn: ControlNetInputs, step_i: int, num_steps: int) -> float:
                         num_steps)
 
 
-class LaneControlNet(NamedTuple):
-    """One ControlNet over the lanes of a request batch, everything per
-    lane: the condition image, the scale (0 on lanes it does not serve),
-    the guidance window and the context (the lanes' text embeddings when
-    None)."""
-    params: object                          # ControlNetModel
-    cond_image: torch.Tensor                # [N, H, W, C] in [0, 1]
-    scale: Sequence[float]                  # [N]
-    guidance_start: Sequence[float]         # [N]
-    guidance_end: Sequence[float]           # [N]
-    encoder_hidden_states: Optional[torch.Tensor] = None    # [N, T, D]
+def _cn_scale(cn: ControlNetInputs, step_i: Optional[int], num_steps: int,
+              device):
+    """``cn``'s conditioning scale at step ``step_i`` (no window gate when
+    None): its scale, [N, 1, 1, 1] when given per lane, or None when the
+    window drops it on every lane (the forward is skipped)."""
+    gate = step_i is not None and num_steps
+    if not isinstance(cn.scale, (list, tuple)):
+        if gate and _cn_keep(cn, step_i, num_steps) == 0.0:
+            return None
+        return cn.scale
+    n = len(cn.scale)
 
-
-def _lane_cn_residuals(cn: Optional[LaneControlNet], lin: torch.Tensor,
-                       t: int, prompt_embeds: torch.Tensor,
-                       text_embeds: torch.Tensor, time_ids: torch.Tensor, *,
-                       step_i: int, num_steps: int) -> tuple:
-    """``cn`` on all lanes ``lin`` at step ``step_i`` with each lane's
-    scale times its window gate -> (down list, mid), or (None, None) when
-    no lane keeps a non-zero scale (the forward is skipped)."""
-    if cn is None:
-        return None, None
-    scales = [float(s) * _window_keep(g0, g1, step_i, num_steps)
-              for s, g0, g1 in zip(cn.scale, cn.guidance_start,
-                                   cn.guidance_end)]
+    def per_lane(v):
+        return v if isinstance(v, (list, tuple)) else [v] * n
+    scales = [float(s) * (_window_keep(g0, g1, step_i, num_steps) if gate
+                          else 1.0)
+              for s, g0, g1 in zip(cn.scale, per_lane(cn.guidance_start),
+                                   per_lane(cn.guidance_end))]
     if not any(scales):
-        return None, None
-    ehs = (cn.encoder_hidden_states if cn.encoder_hidden_states is not None
-           else prompt_embeds)
-    return cn.params(lin, t, ehs, cn.cond_image, text_embeds=text_embeds,
-                     time_ids=time_ids,
-                     conditioning_scale=torch.tensor(
-                         scales, dtype=torch.float32,
-                         device=lin.device)[:, None, None, None])
+        return None
+    return torch.tensor(scales, dtype=torch.float32,
+                        device=device)[:, None, None, None]
 
 
 def _controlnet_residuals(cns: Sequence[ControlNetInputs], lin: torch.Tensor,
@@ -163,8 +152,8 @@ def _controlnet_residuals(cns: Sequence[ControlNetInputs], lin: torch.Tensor,
     down_acc = mid_acc = None
     b = lin.shape[0]
     for cn in cns:
-        if step_i is not None and num_steps and \
-                _cn_keep(cn, step_i, num_steps) == 0.0:
+        scale = _cn_scale(cn, step_i, num_steps, lin.device)
+        if scale is None:
             continue
         if cn.guess_mode and cond_rows:
             rows = torch.as_tensor(cond_rows, device=lin.device)
@@ -182,8 +171,7 @@ def _controlnet_residuals(cns: Sequence[ControlNetInputs], lin: torch.Tensor,
             down, mid = cn.params(lin[rows], t, ehs, cond,
                                   text_embeds=text_embeds[rows],
                                   time_ids=time_ids[rows],
-                                  conditioning_scale=cn.scale,
-                                  guess_mode=True)
+                                  conditioning_scale=scale, guess_mode=True)
 
             def spread(r):
                 return r.new_zeros((b,) + tuple(r.shape[1:])).index_copy(
@@ -196,8 +184,7 @@ def _controlnet_residuals(cns: Sequence[ControlNetInputs], lin: torch.Tensor,
             if ehs.shape[0] != b:
                 ehs = ehs.expand((b,) + tuple(ehs.shape[1:]))
             down, mid = cn.params(lin, t, ehs, cond, text_embeds=text_embeds,
-                                  time_ids=time_ids,
-                                  conditioning_scale=cn.scale)
+                                  time_ids=time_ids, conditioning_scale=scale)
         if down_acc is None:
             down_acc, mid_acc = list(down), mid
         else:
@@ -754,20 +741,20 @@ def sample_stage2_resumed(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
 # --------------------------------------------------------------------------
 
 
-def _base_cn_lanes(params, conds_r: Optional[tuple],
-                   lanes: int) -> Optional[LaneControlNet]:
+def _base_cn_lanes(params, conds_r: Optional[tuple], lanes: int) -> tuple:
     """A shared spatial ControlNet's per-request conditioning (cond
     [R, 1, H, W, C], scale [R], guidance_start [R], guidance_end [R]) over
-    ``lanes`` contiguous lanes per request."""
+    ``lanes`` contiguous lanes per request -> () or (ControlNetInputs,)
+    with everything per lane."""
     if params is None or conds_r is None:
-        return None
+        return ()
     cond, scale, gs, ge = conds_r
 
     def rep(v):
         return [float(x) for x in v for _ in range(lanes)]
-    return LaneControlNet(
-        params, cond.repeat_interleave(lanes, 0).flatten(0, 1), rep(scale),
-        rep(gs), rep(ge))
+    return (ControlNetInputs(
+        params, cond.repeat_interleave(lanes, 0).flatten(0, 1),
+        scale=rep(scale), guidance_start=rep(gs), guidance_end=rep(ge)),)
 
 
 def sample_stage1_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
@@ -813,8 +800,9 @@ def sample_stage1_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
         t = int(sched.timesteps[i])
         lin = schedulers.scale_model_input(
             sched, torch.cat(xs).repeat_interleave(2, 0), i)
-        down, mid = _lane_cn_residuals(cn, lin, t, embeds, tembeds, tids,
-                                       step_i=i, num_steps=sched.num_steps)
+        down, mid = _controlnet_residuals(cn, lin, t, embeds, tembeds, tids,
+                                          step_i=i,
+                                          num_steps=sched.num_steps)
         eps = unet(lin, t, embeds, text_embeds=tembeds, time_ids=tids,
                    down_block_residuals=down, mid_block_residual=mid)
         for r in range(R):
@@ -898,7 +886,7 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     base_rows = [r * L + j for r in range(R) for j in range(3)]
     concept_rows = [r * L + j for r in range(R) for j in range(3, L)]
     base_cn = _base_cn_lanes(base_cn_params, base_cn_conds_r, 3)
-    concept_cn = None
+    concept_cn = ()
     if concept_cn_params is not None and concept_cn_conds_r is not None:
         live = [c for c in concept_cn_conds_r if c is not None]
         tmpl_cond = live[0][0]
@@ -913,9 +901,9 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                 ehs_rows.append(
                     ehs if ehs is not None else
                     concept_inputs_r[r][k].prompt_embeds)
-        concept_cn = LaneControlNet(
-            concept_cn_params, torch.cat(conds), scales,
-            [0.0] * len(scales), [1.0] * len(scales), torch.cat(ehs_rows))
+        concept_cn = (ControlNetInputs(
+            concept_cn_params, torch.cat(conds), scale=scales,
+            encoder_hidden_states=torch.cat(ehs_rows)),)
 
     pairs = [(r * L, r * L + 2) for r in range(R)]
     masks_r = masks_r.to(cache_r[0].latents.dtype)
@@ -935,14 +923,14 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
         ctrl = (controller.at_step(i, pairs=pairs)
                 if controller is not None else None)
         down, mid = _lane_residuals(
-            _lane_cn_residuals(base_cn, lanes[base_rows], t,
-                               embeds[base_rows], tembeds[base_rows],
-                               tids[base_rows], step_i=i,
-                               num_steps=sched.num_steps),
-            _lane_cn_residuals(concept_cn, lanes[concept_rows], t,
-                               embeds[concept_rows], tembeds[concept_rows],
-                               tids[concept_rows], step_i=i,
-                               num_steps=sched.num_steps),
+            _controlnet_residuals(base_cn, lanes[base_rows], t,
+                                  embeds[base_rows], tembeds[base_rows],
+                                  tids[base_rows], step_i=i,
+                                  num_steps=sched.num_steps),
+            _controlnet_residuals(concept_cn, lanes[concept_rows], t,
+                                  embeds[concept_rows],
+                                  tembeds[concept_rows], tids[concept_rows],
+                                  step_i=i, num_steps=sched.num_steps),
             3, 2 * K)
         eps_all = unet(lanes, t, embeds, text_embeds=tembeds, time_ids=tids,
                        lora=lane_lora, control=ctrl,

@@ -29,6 +29,7 @@ every rank returns the same images.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import time
 from typing import Callable, List, Optional, Sequence
 
@@ -91,6 +92,14 @@ class InstantIDModels:
 def _check_exact(cache_interval, cache_schedule) -> None:
     if (cache_interval or 0) > 1 or cache_schedule is not None:
         raise multiconcept.not_ported("DeepCache", "approximate modes")
+
+
+def _fusion_start(steps: int, fusion_start: Optional[int]) -> int:
+    """The reference fuses after step 15 of 50; keep the fraction unless
+    the caller gave the step."""
+    if fusion_start is not None:
+        return fusion_start
+    return round(steps * regions_lib.FUSION_START_STEP / 50)
 
 
 def _given(value) -> bool:
@@ -300,9 +309,7 @@ class OMG:
         device = self.device
         clock = _Clock(device)
         steps = num_steps or self.num_steps
-        if fusion_start is None:
-            # the reference fuses after step 15 of 50; keep the fraction
-            fusion_start = round(steps * regions_lib.FUSION_START_STEP / 50)
+        fusion_start = _fusion_start(steps, fusion_start)
         sched = schedulers.make_schedule(scheduler or self.scheduler, steps)
         # a CPU generator: one seed, one image, on any device
         generator = torch.Generator("cpu").manual_seed(seed)
@@ -433,8 +440,9 @@ class OMG:
         ``initial_noise``, or distinct InstantID stacks or ControlNets run
         serially through ``generate``. Every result's ``timings`` holds the
         batch's phase seconds."""
+        requests = [self._request_args(r) for r in requests]
         for r in requests:
-            _check_exact(r.get("cache_interval"), r.get("cache_schedule"))
+            _check_exact(r["cache_interval"], r["cache_schedule"])
 
         def serial(rs):
             out = []
@@ -445,11 +453,11 @@ class OMG:
 
         unsupported = ("masks", "controlnet_guess_mode", "initial_noise")
         if len(requests) <= 1 or self.mesh is not None or any(
-                _given(r.get(k)) for r in requests for k in unsupported):
+                _given(r[k]) for r in requests for k in unsupported):
             return serial(requests)
-        live_iids = [r["instantid"] for r in requests if r.get("instantid")]
+        live_iids = [r["instantid"] for r in requests if r["instantid"]]
         live_cnp = [r["controlnet_params"] for r in requests
-                    if r.get("controlnet_params") is not None]
+                    if r["controlnet_params"] is not None]
         if any(x is not live_iids[0] for x in live_iids) or \
                 any(c is not live_cnp[0] for c in live_cnp):
             return serial(requests)
@@ -458,12 +466,10 @@ class OMG:
         self._check_cn_geometry(cn_params, iid_models)
 
         def bucket(r):
-            steps = r.get("num_steps") or self.num_steps
-            fs = r.get("fusion_start")
-            return (steps, r.get("height", 1024), r.get("width", 1024),
-                    r.get("scheduler") or self.scheduler,
-                    round(steps * regions_lib.FUSION_START_STEP / 50)
-                    if fs is None else fs)
+            steps = r["num_steps"] or self.num_steps
+            return (steps, r["height"], r["width"],
+                    r["scheduler"] or self.scheduler,
+                    _fusion_start(steps, r["fusion_start"]))
         steps, height, width, sched_name, fusion_start = bucket(requests[0])
         if any(bucket(r) != bucket(requests[0]) for r in requests[1:]):
             raise ValueError("batched requests must share height/width/"
@@ -476,15 +482,13 @@ class OMG:
 
         bases, concepts, loras, specs = [], [], [], []
         for r in requests:
-            ep, pp, en, pn = self.encode(r["prompt"],
-                                         r.get("negative_prompt", ""))
+            ep, pp, en, pn = self.encode(r["prompt"], r["negative_prompt"])
             bases.append(multiconcept.make_base_inputs(
-                ep, pp, en, pn, tids, r.get("guidance_scale", 7.5)))
+                ep, pp, en, pn, tids, r["guidance_scale"]))
             sp, ci, lo = self._region_conditioning(
-                r.get("prompt_rewrite", ""), r.get("concept_loras", ()),
-                r.get("style_lora"), tids,
-                instantid=iid_models if r.get("instantid") else None,
-                face_embeddings=r.get("face_embeddings", ()))
+                r["prompt_rewrite"], r["concept_loras"], r["style_lora"],
+                tids, instantid=iid_models if r["instantid"] else None,
+                face_embeddings=r["face_embeddings"])
             specs.append(sp)
             concepts.append(ci)
             loras.append(lo)
@@ -510,31 +514,28 @@ class OMG:
                 for x in images])
 
         base_cn_conds = None
-        has = [r.get("spatial_condition") is not None
-               and r.get("controlnet_params") is not None for r in requests]
+        has = [r["spatial_condition"] is not None
+               and r["controlnet_params"] is not None for r in requests]
         if any(has):
             base_cn_conds = (
-                cond_rows([r.get("spatial_condition") if h else None
+                cond_rows([r["spatial_condition"] if h else None
                            for r, h in zip(requests, has)]),
-                [float(r.get("controlnet_scale", 1.0)) if h else 0.0
+                [float(r["controlnet_scale"]) if h else 0.0
                  for r, h in zip(requests, has)],
-                [float(r.get("control_guidance_start", 0.0))
-                 for r in requests],
-                [float(r.get("control_guidance_end", 1.0))
-                 for r in requests])
+                [float(r["control_guidance_start"]) for r in requests],
+                [float(r["control_guidance_end"]) for r in requests])
         clock.lap("encode")
 
         lat1_r, caches = multiconcept.sample_stage1_batch(
             self.cfg, sched, self.params.unet,
-            [int(r.get("seed", 14)) for r in requests], bases,
+            [int(r["seed"]) for r in requests], bases,
             height=height, width=width, fusion_start=fusion_start,
             base_cn_params=cn_params, base_cn_conds_r=base_cn_conds)
         clock.lap("stage1")
         img1s = [self._decode(lat) for lat in lat1_r]
         clock.lap("decode")
         masks_r = [self._predict_masks(
-            img1[1], r["prompt"], len(sp),
-            r.get("detection_classes", ("man", "woman")))
+            img1[1], r["prompt"], len(sp), r["detection_classes"])
             for img1, r, sp in zip(img1s, requests, specs)]
         clock.lap("masks")
         results = [GenerationResult(stage1=img1, stage2=None, masks=m)
@@ -554,9 +555,9 @@ class OMG:
                 kimgs = []
                 for r, res in zip(requests, results):
                     kimg = None
-                    if r.get("instantid"):
-                        kimg = r.get("face_kps_image")
-                        if kimg is None and r.get("face_kps_provider"):
+                    if r["instantid"]:
+                        kimg = r["face_kps_image"]
+                        if kimg is None and r["face_kps_provider"]:
                             kimg = r["face_kps_provider"](res.stage1[1])
                     kimgs.append(kimg)
                 if any(k is not None for k in kimgs):
@@ -565,8 +566,8 @@ class OMG:
                     for k in range(max_k):
                         scales, ehs = [], []
                         for r_i, r in enumerate(requests):
-                            fe = r.get("face_embeddings", ())
-                            live = (r.get("instantid")
+                            fe = r["face_embeddings"]
+                            live = (r["instantid"]
                                     and kimgs[r_i] is not None
                                     and k < len(fe) and fe[k] is not None)
                             scales.append(iid_models.identitynet_scale
@@ -602,6 +603,15 @@ class OMG:
                    for res, lat, live in zip(results, lat2_r, live2)]
         clock.lap("decode")
         return self._with_timings(results, clock)
+
+    def _request_args(self, request: dict) -> dict:
+        """A request dict with every ``generate`` default filled in, so
+        that a batched request reads the values its serial run would."""
+        rest = dict(request)
+        args = inspect.signature(self.generate).bind(rest.pop("prompt"),
+                                                     **rest)
+        args.apply_defaults()
+        return dict(args.arguments)
 
     @staticmethod
     def _with_timings(results: list, clock: _Clock) -> list:

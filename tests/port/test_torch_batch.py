@@ -212,6 +212,22 @@ def test_serial_fallbacks_and_bucket_errors(setup, monkeypatch):
         teng.generate_batch([base[0], dict(base[1], cache_interval=2)])
 
 
+def test_requests_take_generate_defaults(setup):
+    """A batched request reads every field it leaves out from
+    ``generate``'s own defaults, and an unknown field fails as it would
+    in ``generate``."""
+    import inspect
+    teng = setup["teng"]
+    params = inspect.signature(teng.generate).parameters
+    args = teng._request_args({"prompt": "a", "seed": 3})
+    assert list(args) == list(params)
+    assert args["seed"] == 3 and args["prompt"] == "a"
+    assert all(args[k] == p.default for k, p in params.items()
+               if k not in ("prompt", "seed"))
+    with pytest.raises(TypeError):
+        teng._request_args({"prompt": "a", "guidance": 5.0})
+
+
 def test_empty_suffix_returns_stage1_twice(setup):
     """fusion_start + 1 >= steps: stage 2 is copy A of stage 1, twice."""
     cache = multiconcept.StageCache(torch.zeros(1, 4, 4, 4), None,

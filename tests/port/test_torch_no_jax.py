@@ -103,8 +103,9 @@ def test_chip_smoke_times_k1_at_the_controlnet_batches():
 
 
 def test_chip_smoke_serving_counts():
-    """Phase 3 holds K1 at the request-batched shapes of phase 10 (R = 4:
-    B = 8 in stage 1, 28 in stage 2), and phase 10 (a) expects their
+    """Phase 3 holds K1 at every shape phase 10 launches it at (R = 4: B =
+    8 in stage 1, 28 in stage 2; R = 2 with config #5's ControlNets: 4, 6,
+    8 and 14; guess mode: 1, 2 and 7), and phase 10 (a) expects its
     launches per shape."""
     spec = importlib.util.spec_from_file_location("chip_smoke_serving",
                                                   ROOT / "chip_smoke.py")
@@ -117,3 +118,7 @@ def test_chip_smoke_serving_counts():
         "8,10,4096,64": 500, "8,20,1024,64": 3000,
         "28,10,4096,64": 340, "28,20,1024,64": 2040}
     assert sum(mod.BATCH_SHAPE_LAUNCHES.values()) == 5880
+    checked = {",".join(map(str, shape)) for shape in mod.KERNEL_SHAPES}
+    for table in (mod.BATCH_SHAPE_LAUNCHES, mod.CONFIG5_SHAPES,
+                  mod.GUESS_SHAPES, mod.HTTP_SHAPES):
+        assert set(table) <= checked
