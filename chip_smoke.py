@@ -100,15 +100,32 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      PNG 1024x1024x3 with stage 2 run, /metrics counting 4 batched
      requests; then ``serving.warmup.warmup`` of the 1024² bucket with
      batch width 4, seconds per program.
+  11. preprocessors — run after phase 10 while phase 5's SDXL weights
+     are live, in a temporary directory of the checkout: (a) the
+     committed baseline-JPEG fixtures (tests/port/data) decoded by
+     ``utils/jpeg`` and held equal to their PIL decodes, the 1024x1024
+     4:2:0 one's host seconds; (b) OpenPose at full width, seeded weights
+     written as ``body_pose_model.pth`` with controlnet_aux's prefixes and
+     loaded by ``load_body_model``: the network on the card against the
+     CPU on the server's input for a 1024² photo ([1, 3, 184, 184])
+     within CARD_CPU_REL, ms per forward beside the fp32 bound, the
+     decode's and ``BodyEstimator``'s host seconds; (c) DPT-large at full
+     width, seeded ``config.json`` + ``model.safetensors`` loaded by
+     ``load_depth_model``: card against CPU at PRE_DPT_LAYERS layers, ms
+     per forward at 384² (fp32, TF32 off) beside the fp32 bound,
+     ``DepthEstimator`` seconds to a 1024² map and its peak memory; (d)
+     ``OMGServer`` with both providers and phase 8's ControlNet under
+     "pose" and "depth": one POST each with the 1024² JPEG fixture as the
+     condition photo at 6 steps, HTTP 200, the returned condition equal to
+     the provider's own map, 1872 K1 launches by shape.
   6. mesh    — the multi-device latency mode, ``OMG(mesh=...)``, on 2 ranks
      that share this card through ``gloo`` (mesh data=1, model=2): the
      same seeded weights on both (checked), one H-split stage-1 UNet
      forward and one lane-split 8-lane stage-2 forward against the
      unsharded ones, then ``generate`` as in phase 5: 3500 K1b and 2380
      K1 launches per rank, identical images on both ranks.
-The last six lines are JSON records of the mask stage, of phase 8, of
-phase 9, of phase 10 and of the kernels, and ``{"ok": true, "device":
-{...}}``.
+The last seven lines are JSON records of the mask stage, of phases 8, 9,
+10 and 11 and of the kernels, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
 
@@ -145,8 +162,8 @@ from omg_tpu_torch.cli import inference_instantid as cli_iid
 from omg_tpu_torch.cli import inference_lora as cli_lora
 from omg_tpu_torch.control import p2p
 from omg_tpu_torch.diffusion import schedulers
-from omg_tpu_torch.models import (clip, clip_vision, controlnet, resampler,
-                                  unet as unet_lib)
+from omg_tpu_torch.models import (clip, clip_vision, controlnet, dpt,
+                                  openpose, resampler, unet as unet_lib)
 from omg_tpu_torch.ops import flash_attention as fa
 from omg_tpu_torch.parallel import comm, launch, mesh as mesh_lib
 from omg_tpu_torch.pipelines import multiconcept, omg as omg_lib, sdxl
@@ -698,9 +715,10 @@ def weights(device):
 
 
 def single_card_phases(device) -> tuple:
-    """Phases 4, 5, 7, 8, 9 and 10; the weights are freed on return.
+    """Phases 4, 5, 7, 8, 9, 10 and 11; the weights are freed on return.
     Returns (phase 5's launches, phase 5's result, phase 7's record, phase
-    8's record, phase 9's record, phase 10's record)."""
+    8's record, phase 9's record, phase 10's record, phase 11's
+    record)."""
     with torch.inference_mode():
         log("== weights")
         cfg, params, loras = weights(device)
@@ -720,7 +738,11 @@ def single_card_phases(device) -> tuple:
         ckpt = checkpoint_phase(device, cfg, params, loras)
         log("== serving")
         serve = serving_phase(device, cfg, params, loras, res)
-        return launches, res, masks, cond, ckpt, serve
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== preprocessors")
+        pre = preprocessors_phase(device, cfg, params)
+        return launches, res, masks, cond, ckpt, serve, pre
 
 
 # --------------------------------------------------------------- phase 7
@@ -850,7 +872,8 @@ def predictor_phase(name: str, sam, images: dict) -> dict:
     return out
 
 
-def card_vs_cpu(name: str, device, card, cpu, args) -> float:
+def card_vs_cpu(name: str, device, card, cpu, args,
+                who: str = "masks") -> float:
     """``card(*args)`` on the card against ``cpu(*args)`` on the CPU, the
     same weights and fp32 inputs; raises past CARD_CPU_REL of max |out|."""
     got = card(*(a.to(device) for a in args))
@@ -865,7 +888,7 @@ def card_vs_cpu(name: str, device, card, cpu, args) -> float:
             raise AssertionError(f"{name}: card vs CPU {err} > "
                                  f"{CARD_CPU_REL} x {scale}")
         worst = max(worst, err / scale)
-    log(f"masks: {name}, card vs CPU: max |diff| / max |out| {worst:.3e} "
+    log(f"{who}: {name}, card vs CPU: max |diff| / max |out| {worst:.3e} "
         f"(bound {CARD_CPU_REL})")
     return worst
 
@@ -1811,6 +1834,289 @@ def serving_phase(device, cfg, params, loras, single) -> dict:
     return rec
 
 
+# -------------------------------------------------------------- phase 11
+
+# The committed JPEG fixtures (tests/port/test_torch_jpeg.py made them with
+# PIL) and the two HTTP requests of (d) at SERVE_CHECK_STEPS, each with the
+# ControlNet on the 2 stage-1 lanes and the 3 stage-2 base lanes.
+JPEG_FIXTURES = ("small_444", "gray", "smooth_1024_420")
+# OpenPose and DPT-large (Intel/dpt-large, ViT-L/16 at 384²) at their
+# published widths; the card-vs-CPU check cuts DPT to 4 layers
+PRE_OPENPOSE_WIDTH = 1.0
+PRE_DPT_CONFIG = dpt.DPTConfig()
+PRE_DPT_LAYERS = 4
+PRE_PHOTO = 1024                 # the seeded photos' side
+PRE_HTTP_SHAPES = {k: 2 * v for k, v in serve_shapes(
+    SERVE_CHECK_STEPS, 2, 7, (2,), (3,)).items()}
+
+
+def jpeg_phase() -> dict:
+    """(a) Each fixture decoded and held to its PIL decode; host seconds
+    of the 1024x1024 4:2:0 one (median of 3)."""
+    data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "port", "data")
+    rec: dict = {}
+    for name in JPEG_FIXTURES:
+        with open(os.path.join(data_dir, f"{name}.jpg"), "rb") as f:
+            data = f.read()
+        want = image_io.read_png(os.path.join(data_dir, f"{name}.png"))
+        t = []
+        for _ in range(3 if name == "smooth_1024_420" else 1):
+            t0 = time.perf_counter()
+            got = image_io.decode_image(data, name)
+            t.append(time.perf_counter() - t0)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"jpeg: {name} differs from its PIL decode")
+        rec[name] = {"shape": list(got.shape), "bytes": len(data),
+                     "decode_s": sorted(t)[len(t) // 2]}
+        log(f"preprocessors (a): {name}.jpg {got.shape} ({len(data)} B) "
+            f"equals its PIL decode; decoded in {rec[name]['decode_s']:.3f}"
+            " s on the host")
+    return rec
+
+
+def _save_body_model(path: str, model) -> None:
+    """``model``'s weights as ``body_pose_model.pth`` with controlnet_aux's
+    segment prefixes (model0 for the trunk, model{stage}_{branch})."""
+    sd = {}
+    for k, v in model.state_dict().items():
+        layer = k.split(".")[0]
+        if layer.startswith("Mconv"):
+            seg = f"model{layer.split('stage')[1][0]}_{layer[-1]}"
+        elif layer.startswith("conv5"):
+            seg = f"model1_{layer[-1]}"
+        else:
+            seg = "model0"
+        sd[f"{seg}.{k}"] = v.cpu()
+    torch.save(sd, path)
+
+
+def openpose_phase(device, tmp: str) -> tuple:
+    """(b) A seeded full-width body model written as body_pose_model.pth
+    and loaded back; the network on the card against the CPU on the
+    server's input for a 1024² photo; ms per forward, the decode's and
+    the estimator's host seconds."""
+    path = os.path.join(tmp, "body_pose_model.pth")
+    gen = torch.Generator(device).manual_seed(40)
+    _save_body_model(path, openpose.init_params(gen, PRE_OPENPOSE_WIDTH,
+                                                device))
+    est = openpose.load_body_model(path)
+    img = photo(41, PRE_PHOTO, PRE_PHOTO)
+    x, _ = est.network_input(img, est.scale_search[0])
+    cpu = openpose.BodyModel(PRE_OPENPOSE_WIDTH)
+    cpu.load_state_dict(est.model.state_dict())
+    rec = {"input": list(x.shape),
+           "card_vs_cpu": card_vs_cpu("OpenPose network", device, est.model,
+                                      cpu, (x,), who="preprocessors")}
+    xd = x.to(device)
+    rec["forward_ms"] = cuda_ms(lambda: est.model(xd), 10)
+    flops = product_flops(lambda: openpose.BodyModel(PRE_OPENPOSE_WIDTH),
+                          tuple(x.shape))
+    rec["gflop"] = flops / 1e9
+    rec["fp32_bound_ms"] = flops / PEAK_FP32_FLOPS * 1e3
+    t0 = time.perf_counter()
+    heat, paf = est.maps(img)
+    rec["maps_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cand, subset = est.decode(heat, paf, img.shape[0])
+    rec["decode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = est(img)
+    rec["estimator_s"] = time.perf_counter() - t0
+    if out.shape != img.shape or out.dtype != np.uint8:
+        raise AssertionError(f"openpose: canvas {out.shape} {out.dtype}")
+    rec.update(peaks=len(cand), people=len(subset),
+               heat_max=float(np.abs(heat).max()))
+    log(f"preprocessors (b): OpenPose at {list(x.shape)}: "
+        f"{rec['forward_ms']:.3f} ms per forward on the card, "
+        f"{rec['gflop']:.1f} GFLOP, fp32 bound "
+        f"{rec['fp32_bound_ms']:.3f} ms;"
+        f" maps {rec['maps_s']:.3f} s, decode {rec['decode_s']:.3f} s "
+        f"({len(cand)} peaks, {len(subset)} people; random weights, max "
+        f"|heat| {rec['heat_max']:.2e}), BodyEstimator on a 1024² photo "
+        f"{rec['estimator_s']:.3f} s")
+    return est, rec
+
+
+def write_dpt_dir(folder: str, cfg, device) -> int:
+    """A transformers DPT directory with seeded weights: config.json and
+    model.safetensors. Returns the file's bytes."""
+    os.makedirs(folder)
+    model = dpt.init_params(torch.Generator(device).manual_seed(42), cfg,
+                            device)
+    _write_json(os.path.join(folder, "config.json"), {
+        k: list(v) if isinstance(v, tuple) else v
+        for k, v in dataclasses.asdict(cfg).items() if k != "dtype"})
+    path = os.path.join(folder, "model.safetensors")
+    convert.save_safetensors(path, {k: v.cpu() for k, v in
+                                    model.state_dict().items()})
+    return os.path.getsize(path)
+
+
+def dpt_phase(device, tmp: str) -> tuple:
+    """(c) DPT-large with seeded weights written and loaded back; the card
+    against the CPU at full width and PRE_DPT_LAYERS layers; ms per
+    forward at 384² beside its fp32 bound; DepthEstimator seconds to a
+    1024² map and its peak memory."""
+    cfg = PRE_DPT_CONFIG
+    folder = os.path.join(tmp, "dpt-large")
+    t0 = time.perf_counter()
+    nbytes = write_dpt_dir(folder, cfg, device)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    est = dpt.load_depth_model(folder)
+    torch.cuda.synchronize()
+    rec = {"file_bytes": nbytes, "write_s": write_s,
+           "load_s": time.perf_counter() - t0}
+    s = cfg.image_size
+    rng = np.random.default_rng(43)
+    x = torch.from_numpy(rng.standard_normal((1, 3, s, s)).astype(
+        np.float32))
+    cut = dataclasses.replace(cfg, num_hidden_layers=PRE_DPT_LAYERS,
+                              backbone_out_indices=tuple(
+                                  range(PRE_DPT_LAYERS)))
+    full_sd = est.model.state_dict()
+    card = dpt.DPT(cut, device)
+    card.load_state_dict({k: full_sd[k] for k in card.state_dict()})
+    cpu = dpt.DPT(cut, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    rec["card_vs_cpu"] = card_vs_cpu(f"DPT-large at {PRE_DPT_LAYERS} "
+                                     "layers", device, card, cpu, (x,),
+                                     who="preprocessors")
+    del card, cpu
+    xd = x.to(device)
+    rec["forward_ms"] = cuda_ms(lambda: est.model(xd), 10)
+    flops = product_flops(lambda: dpt.DPT(cfg), (1, 3, s, s))
+    rec["gflop"] = flops / 1e9
+    rec["fp32_bound_ms"] = flops / PEAK_FP32_FLOPS * 1e3
+    img = photo(44, PRE_PHOTO, PRE_PHOTO)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = est(img, (PRE_PHOTO, PRE_PHOTO))
+    rec["estimator_s"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rec["peak_gib"] = peak / 2**30
+    rec["peak_over_live_gib"] = (peak - base) / 2**30
+    if out.shape != (PRE_PHOTO, PRE_PHOTO, 3) or out.max() != 255 or \
+            out.min():
+        raise AssertionError(f"dpt: map {out.shape}, range {out.min()}-"
+                             f"{out.max()}")
+    log(f"preprocessors (c): DPT-large written ({nbytes / 1e9:.3f} GB in "
+        f"{write_s:.2f} s) and loaded in {rec['load_s']:.2f} s; "
+        f"{rec['forward_ms']:.3f} ms per forward at {s}², "
+        f"{rec['gflop']:.1f} GFLOP, fp32 bound "
+        f"{rec['fp32_bound_ms']:.3f} ms; DepthEstimator to {PRE_PHOTO}² "
+        f"{rec['estimator_s']:.3f} s, peak "
+        f"{rec['peak_gib']:.2f} GiB ({rec['peak_over_live_gib']:.3f} GiB "
+        "over the live weights)")
+    return est, rec
+
+
+def preprocessor_http_phase(device, cfg, params, pose, depth) -> dict:
+    """(d) The server with both providers and phase 8's ControlNet under
+    "pose" and "depth": one POST each with the 1024² JPEG fixture as the
+    condition photo, SERVE_CHECK_STEPS steps; each condition map equal to
+    the provider's own."""
+    import urllib.request
+    data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "port", "data")
+    with open(os.path.join(data_dir, "smooth_1024_420.jpg"), "rb") as f:
+        jpeg_bytes = f.read()
+    cn = controlnet.init_params(torch.Generator(device).manual_seed(30),
+                                config.sdxl_controlnet())
+    tok = ToyTokenizer(cfg.text_encoder.vocab_size)
+    engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok,
+                         tokenizer_2=tok, mask_provider=left_right_masks,
+                         num_steps=SERVE_CHECK_STEPS,
+                         cn_cfg=config.sdxl_controlnet())
+    srv = OMGServer(engine, registry_lib.Registry(),
+                    controlnets={"pose": cn, "depth": cn},
+                    pose_provider=pose, depth_provider=depth)
+    threading.Thread(target=srv.serve, args=("127.0.0.1", 0),
+                     daemon=True).start()
+    rec: dict = {}
+    try:
+        url = "http://" + srv.wait_bound()
+        img = image_io.to_rgb(image_io.decode_image(jpeg_bytes))
+        by_shape: dict = {}
+        torch.cuda.synchronize()
+        fa.LAUNCHES = 0
+        with launch_shapes(by_shape):
+            for i, kind in enumerate(("pose", "depth")):
+                t0 = time.perf_counter()
+                req = urllib.request.Request(
+                    url + "/generate", data=json.dumps({
+                        "prompt": CLI_PROMPT, "negative_prompt": "ugly",
+                        "prompt_rewrite": "[photo of the man]-*-[ugly]|"
+                                          "[photo of the woman]-*-[ugly]",
+                        "seed": 70 + i, "steps": SERVE_CHECK_STEPS,
+                        "height": HEIGHT, "width": WIDTH, "condition": kind,
+                        "condition_image": base64.b64encode(
+                            jpeg_bytes).decode()}).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    status, out = r.status, json.loads(r.read())
+                wall = time.perf_counter() - t0
+                got = image_io.decode_png(
+                    base64.b64decode(out["condition"]))
+                want = conditions.prepare_condition(
+                    img, kind, HEIGHT, WIDTH, pose_provider=pose,
+                    depth_provider=depth)
+                if status != 200 or not np.array_equal(got, want):
+                    raise AssertionError(
+                        f"preprocessors (d): {kind}: HTTP {status}, "
+                        f"condition equal to the provider's map: "
+                        f"{np.array_equal(got, want)}")
+                final = image_io.decode_png(base64.b64decode(out["image"]))
+                if final.shape != (HEIGHT, WIDTH, 3) or \
+                        not out["stage2_ran"]:
+                    raise AssertionError(f"preprocessors (d): {kind} image "
+                                         f"{final.shape}")
+                rec[kind] = {"status": status, "wall_s": wall,
+                             "server_s": out["seconds"],
+                             "condition_nonzero": float((got > 0).mean())}
+                log(f"preprocessors (d): POST {kind} with a JPEG photo: "
+                    f"HTTP {status} in {wall:.3f} s, condition equal to the "
+                    f"provider's map ({rec[kind]['condition_nonzero']:.4f} "
+                    "non-zero)")
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES
+        if by_shape != PRE_HTTP_SHAPES or \
+                launches != sum(PRE_HTTP_SHAPES.values()):
+            raise AssertionError(f"preprocessors (d): K1 launches "
+                                 f"{launches} {by_shape}, want "
+                                 f"{PRE_HTTP_SHAPES}")
+        rec.update(launches=launches, launches_by_shape=by_shape)
+    finally:
+        srv.shutdown()
+    return rec
+
+
+def preprocessors_phase(device, cfg, params) -> dict:
+    """Phase 11 on phase 5's live SDXL weights, in a temporary directory
+    of the checkout that is removed at the end."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix=".phase11-", dir=here)
+    t0 = time.perf_counter()
+    try:
+        rec = {"jpeg": jpeg_phase()}
+        pose, rec["openpose"] = openpose_phase(device, tmp)
+        depth, rec["dpt"] = dpt_phase(device, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["http"] = preprocessor_http_phase(device, cfg, params, pose,
+                                              depth)
+    finally:
+        shutil.rmtree(tmp)
+    rec["card"] = power_line()
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"preprocessors: phase 11 took {rec['phase_s']:.1f} s on "
+        f"{rec['card']}")
+    return rec
+
+
 # ------------------------------------------------------------ --profile
 
 def _profile_forward(name: str, forward) -> None:
@@ -2058,7 +2364,8 @@ def main() -> int:
     torch.cuda.empty_cache()     # the plain version's scores at B = 28
     log("== K1b vs plain")
     sstats = seq_kernel_phase(device)
-    launches, single, masks, cond, ckpt, serve = single_card_phases(device)
+    launches, single, masks, cond, ckpt, serve, pre = single_card_phases(
+        device)
     cond["k1_by_shape"] = {key: by_shape[key] for key in (
         "1,10,4096,64", "3,10,4096,64", "4,10,4096,64", "1,20,1024,64",
         "3,20,1024,64", "4,20,1024,64")}
@@ -2090,7 +2397,8 @@ def main() -> int:
             for name in ("inference_lora", "inference_instantid")},
         "serving_path_launches": {
             name: serve[name]["launches"]
-            for name in ("throughput", "config5", "guess_mode", "http")}}, {
+            for name in ("throughput", "config5", "guess_mode", "http")},
+        "preprocessors_path_launches": pre["http"]["launches"]}, {
         "name": "flash_attention_fwd_seq_local",
         "route": "cuda",
         "source": source,
@@ -2105,6 +2413,7 @@ def main() -> int:
     log(json.dumps({"conditioned": cond}))
     log(json.dumps({"checkpoint": ckpt}))
     log(json.dumps({"serving": serve}))
+    log(json.dumps({"preprocessors": pre}))
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

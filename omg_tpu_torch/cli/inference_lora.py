@@ -85,8 +85,9 @@ def check_not_ported(args) -> None:
 
 
 def load_condition(path: str, height: int, width: int):
-    """A condition PNG as RGB uint8 [height, width, 3], resized as the JAX
-    CLI resizes it (PIL's default bicubic)."""
+    """A condition image (PNG or baseline JPEG) as RGB uint8 [height,
+    width, 3], resized as the JAX CLI resizes it (PIL's default
+    bicubic)."""
     from omg_tpu_torch.utils import image
     return image.resize(image.read_rgb(path), height, width)
 

@@ -5,15 +5,17 @@
 
 The JAX CLI's flags, plus ``--device`` (the card unless ``cpu`` is asked
 for). Loads SDXL and the SAM mask provider from files, a registry, the
-InstantID stack (``--face_adapter_path``, ``--identitynet_path``) and one
-ControlNet per condition kind, all of one geometry; ``--warmup`` runs
+InstantID stack (``--face_adapter_path``, ``--identitynet_path``), one
+ControlNet per condition kind, all of one geometry, and the condition
+preprocessors that turn a photo into a pose or depth map
+(``--pose_detector_checkpoint``: OpenPose's ``body_pose_model.pth``;
+``--dpt_checkpoint``: a transformers DPT directory); ``--warmup`` runs
 ``serving.warmup.default_serving_warmup`` before serving.
 
 Options the port does not have yet raise ``NotImplementedError`` before
 any weight loads: ``--mesh`` (ROADMAP §1 item 8), ``--quantize``,
 ``--concept_crop`` and ``--cache_interval`` > 1 or ``--cache_schedule
-front`` (item 6, approximate modes), ``--pose_detector_checkpoint`` and
-``--dpt_checkpoint`` (item 4, the condition preprocessors).
+front`` (item 6, approximate modes).
 """
 
 from __future__ import annotations
@@ -46,9 +48,9 @@ def parse_args(argv=None):
     p.add_argument("--depth_checkpoint", default="",
                    help="ControlNet-depth-sdxl dir (enables kind=depth)")
     p.add_argument("--pose_detector_checkpoint", default="",
-                   help="OpenPose body model (photo -> pose); not ported")
+                   help="OpenPose body_pose_model.pth (photo -> pose map)")
     p.add_argument("--dpt_checkpoint", default="",
-                   help="DPT depth model (photo -> depth); not ported")
+                   help="transformers DPT directory (photo -> depth map)")
     p.add_argument("--quantize", default="", choices=["", "int8"],
                    help="int8 W8A8 transformer GEMMs; not ported")
     p.add_argument("--scheduler", default="euler",
@@ -78,11 +80,6 @@ def check_not_ported(args) -> None:
         raise NotImplementedError(
             "--quantize / --concept_crop: the approximate modes are not "
             "ported yet (ROADMAP §1 item 6)")
-    if args.pose_detector_checkpoint or args.dpt_checkpoint:
-        raise NotImplementedError(
-            "--pose_detector_checkpoint / --dpt_checkpoint: the OpenPose "
-            "and DPT condition preprocessors are not ported yet (ROADMAP "
-            "§1 item 4); send pose and depth maps precomputed")
 
 
 def build_server(args):
@@ -142,8 +139,19 @@ def build_server(args):
             engine.cn_cfg = cn_cfg
             controlnets[kind] = cn
 
+    pose_provider = depth_provider = None
+    if args.pose_detector_checkpoint:
+        from omg_tpu_torch.models import openpose
+        pose_provider = openpose.load_body_model(
+            args.pose_detector_checkpoint, device=device)
+    if args.dpt_checkpoint:
+        from omg_tpu_torch.models import dpt
+        depth_provider = dpt.load_depth_model(args.dpt_checkpoint,
+                                              device=device)
+
     server = OMGServer(engine, registry, instantid=iid,
-                       controlnets=controlnets)
+                       controlnets=controlnets, pose_provider=pose_provider,
+                       depth_provider=depth_provider)
     if args.warmup:
         from omg_tpu_torch.serving.warmup import default_serving_warmup
         sample = next(iter(server.loras.values()), None)

@@ -43,8 +43,8 @@ from torch import nn
 from omg_tpu_torch.config import (CLIPTextConfig, CLIPVisionConfig,
                                   ControlNetConfig, ResamplerConfig,
                                   UNetConfig, VAEConfig)
-from omg_tpu_torch.models import (clip, clip_vision, controlnet, resampler,
-                                  unet, vae)
+from omg_tpu_torch.models import (clip, clip_vision, controlnet, dpt,
+                                  resampler, unet, vae)
 from omg_tpu_torch.nn import attention, layers
 
 DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
@@ -62,6 +62,9 @@ CLIP_VISION_SKIP = (r"position_ids", r"logit_scale", r"^text_model\.",
                     r"^text_projection\.")
 # The port decodes only.
 VAE_SKIP = (r"^encoder\.", r"^quant_conv\.")
+# Depth estimation does not read the backbone's final norm (the JAX
+# converter ignores it too).
+DPT_SKIP = (r"^dpt\.layernorm\.",)
 
 
 # --------------------------------------------------------------------------
@@ -266,6 +269,15 @@ def convert_controlnet(sd_or_path, cfg: ControlNetConfig, *,
     IdentityNet) -> the port's ``ControlNetModel``."""
     return _convert(controlnet.ControlNetModel, cfg, sd_or_path, UNET_SKIP,
                     device, "convert_controlnet")
+
+
+def convert_dpt(sd_or_path, cfg: Optional[dpt.DPTConfig] = None, *,
+                device="cuda") -> dpt.DPT:
+    """transformers ``DPTForDepthEstimation`` (plain-ViT backbone) -> the
+    port's ``DPT`` of ``cfg`` (dpt-large's geometry when None), strict on
+    keys and shapes."""
+    return _convert(dpt.DPT, cfg or dpt.DPTConfig(), sd_or_path, DPT_SKIP,
+                    device, "convert_dpt")
 
 
 def convert_ip_adapter(sd_or_path, cfg: Optional[ResamplerConfig] = None,

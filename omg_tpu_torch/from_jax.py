@@ -12,6 +12,9 @@ Fourier matrix and prompt/token embeddings); a transposed-conv kernel
 rule as a conv. LoRA leaves keep their [in, r]/[r, out] layout and are
 keyed by the port's module paths. The resampler keeps its upstream
 names (its ``to_out`` is a plain linear, not diffusers' ``to_out.0``).
+OpenPose's tree is flat by layer name; DPT's is renamed to transformers'
+keys, and its reassemble transposed convs, stored [k, k, in, out], come
+out as torch's [in, out, k, k].
 
 Every entry point puts the weights on ``device``, the card unless the
 caller asks for the CPU; without a CUDA device a call that names none
@@ -28,8 +31,8 @@ from torch import nn
 
 from omg_tpu_torch.config import (CLIPVisionConfig, ControlNetConfig,
                                   ResamplerConfig, UNetConfig)
-from omg_tpu_torch.models import (clip, clip_vision, controlnet, resampler,
-                                  unet, vae)
+from omg_tpu_torch.models import (clip, clip_vision, controlnet, dpt,
+                                  openpose, resampler, unet, vae)
 from omg_tpu_torch.nn import attention, layers
 from omg_tpu_torch.pipelines import sdxl
 from omg_tpu_torch.segment import sam_decoder, sam_provider
@@ -199,3 +202,56 @@ def ip_layers_from_jax(layers_tree, cfg: UNetConfig, *,
         *np.shape(leaf["to_k_ip"]["weight"]), dtype=cfg.dtype, device=device)
         for leaf in layers_tree])
     return load_into(mods, list(layers_tree))
+
+
+def openpose_from_jax(tree, *, width_mult: float = 1.0,
+                      device="cuda") -> openpose.BodyModel:
+    """JAX OpenPose tree ``{layer: {weight HWIO, bias}}`` (numpy leaves)
+    -> the port's ``BodyModel`` on ``device``."""
+    device = layers.target_device(device, "from_jax")
+    return load_into(openpose.BodyModel(width_mult, device), tree)
+
+
+def dpt_from_jax(tree, cfg: dpt.DPTConfig, *, device="cuda") -> dpt.DPT:
+    """JAX DPT tree (numpy leaves) -> the port's ``DPT`` on ``device``."""
+    device = layers.target_device(device, "from_jax")
+    sd = {}
+
+    def put(prefix, leaf):
+        for path, arr in _flatten(leaf):
+            sd[".".join((prefix,) + tuple(map(str, path)))] = \
+                _to_torch_layout(path, np.asarray(arr))
+
+    e = tree["embeddings"]
+    sd["dpt.embeddings.cls_token"] = np.asarray(e["cls_token"])
+    sd["dpt.embeddings.position_embeddings"] = np.asarray(
+        e["position_embeddings"])
+    put("dpt.embeddings.patch_embeddings.projection", e["projection"])
+    for i, lp in enumerate(tree["encoder"]):
+        b = f"dpt.encoder.layer.{i}"
+        a = lp["attention"]
+        for name in ("query", "key", "value"):
+            put(f"{b}.attention.attention.{name}", a[name])
+        put(f"{b}.attention.output.dense", a["output"])
+        put(f"{b}.intermediate.dense", lp["intermediate"])
+        put(f"{b}.output.dense", lp["output"])
+        put(f"{b}.layernorm_before", lp["layernorm_before"])
+        put(f"{b}.layernorm_after", lp["layernorm_after"])
+    neck = tree["neck"]
+    for i, rp in enumerate(neck["reassemble"]):
+        b = f"neck.reassemble_stage.layers.{i}"
+        put(f"neck.reassemble_stage.readout_projects.{i}.0", rp["readout"])
+        put(f"{b}.projection", rp["projection"])
+        if "resize_up" in rp:
+            sd[f"{b}.resize.weight"] = np.asarray(
+                rp["resize_up"]["weight"]).transpose(2, 3, 0, 1)
+            sd[f"{b}.resize.bias"] = np.asarray(rp["resize_up"]["bias"])
+        if "resize_down" in rp:
+            put(f"{b}.resize", rp["resize_down"])
+    for i, cp in enumerate(neck["convs"]):
+        put(f"neck.convs.{i}", cp)
+    for i, fp in enumerate(neck["fusion"]):
+        put(f"neck.fusion_stage.layers.{i}", fp)
+    for name, idx in (("conv1", 0), ("conv2", 2), ("conv3", 4)):
+        put(f"head.head.{idx}", tree["head"][name])
+    return _load_state(dpt.DPT(cfg, device), sd)

@@ -124,6 +124,21 @@ class Conv2d(nn.Module):
                         padding=(0, self.padding))
 
 
+def conv_fp32(x: torch.Tensor, weight: torch.Tensor, bias, stride: int = 1,
+              padding: int = 0, *, cudnn: bool = True,
+              transposed: bool = False) -> torch.Tensor:
+    """A convolution without TF32 whatever the process's cuDNN flag: on a
+    CUDA tensor, ``torch._convolution`` with TF32 off for this call only
+    (and cuDNN too with ``cudnn=False``: PyTorch's im2col and a GEMM);
+    elsewhere (CPU, meta) ``F.conv2d`` or ``F.conv_transpose2d``."""
+    if x.device.type != "cuda":
+        conv = F.conv_transpose2d if transposed else F.conv2d
+        return conv(x, weight, bias, stride, padding)
+    return torch._convolution(x, weight, bias, (stride, stride),
+                              (padding, padding), (1, 1), transposed,
+                              (0, 0), 1, False, False, cudnn, False)
+
+
 class GroupNorm(nn.Module):
     """GroupNorm over the channel axis of NCHW data, statistics in fp32.
 

@@ -40,11 +40,11 @@ class Conv(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel: int, *, stride: int = 1,
                  padding: int = 0, groups: int = 1, bias: bool = False,
-                 device=None):
+                 dtype=F32, device=None):
         super().__init__()
         self.weight = layers.param((cout, cin // groups, kernel, kernel),
-                                   F32, device)
-        self.bias = layers.param((cout,), F32, device) if bias else None
+                                   dtype, device)
+        self.bias = layers.param((cout,), dtype, device) if bias else None
         self.stride, self.padding, self.groups = stride, padding, groups
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,7 @@ on the standard library's ``http.server``:
       {"prompt", "negative_prompt", "character1"/"character2" (registry
        names) or "prompt_rewrite", "style", "seed", "height", "width",
        "guidance_scale", "steps", "scheduler", "condition" +
-       "condition_image" (base64 PNG), "controlnet_scale",
+       "condition_image" (base64 PNG or JPEG), "controlnet_scale",
        "face_embeddings"/"face_kps"/"face_images"}
     -> {"image", "stage1" (base64 PNG), "seconds", "height", "width",
         "stage2_ran" (False: "image" is the stage-1 fallback, no concept
@@ -28,10 +28,11 @@ abandon a queued job before it costs device time, 400 for malformed jobs
 and 500 for failures in the worker; preprocessing (face analysis,
 condition rendering) runs in the submitter's thread.
 
-What differs from the JAX server on a host without PIL: images go in and
-out as PNG through ``utils/image``; a JPEG upload is answered 400 (no
-decoder yet, ROADMAP §3); face photos need a ``face_provider`` (there is
-no insightface); DeepCache requests reach the engine, which refuses them.
+What differs from the JAX server on a host without PIL: uploads are PNG
+or baseline JPEG (``utils/image.decode_image``; a progressive JPEG is
+answered 400 and the message names it), results go out as PNG; face
+photos need a ``face_provider`` (there is no insightface); DeepCache
+requests reach the engine, which refuses them.
 """
 
 from __future__ import annotations
@@ -59,18 +60,13 @@ from omg_tpu_torch.utils.profiling import METRICS, trace
 # The job field "cache_schedule" takes these (DeepCache's full-step
 # placement); the engine refuses DeepCache until it is ported.
 DEEPCACHE_SCHEDULES = ("uniform", "front")
-_JPEG = b"\xff\xd8\xff"
 
 
 def decode_upload(b64: str) -> np.ndarray:
-    """A base64 image upload -> uint8 RGB [H, W, 3]. PNG only: a JPEG
-    raises ``ValueError`` (HTTP 400), the port has no JPEG decoder yet."""
-    data = base64.b64decode(b64)
-    if data[:3] == _JPEG:
-        raise ValueError("JPEG uploads are not decoded by omg_tpu_torch yet "
-                         "(no JPEG decoder without PIL; ROADMAP.md §3): "
-                         "send the image as PNG")
-    return image_lib.to_rgb(image_lib.decode_png(data, "uploaded image"))
+    """A base64 PNG or baseline-JPEG upload -> uint8 RGB [H, W, 3]; another
+    format raises ``ValueError`` (HTTP 400) naming it."""
+    return image_lib.to_rgb(image_lib.decode_image(base64.b64decode(b64),
+                                                   "uploaded image"))
 
 
 def _png_b64(arr) -> str:
@@ -231,7 +227,7 @@ class OMGServer:
         """``engine``: an ``OMG`` (or anything with its ``generate`` and
         ``generate_batch``). ``instantid``: ``InstantIDModels``, enabling
         face requests: per-concept ``face_embeddings`` with optional
-        ``face_kps``, or ``face_images`` (base64 PNG) analysed by
+        ``face_kps``, or ``face_images`` (base64 PNG or JPEG) analysed by
         ``face_provider`` (image -> (kps [5, 2], embedding)); without a
         provider, face photos fail with the insightface message.
         ``controlnets``: {kind: ControlNetModel} for 'pose', 'canny' and
@@ -750,9 +746,10 @@ class OMGServer:
                             pass
                     except ValueError as e:
                         # submit-time validation (malformed JSON, bad
-                        # scheduler/cache_schedule/prompts fields, a JPEG
-                        # upload) is a client error; worker-side failures
-                        # surface as RuntimeError and stay 500
+                        # scheduler/cache_schedule/prompts fields, an
+                        # image that does not decode) is a client error;
+                        # worker-side failures surface as RuntimeError
+                        # and stay 500
                         self._send(400, json.dumps({"error": str(e)}))
                     except Exception as e:
                         self._send(500, json.dumps({"error": str(e)}))

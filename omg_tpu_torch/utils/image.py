@@ -1,14 +1,16 @@
-"""Image files without PIL: the PNG files the CLIs read and write, and
-the resize of a condition image (the JAX CLIs call PIL, which the GPU
-host lacks).
+"""Image files without PIL: the PNG files the CLIs read and write, the
+JPEG and PNG photos they and the server read, and the resize of a
+condition image (the JAX CLIs call PIL, which the GPU host lacks).
 
 ``write_png`` writes 8-bit gray, RGB or RGBA, unfiltered rows in one
 zlib stream. ``read_png`` reads 8-bit gray, RGB and RGBA, non-interlaced,
 with any of the five row filters; another format (palette, 16-bit,
 interlaced) raises and names it. The Average and Paeth filters undo
 byte by byte in Python: a 1024x1024 RGB file that uses them takes
-seconds. ``read_rgb`` converts as PIL's ``convert("RGB")`` does: gray
-repeated over three channels, alpha dropped. ``resize`` is
+seconds. ``decode_image`` reads PNG or baseline JPEG by the file's
+signature (``utils/jpeg``); ``read_rgb`` reads either and converts as
+PIL's ``convert("RGB")`` does: gray repeated over three channels, alpha
+dropped. ``resize`` is
 ``Image.resize((w, h))``'s default for RGB, antialiased bicubic, or PIL's
 Lanczos: PIL's own passes (``segment/evit_ops.pil_resize_uint8``), bit
 for bit. ``encode_png``/``decode_png`` are the same formats in memory
@@ -23,6 +25,7 @@ import zlib
 import numpy as np
 
 from omg_tpu_torch.segment import evit_ops
+from omg_tpu_torch.utils import jpeg
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}          # PNG color type -> channels
@@ -134,9 +137,24 @@ def decode_png(data: bytes, path: str = "PNG data") -> np.ndarray:
     return out.reshape(h, w, c)
 
 
+def decode_image(data: bytes, path: str = "image data") -> np.ndarray:
+    """PNG or baseline JPEG bytes -> uint8 [H, W, C], by the signature;
+    another format raises and names ``path``."""
+    if data[:8] == _SIGNATURE:
+        return decode_png(data, path)
+    if data[:3] == b"\xff\xd8\xff":
+        try:
+            return jpeg.decode_jpeg(data)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+
+
 def read_rgb(path: str) -> np.ndarray:
-    """A PNG -> uint8 [H, W, 3], as PIL's ``convert("RGB")`` gives it."""
-    return to_rgb(read_png(path))
+    """A PNG or baseline JPEG file -> uint8 [H, W, 3], as PIL's
+    ``convert("RGB")`` gives it."""
+    with open(path, "rb") as f:
+        return to_rgb(decode_image(f.read(), path))
 
 
 def to_rgb(img: np.ndarray) -> np.ndarray:

@@ -146,17 +146,20 @@ def test_batched_equals_serial(setup, monkeypatch, kind):
     _compare(got, want, lat, "b", "s")
 
 
-def test_config5_batch_matches_jax(setup, monkeypatch, jax_noise):
+@pytest.mark.parametrize("mode", ["batched", "serial"])
+def test_config5_batch_matches_jax(setup, monkeypatch, jax_noise, mode):
     """BASELINE config #5 (InstantID, a spatial ControlNet and a style
     LoRA) batched with a ControlNet-only request with a guidance window
     (tests/test_omg_pipeline.py:489-555 has InstantID and the ControlNet
     on separate requests): the zero-token IP and zero-scale IdentityNet
-    rows of the second request are no-ops."""
+    rows of the second request are no-ops. ``serial``: the config #5
+    request alone through each engine's unbatched ``generate``."""
     jid, tid, faces, kimg = _instantid_pair(None)
     style = mid_block_lora(np.random.default_rng(54), 64, 48, rank=3)
     lat: dict = {}
-    _record(monkeypatch, jmc, lat, "j", BATCH)
-    _record(monkeypatch, multiconcept, lat, "t", BATCH)
+    names = BATCH if mode == "batched" else SERIAL
+    _record(monkeypatch, jmc, lat, "j", names)
+    _record(monkeypatch, multiconcept, lat, "t", names)
 
     def reqs(pkg):
         cn = setup["jcn" if pkg == "jax" else "tcn"]
@@ -176,8 +179,14 @@ def test_config5_batch_matches_jax(setup, monkeypatch, jax_noise):
                  spatial_condition=setup["cond"], controlnet_params=cn,
                  controlnet_scale=0.8, control_guidance_start=0.1,
                  control_guidance_end=0.9)]
-    want = setup["jeng"].generate_batch(reqs("jax"))
-    got = setup["teng"].generate_batch(reqs("torch"))
+    if mode == "serial":
+        want, got = ([eng.generate(r.pop("prompt"), **r)]
+                     for eng, r in ((setup["jeng"], reqs("jax")[0]),
+                                    (setup["teng"], reqs("torch")[0])))
+        assert got[0].stage2 is not None
+    else:
+        want = setup["jeng"].generate_batch(reqs("jax"))
+        got = setup["teng"].generate_batch(reqs("torch"))
     _compare(got, want, lat)
 
 

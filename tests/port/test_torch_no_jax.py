@@ -46,6 +46,9 @@ def test_port_never_imports_jax():
             "import omg_tpu_torch.serving.warmup\n"
             "import omg_tpu_torch.utils.profiling\n"
             "import omg_tpu_torch.cli.serve\n"
+            "import omg_tpu_torch.utils.jpeg, omg_tpu_torch.utils.cv\n"
+            "import omg_tpu_torch.models.openpose\n"
+            "import omg_tpu_torch.models.dpt\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'omg_tpu', 'PIL', 'cv2',\n"
             "              'transformers', 'safetensors', 'regex', 'ftfy',\n"
@@ -122,3 +125,19 @@ def test_chip_smoke_serving_counts():
     for table in (mod.BATCH_SHAPE_LAUNCHES, mod.CONFIG5_SHAPES,
                   mod.GUESS_SHAPES, mod.HTTP_SHAPES):
         assert set(table) <= checked
+
+
+def test_chip_smoke_preprocessor_counts():
+    """Phase 11 (d) expects two requests' launches at 6 steps with the
+    ControlNet on both stages (as config #3), at shapes phase 3 checks."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_pre",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    per_request = mod.path_launches(mod.SERVE_CHECK_STEPS,
+                                    70 + mod.CN_LAUNCHES, 70 + mod.CN_LAUNCHES)
+    assert sum(mod.PRE_HTTP_SHAPES.values()) == 2 * per_request == 1872
+    checked = {",".join(map(str, shape)) for shape in mod.KERNEL_SHAPES}
+    assert set(mod.PRE_HTTP_SHAPES) <= checked
+    assert (mod.PRE_DPT_CONFIG.hidden_size, mod.PRE_OPENPOSE_WIDTH) == \
+        (1024, 1.0)

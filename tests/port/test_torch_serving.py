@@ -8,6 +8,7 @@ import base64
 import dataclasses
 import io
 import json
+import pathlib
 import threading
 import time
 import urllib.error
@@ -37,6 +38,7 @@ from torch_port_helpers import (left_right_masks, mid_block_lora,
                                 tiny_sdxl_numpy, write_tiny_checkpoint)
 
 H = W = 32
+DATA = pathlib.Path(__file__).resolve().parent / "data"
 
 
 def _structured(h, w, seed):
@@ -246,7 +248,7 @@ def test_endpoints_and_error_codes(fake_server):
                      b"\xff\xd8\xff\xe0 jpeg").decode()}):
         code, body = _post(url, bad)
         assert code == 400, bad
-    assert b"JPEG" in body
+    assert b"corrupt JPEG" in body
     code, body = _post(url, {"prompt": "boom"})
     assert code == 500 and b"engine failed" in body
     code, body = _post(url, b"prompt=boom", "/generate_form",
@@ -254,6 +256,35 @@ def test_endpoints_and_error_codes(fake_server):
     assert code == 500
     code, m = _get(url, "/metrics")
     assert code == 200 and json.loads(m)["counters"]["http_requests"] > 0
+
+
+def test_jpeg_condition_uploads():
+    """A baseline JPEG photo becomes the condition (decoded as PIL decodes
+    it); a progressive one is a 400 that names the format."""
+    data = (DATA / "small_444.jpg").read_bytes()
+    srv = OMGServer(FakeEngine(), registry.Registry(),
+                    controlnets={"canny": "a ControlNet"})
+    url = _serve(srv)
+    try:
+        code, out = _post(url, {"prompt": "a man", "height": H, "width": W,
+                                "condition": "canny",
+                                "condition_image": base64.b64encode(
+                                    data).decode()})
+        assert code == 200, out
+        cond = image_lib.decode_png(base64.b64decode(
+            json.loads(out)["condition"]))
+        photo = np.asarray(PIL.Image.open(io.BytesIO(data)).convert("RGB"))
+        np.testing.assert_array_equal(
+            cond, jcond.prepare_condition(photo, "canny", H, W))
+        buf = io.BytesIO()
+        PIL.Image.fromarray(photo).save(buf, "JPEG", progressive=True)
+        code, body = _post(url, {"prompt": "a man", "height": H, "width": W,
+                                 "condition": "canny",
+                                 "condition_image": base64.b64encode(
+                                     buf.getvalue()).decode()})
+        assert code == 400 and b"progressive JPEG" in body
+    finally:
+        srv.shutdown()
 
 
 def test_drain_concurrent_jobs_into_one_batch():
@@ -476,18 +507,36 @@ def test_profiling_trace_and_metrics():
         assert profiling.device_memory_stats() == {}
 
 
+def _tiny_preprocessor_files(root):
+    """A width-0.125 ``body_pose_model.pth`` and a tiny DPT directory."""
+    from omg_tpu_torch import convert
+    from omg_tpu_torch.models import dpt, openpose
+    body = str(root / "body_pose_model.pth")
+    torch.save(openpose.init_params(torch.Generator().manual_seed(10),
+                                    0.125).state_dict(), body)
+    cfg = dpt.tiny_config()
+    depth = root / "dpt"
+    depth.mkdir()
+    convert.save_safetensors(str(depth / "model.safetensors"), dpt.init_params(
+        torch.Generator().manual_seed(11), cfg).state_dict())
+    (depth / "config.json").write_text(json.dumps({
+        k: list(v) if isinstance(v, tuple) else v
+        for k, v in dataclasses.asdict(cfg).items() if k != "dtype"}))
+    return body, str(depth)
+
+
 def test_serve_cli_from_a_tiny_checkout(tmp_path):
     """Unported flags fail before loading; the server from files on the
-    CPU answers a request."""
+    CPU, with both condition preprocessors, answers a request."""
     for flags, match in ((["--mesh", "2"], "item 8"),
                          (["--cache_interval", "3"], "item 6"),
                          (["--quantize", "int8"], "item 6"),
-                         (["--concept_crop"], "item 6"),
-                         (["--pose_detector_checkpoint", "x"], "item 4"),
-                         (["--dpt_checkpoint", "x"], "item 4")):
+                         (["--concept_crop"], "item 6")):
         with pytest.raises(NotImplementedError, match=match):
             cli_serve.build_server(cli_serve.parse_args(
                 ["--pretrained_sdxl_model", "no/such/dir", *flags]))
+    from omg_tpu_torch.models import dpt, openpose
+    body, depth = _tiny_preprocessor_files(tmp_path)
     from omg_tpu_torch.segment import sam_provider, vit_sam
     ckpt = write_tiny_checkpoint(tmp_path / "sdxl", seed=8)
     sam = str(tmp_path / "sam.pth")
@@ -501,7 +550,14 @@ def test_serve_cli_from_a_tiny_checkout(tmp_path):
         "path": "/nonexistent"}]}))
     srv = cli_serve.build_server(cli_serve.parse_args([
         "--pretrained_sdxl_model", ckpt, "--efficientViT_checkpoint", sam,
-        "--registry", str(reg), "--num_steps", "2", "--device", "cpu"]))
+        "--registry", str(reg), "--num_steps", "2", "--device", "cpu",
+        "--pose_detector_checkpoint", body, "--dpt_checkpoint", depth]))
+    assert isinstance(srv.pose_provider, openpose.BodyEstimator)
+    assert srv.pose_provider.model.width_mult == 0.125
+    assert isinstance(srv.depth_provider, dpt.DepthEstimator)
+    assert srv.depth_provider.cfg == dpt.tiny_config()
+    assert srv.depth_provider(np.zeros((40, 30, 3), np.uint8),
+                              (16, 24)).shape == (16, 24, 3)
     url = _serve(srv)
     try:
         assert json.loads(_get(url, "/registry")[1])["man"] == ["A"]
