@@ -118,14 +118,36 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      "pose" and "depth": one POST each with the 1024² JPEG fixture as the
      condition photo at 6 steps, HTTP 200, the returned condition equal to
      the provider's own map, 1872 K1 launches by shape.
+  12. approximate — run after phase 11 while phase 5's SDXL weights are
+     live, at 1024x1024: (a) one UNet forward at b = 2 keeping its
+     DeepCache feature, then ``apply_shallow`` from it at the same (sample,
+     t): equal within one bf16 ulp, no K1 launch, ms of each; (b) config
+     #2 with ``cache_interval=3``: 2100 K1 launches (6 + 12 full forwards
+     at b = 2, 12 at b = 7), then with ``cache_schedule="front"``: the
+     launches its own full steps give (``deepcache_forwards``); (c) config
+     #3 with interval 3: the ControlNet on the full steps only (30
+     forwards, 3120 launches); (d) config #2 on ``OMG(concept_crop=True)``:
+     6220 launches, K1 at [4,10,2048,64] on the strips; (f) a server
+     whose engine has interval 3 answering one POST with a per-request
+     "front" schedule: (b)'s front launches by shape; (e) W8A8: the mid
+     block's ff.net.0.proj quantized on the card and on the CPU (int8
+     weights, scales and activations equal, int32 sums exact, output
+     within one bf16 ulp; ``torch._int_mm``, the W8A8 linear and the bf16
+     linear timed), the quantized UNet at b = 2 against the bf16 one
+     (cosine > 0.995), ``generate`` on ``OMG(quantize="int8")``: 5880
+     launches; (h) the progressive and CMYK JPEG fixtures equal to their
+     PIL decodes, the 1024x1024 one's host seconds. Each run: phase
+     seconds, peak memory, launches by q shape; (g) runs in phase 6.
   6. mesh    — the multi-device latency mode, ``OMG(mesh=...)``, on 2 ranks
      that share this card through ``gloo`` (mesh data=1, model=2): the
      same seeded weights on both (checked), one H-split stage-1 UNet
      forward and one lane-split 8-lane stage-2 forward against the
      unsharded ones, then ``generate`` as in phase 5: 3500 K1b and 2380
-     K1 launches per rank, identical images on both ranks.
-The last seven lines are JSON records of the mask stage, of phases 8, 9,
-10 and 11 and of the kernels, and ``{"ok": true, "device": {...}}``.
+     K1 launches per rank, identical images on both ranks; then phase 12
+     (g): ``generate`` with ``cache_interval=2`` at 6 steps, 280 K1b and
+     140 K1 launches per rank (K1b and K1 on the full steps only).
+The last eight lines are JSON records of the mask stage, of phases 8, 9,
+10, 11 and 12 and of the kernels, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
 
@@ -164,7 +186,9 @@ from omg_tpu_torch.control import p2p
 from omg_tpu_torch.diffusion import schedulers
 from omg_tpu_torch.models import (clip, clip_vision, controlnet, dpt,
                                   openpose, resampler, unet as unet_lib)
+from omg_tpu_torch.nn import layers as nn_layers
 from omg_tpu_torch.ops import flash_attention as fa
+from omg_tpu_torch.ops import quant
 from omg_tpu_torch.parallel import comm, launch, mesh as mesh_lib
 from omg_tpu_torch.pipelines import multiconcept, omg as omg_lib, sdxl
 from omg_tpu_torch.segment import (detector, efficientvit, sam_decoder,
@@ -290,7 +314,11 @@ KERNEL_SHAPES = [  # (B, H, N, D): main-path, bucket, D=128, ragged tiles
     # two requests in one batch (phase 10 (b), (c)): the base ControlNet
     # on 3R stage-2 lanes, the stage-2 UNet on 7R
     (6, 10, 4096, 64), (6, 20, 1024, 64), (14, 10, 4096, 64),
-    (14, 20, 1024, 64)]
+    (14, 20, 1024, 64),
+    # the concept-crop strips (phase 12): 2K = 4 concept lanes on
+    # 128 x 64 latent strips, level 1 (2048 tokens; level 2's 512 take
+    # the plain attention, as the gate sends them in JAX)
+    (4, 10, 2048, 64)]
 TIMED_SHAPE = (7, 10, 4096, 64)
 SEQ_SHAPES = [  # (B, H, Nq local, Nk): q rows of a shard against all K/V
     (2, 10, 2048, 4096), (2, 20, 512, 1024),     # 2-way seq at 1024^2
@@ -582,20 +610,34 @@ def model_phase(device, cfg, params, loras) -> None:
 
 
 @contextlib.contextmanager
-def record_latents(store: dict, batch: bool = False):
+def record_latents(store: dict, batch: bool = False, peaks: dict = None):
     """Keep the two stages' output latents (the engine returns images);
-    ``batch``: of ``generate_batch``'s programs ([R, 2, h, w, 4])."""
+    ``batch``: of ``generate_batch``'s programs ([R, 2, h, w, 4]).
+    ``peaks`` gets each stage's peak bytes ("stage1", "stage2") and the
+    peak before stage 2 ("before_stage2"); the device's peak counter then
+    restarts at stage 2."""
     names = (("sample_stage1_batch", "sample_stage2_batch") if batch else
              ("sample_stage1_cached", "sample_stage2_resumed"))
     s1, s2 = (getattr(multiconcept, n) for n in names)
 
+    def peak_of(name, fn, *args, **kwargs):
+        if peaks is None:
+            return fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        peaks[f"before_{name}"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+        return out
+
     def stage1(*args, **kwargs):
-        lat, cache = s1(*args, **kwargs)
+        lat, cache = peak_of("stage1", s1, *args, **kwargs)
         store["stage1"] = lat
         return lat, cache
 
     def stage2(*args, **kwargs):
-        store["stage2"] = s2(*args, **kwargs)
+        store["stage2"] = peak_of("stage2", s2, *args, **kwargs)
         return store["stage2"]
 
     setattr(multiconcept, names[0], stage1)
@@ -663,27 +705,45 @@ def check_result(res, latents: dict) -> None:
 
 def main_phase(device, cfg, params, loras, provider=left_right_masks,
                name: str = "main", expect: int = MAIN_PATH_LAUNCHES,
-               shapes: dict = None, **overrides) -> tuple:
+               shapes: dict = None, engine_kw: dict = None,
+               memory: dict = None, **overrides) -> tuple:
     """Run ``OMG.generate`` once with ``provider`` (and ``overrides`` of
-    phase 5's arguments), counts zeroed just before and read just after;
-    raises unless K1 launched ``expect`` times. Returns (kernel launches,
-    result, peak bytes); ``shapes`` gets the launches by q shape."""
+    phase 5's arguments; ``engine_kw``: engine fields), counts zeroed just
+    before and read just after; raises unless K1 launched ``expect``
+    times. Returns (kernel launches, result, peak bytes); ``shapes`` gets
+    the launches by q shape, ``memory`` the bytes live at the start
+    ("start") and the peak ("peak")."""
     tok = ToyTokenizer(cfg.text_encoder.vocab_size)
     engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok,
                          tokenizer_2=tok, mask_provider=provider,
-                         num_steps=STEPS)
+                         num_steps=STEPS, **(engine_kw or {}))
+    return run_generate(engine, loras, name=name, expect=expect,
+                        shapes=shapes, memory=memory, **overrides)
+
+
+def run_generate(engine, loras, *, name: str, expect: int,
+                 shapes: dict = None, memory: dict = None,
+                 **overrides) -> tuple:
+    """``main_phase`` on a built engine."""
     latents: dict = {}
     by_shape: dict = {} if shapes is None else shapes
     torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = 0
     t0 = time.perf_counter()
-    with record_latents(latents), launch_shapes(by_shape):
+    stage_peaks: dict = {} if memory is not None else None
+    with record_latents(latents, peaks=stage_peaks), \
+            launch_shapes(by_shape):
         res = generate(engine, loras, **overrides)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = fa.LAUNCHES
-    peak = torch.cuda.max_memory_allocated()
+    # the counter restarted at each stage: the run's peak is the largest
+    peak = max([torch.cuda.max_memory_allocated()]
+               + list((stage_peaks or {}).values()))
+    if memory is not None:
+        memory.update(stage_peaks, start=start, peak=peak)
     check_result(res, latents)
     if launches != expect:
         raise AssertionError(f"{name}: kernel launches in generate: "
@@ -692,8 +752,12 @@ def main_phase(device, cfg, params, loras, provider=left_right_masks,
     log(f"{name}: stage1 {tm['stage1']:.3f} s, masks {tm['masks']:.3f} s, "
         f"stage2 {tm['stage2']:.3f} s, decode {tm['decode']:.3f} s, "
         f"encode {tm['encode']:.3f} s, total {total:.3f} s")
+    stages = "" if memory is None else (
+        f" (stage 1 {(memory['stage1'] - start) / 2**30:.3f}, stage 2 "
+        f"{(memory['stage2'] - start) / 2**30:.3f} GiB over it)")
     log(f"{name}: kernel launches {launches} (by q shape {by_shape}); peak "
-        f"memory {peak / 2**30:.2f} GiB; masks "
+        f"memory {peak / 2**30:.2f} GiB, {(peak - start) / 2**30:.2f} GiB "
+        f"over the {start / 2**30:.2f} GiB live at the start{stages}; masks "
         f"{[m is not None for m in res.masks]}; image mean "
         f"{res.image.mean():.2f} std {res.image.std():.2f}")
     return launches, res, peak
@@ -715,17 +779,18 @@ def weights(device):
 
 
 def single_card_phases(device) -> tuple:
-    """Phases 4, 5, 7, 8, 9, 10 and 11; the weights are freed on return.
-    Returns (phase 5's launches, phase 5's result, phase 7's record, phase
-    8's record, phase 9's record, phase 10's record, phase 11's
-    record)."""
+    """Phases 4, 5, 7, 8, 9, 10, 11 and 12; the weights are freed on
+    return. Returns (phase 5's launches, phase 5's result, phase 7's
+    record, phase 8's, phase 9's, phase 10's, phase 11's, phase 12's)."""
     with torch.inference_mode():
         log("== weights")
         cfg, params, loras = weights(device)
         log("== model")
         model_phase(device, cfg, params, loras)
         log("== main path")
-        launches, res, _ = main_phase(device, cfg, params, loras)
+        phase5_memory: dict = {}
+        launches, res, peak = main_phase(device, cfg, params, loras,
+                                         memory=phase5_memory)
         log("== masks")
         masks = masks_phase(device, cfg, params, loras, res.stage1[1])
         gc.collect()
@@ -742,7 +807,14 @@ def single_card_phases(device) -> tuple:
         torch.cuda.empty_cache()
         log("== preprocessors")
         pre = preprocessors_phase(device, cfg, params)
-        return launches, res, masks, cond, ckpt, serve, pre
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== approximate modes")
+        approx = approximate_phase(device, cfg, params, loras)
+        # phase 5's own record, beside which phase 12's runs read
+        approx["phase5"] = _run_record(launches, res, peak, None,
+                                       phase5_memory)
+        return launches, res, masks, cond, ckpt, serve, pre, approx
 
 
 # --------------------------------------------------------------- phase 7
@@ -1087,10 +1159,19 @@ def face_kps(cx: float, cy: float) -> np.ndarray:
                        [cx - 30, cy + 45], [cx + 30, cy + 45]])
 
 
-def _run_record(launches, res, peak, shapes) -> dict:
-    return {"launches": launches, "timings": res.timings,
-            "total_s": sum(res.timings.values()), "peak_gib": peak / 2**30,
-            "launches_by_shape": shapes}
+def _run_record(launches, res, peak, shapes, memory: dict = None) -> dict:
+    rec = {"launches": launches, "timings": res.timings,
+           "total_s": sum(res.timings.values()), "peak_gib": peak / 2**30,
+           "launches_by_shape": shapes}
+    if memory is not None:
+        # the run's own memory, whatever earlier phases left live; each
+        # stage's (DeepCache's feature, the crop strips' lanes) apart from
+        # the fp32 VAE decode's
+        for key in ("peak", "stage1", "stage2"):
+            rec[f"{key}_over_start_gib"] = (memory[key]
+                                            - memory["start"]) / 2**30
+        rec["start_gib"] = memory["start"] / 2**30
+    return rec
 
 
 def conditioned_phase(device, cfg, params, loras, single) -> dict:
@@ -1724,40 +1805,53 @@ def config5_phase(engine, loras, c5) -> tuple:
     return rec, grec
 
 
+def kohya_registry(tmp: str, loras) -> registry_lib.Registry:
+    """A registry of two characters, "char0" (man) and "char1" (woman),
+    whose LoRAs are ``loras`` written to kohya files in ``tmp``."""
+    chars = []
+    for i, (group, tree) in enumerate(zip(("man", "woman"), loras)):
+        path = os.path.join(tmp, f"char{i}.safetensors")
+        write_kohya(path, tree)
+        chars.append({"name": f"char{i}", "path": path,
+                      "prompt": f"photo of the {group}",
+                      "negative_prompt": "ugly"})
+    reg_path = os.path.join(tmp, "registry.json")
+    _write_json(reg_path, {"man": chars[:1], "woman": chars[1:]})
+    return registry_lib.Registry.from_json(reg_path)
+
+
+def start_server(srv):
+    """Serve ``srv`` on 127.0.0.1 in a thread -> call(path, body=None),
+    the JSON answer of a GET (no body) or a POST."""
+    import urllib.request
+    threading.Thread(target=srv.serve, args=("127.0.0.1", 0),
+                     daemon=True).start()
+    url = "http://" + srv.wait_bound()
+
+    def call(path, body=None):
+        req = urllib.request.Request(
+            url + path, data=None if body is None else
+            json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+    return call
+
+
 def http_phase(device, engine, loras) -> dict:
     """(d) the HTTP server on a registry of kohya files, one POST of four
     prompts, then the warmup of the 1024² bucket at batch width 4."""
-    import urllib.request
     here = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix=".phase10-", dir=here)
     rec: dict = {}
     srv = None
     try:
-        chars = []
-        for i, (group, tree) in enumerate(zip(("man", "woman"), loras)):
-            path = os.path.join(tmp, f"char{i}.safetensors")
-            write_kohya(path, tree)
-            chars.append({"name": f"char{i}", "path": path,
-                          "prompt": f"photo of the {group}",
-                          "negative_prompt": "ugly"})
-        reg_path = os.path.join(tmp, "registry.json")
-        _write_json(reg_path, {"man": chars[:1], "woman": chars[1:]})
-        srv = OMGServer(engine, registry_lib.Registry.from_json(reg_path),
+        srv = OMGServer(engine, kohya_registry(tmp, loras),
                         max_batch=SERVE_R)
-        threading.Thread(target=srv.serve, args=("127.0.0.1", 0),
-                         daemon=True).start()
-        url = "http://" + srv.wait_bound()
-
-        def call(path, body=None):
-            req = urllib.request.Request(
-                url + path, data=None if body is None else
-                json.dumps(body).encode(),
-                headers={"Content-Type": "application/json"})
-            with urllib.request.urlopen(req, timeout=600) as r:
-                return json.loads(r.read())
+        call = start_server(srv)
         health, reg = call("/healthz"), call("/registry")
         if not health["ok"] or reg["man"] != ["char0"] or \
-                reg["deepcache_per_request"] is not False:
+                reg["deepcache_per_request"] is not True:
             raise AssertionError(f"serving (d): {health} {reg}")
         before = call("/metrics")["counters"].get("batched_requests", 0)
         by_shape: dict = {}
@@ -1850,18 +1944,19 @@ PRE_HTTP_SHAPES = {k: 2 * v for k, v in serve_shapes(
     SERVE_CHECK_STEPS, 2, 7, (2,), (3,)).items()}
 
 
-def jpeg_phase() -> dict:
+def jpeg_phase(names=JPEG_FIXTURES, label: str = "preprocessors (a)"
+               ) -> dict:
     """(a) Each fixture decoded and held to its PIL decode; host seconds
-    of the 1024x1024 4:2:0 one (median of 3)."""
+    of the 1024x1024 ones (median of 3)."""
     data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "tests", "port", "data")
     rec: dict = {}
-    for name in JPEG_FIXTURES:
+    for name in names:
         with open(os.path.join(data_dir, f"{name}.jpg"), "rb") as f:
             data = f.read()
         want = image_io.read_png(os.path.join(data_dir, f"{name}.png"))
         t = []
-        for _ in range(3 if name == "smooth_1024_420" else 1):
+        for _ in range(3 if "_1024_" in name else 1):
             t0 = time.perf_counter()
             got = image_io.decode_image(data, name)
             t.append(time.perf_counter() - t0)
@@ -1869,7 +1964,7 @@ def jpeg_phase() -> dict:
             raise AssertionError(f"jpeg: {name} differs from its PIL decode")
         rec[name] = {"shape": list(got.shape), "bytes": len(data),
                      "decode_s": sorted(t)[len(t) // 2]}
-        log(f"preprocessors (a): {name}.jpg {got.shape} ({len(data)} B) "
+        log(f"{label}: {name}.jpg {got.shape} ({len(data)} B) "
             f"equals its PIL decode; decoded in {rec[name]['decode_s']:.3f}"
             " s on the host")
     return rec
@@ -2119,6 +2214,312 @@ def preprocessors_phase(device, cfg, params) -> dict:
 
 # ------------------------------------------------------------ --profile
 
+# -------------------------------------------------------------- phase 12
+
+# DeepCache at interval 3 on config #2: full forwards on each range's first
+# step and every third after it (stage 1's [0, 16) and [16, 50), stage 2's
+# [16, 50)); shallow steps run no attention at SDXL's geometry.
+DC_INTERVAL = 3
+DC_UNIFORM_LAUNCHES = 2100       # (6 + 12) x 70 at b = 2, 12 x 70 at b = 7
+# Config #2 with concept_crop: stage 1 as phase 5; stage 2's base rows at
+# b = 3 full-frame and the 2K = 4 concept lanes on 128 x 64 strips, whose
+# level-2 self-attention (512 tokens) takes the plain attention.
+CROP_SHAPES = {"2,10,4096,64": 500, "2,20,1024,64": 3000,
+               "3,10,4096,64": 340, "3,20,1024,64": 2040,
+               "4,10,2048,64": 340}
+# The W8A8 forward against the bf16 one: JAX's own criterion
+# (tests/test_quant.py).
+QUANT_COS = 0.995
+# The mesh DeepCache run: 6 steps at interval 2 (fusion after step 2).
+MESH_DC_STEPS, MESH_DC_INTERVAL = 6, 2
+JPEG_NEW_FIXTURES = ("progressive_1024_420", "progressive_444_rst", "cmyk")
+
+
+def full_steps(spec, i0: int, i1: int) -> int:
+    """Full UNet forwards of a DeepCache range [i0, i1) under ``spec`` (an
+    int interval or a per-step tuple; the range's first step is full)."""
+    return sum(1 for i in range(i0, i1) if i == i0 or (
+        spec[i] if isinstance(spec, tuple) else (i - i0) % spec == 0))
+
+
+def deepcache_forwards(steps: int, spec) -> tuple:
+    """(stage-1, stage-2) full forwards of one DeepCache ``generate``."""
+    b = round(steps * 15 / 50) + 1
+    n2 = full_steps(spec, b, steps)
+    return full_steps(spec, 0, b) + n2, n2
+
+
+def forward_shapes(n1: int, n2: int, lanes1: int = 2, lanes2: int = 7,
+                   cn1: int = 0, cn2: int = 0) -> dict:
+    """K1 launches by q shape of n1 stage-1 and n2 stage-2 full forwards
+    (a ControlNet beside each on cn1 / cn2 lanes when given)."""
+    out: dict = {}
+    for b, n, per in ((lanes1, n1, (10, 60)), (lanes2, n2, (10, 60)),
+                      (cn1, n1, (4, 30)), (cn2, n2, (4, 30))):
+        for (heads, tokens), k in zip(((10, 4096), (20, 1024)), per):
+            if b and n:
+                key = f"{b},{heads},{tokens},64"
+                out[key] = out.get(key, 0) + n * k
+    return out
+
+
+def deepcache_invariant(device, cfg, params) -> dict:
+    """(a) A full forward keeping its cache, then the shallow forward from
+    it at the same (sample, t), b = 2: equal, and no K1 launch."""
+    sample, ehs, pooled, tids = unet_inputs(device, cfg, 2, seed=40)
+    t = int(schedulers.make_schedule("euler", STEPS).timesteps[STEPS // 5])
+    kw = dict(text_embeds=pooled, time_ids=tids)
+    eps, cache = params.unet(sample, t, ehs, return_cache=True, **kw)
+    torch.cuda.synchronize()
+    fa.LAUNCHES = 0
+    shallow = params.unet.apply_shallow(sample, t, ehs, cache=cache, **kw)
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES
+    err = (shallow.float() - eps.float()).abs().max().item()
+    scale = eps.float().abs().max().item()
+    ulp = 2.0 ** -7 * scale
+    ms_full = cuda_ms(lambda: params.unet(sample, t, ehs, **kw), 3)
+    ms_shallow = cuda_ms(lambda: params.unet.apply_shallow(
+        sample, t, ehs, cache=cache, **kw), 3)
+    log(f"approximate (a): shallow vs full forward at the same step: max "
+        f"|diff| {err:.3e} (one bf16 ulp of max |eps| {scale:.3e}: "
+        f"{ulp:.3e}); cache {tuple(cache.shape)} {cache.dtype} "
+        f"{cache.numel() * cache.element_size() / 1e6:.1f} MB; "
+        f"{launches} K1 launches in the shallow forward; forward "
+        f"{ms_full:.2f} ms, shallow {ms_shallow:.2f} ms")
+    if launches or err > ulp or not torch.isfinite(shallow).all():
+        raise AssertionError(f"approximate (a): {err} {launches}")
+    return {"max_abs": err, "shallow_launches": launches,
+            "cache_mb": cache.numel() * cache.element_size() / 1e6,
+            "full_ms": ms_full, "shallow_ms": ms_shallow}
+
+
+def deepcache_runs(device, cfg, params, loras) -> dict:
+    """(b) config #2 with DeepCache, uniform interval 3 and "front"."""
+    rec: dict = {}
+    fs = round(STEPS * 15 / 50)
+    for name, spec, kw in (
+            ("uniform", DC_INTERVAL, dict(cache_interval=DC_INTERVAL)),
+            ("front", multiconcept.deepcache_schedule(
+                STEPS, DC_INTERVAL, kind="front", fusion_start=fs),
+             dict(cache_interval=DC_INTERVAL, cache_schedule="front"))):
+        n1, n2 = deepcache_forwards(STEPS, spec)
+        want = forward_shapes(n1, n2)
+        if name == "uniform" and sum(want.values()) != DC_UNIFORM_LAUNCHES:
+            raise AssertionError(f"uniform DeepCache plan: {want}")
+        shapes, memory = {}, {}
+        launches, res, peak = main_phase(
+            device, cfg, params, loras, name=f"deepcache {name}",
+            expect=sum(want.values()), shapes=shapes, memory=memory, **kw)
+        if shapes != want:
+            raise AssertionError(f"deepcache {name}: {shapes} != {want}")
+        rec[name] = dict(_run_record(launches, res, peak, shapes, memory),
+                         full_forwards=[n1, n2])
+    return rec
+
+
+def deepcache_controlnet(device, cfg, params, loras) -> dict:
+    """(c) config #3 with DeepCache at interval 3: the ControlNet runs on
+    the full steps only."""
+    cn = controlnet.init_params(torch.Generator(device).manual_seed(30),
+                                config.sdxl_controlnet())
+    cond = np.random.default_rng(35).integers(0, 256, (HEIGHT, WIDTH, 3),
+                                              dtype=np.uint8)
+    n1, n2 = deepcache_forwards(STEPS, DC_INTERVAL)
+    want = forward_shapes(n1, n2, cn1=2, cn2=3)
+    calls = []
+    forward = controlnet.ControlNetModel.forward
+    controlnet.ControlNetModel.forward = \
+        lambda self, *a, **k: calls.append(1) or forward(self, *a, **k)
+    try:
+        shapes, memory = {}, {}
+        launches, res, peak = main_phase(
+            device, cfg, params, loras, name="deepcache config #3",
+            expect=sum(want.values()), shapes=shapes, memory=memory,
+            controlnet_params=cn, spatial_condition=cond,
+            cache_interval=DC_INTERVAL)
+    finally:
+        controlnet.ControlNetModel.forward = forward
+    log(f"approximate (c): {len(calls)} ControlNet forwards for {n1} + {n2}"
+        " full steps")
+    if len(calls) != n1 + n2 or shapes != want:
+        raise AssertionError(f"approximate (c): {len(calls)} {shapes}")
+    return dict(_run_record(launches, res, peak, shapes, memory),
+                controlnet_forwards=len(calls))
+
+
+def crop_run(device, cfg, params, loras) -> dict:
+    """(d) config #2 with concept_crop."""
+    shapes, memory = {}, {}
+    launches, res, peak = main_phase(
+        device, cfg, params, loras, name="concept crop",
+        expect=sum(CROP_SHAPES.values()), shapes=shapes, memory=memory,
+        engine_kw={"concept_crop": True})
+    if shapes != CROP_SHAPES:
+        raise AssertionError(f"concept crop: {shapes} != {CROP_SHAPES}")
+    return _run_record(launches, res, peak, shapes, memory)
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Max |a - b| in bf16 ulps of |b| (2^-7 of the power of two below)."""
+    b = b.float()
+    ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    return ((a.float() - b).abs() / ulp).max().item()
+
+
+def quant_linear_check(device, params) -> dict:
+    """(e) The mid block's ff.net.0.proj (1280 -> 10240) quantized on the
+    card and on the CPU at b = 2 x 1024 tokens: int8 weights and scales
+    equal, the int32 sums exact, the output within one bf16 ulp; the
+    int8 product and the W8A8 linear timed beside the bf16 one."""
+    lin = params.unet.mid_block.attentions[0].transformer_blocks[0] \
+        .ff.net[0].proj
+    g = torch.Generator(device).manual_seed(41)
+    x = torch.randn(2048, lin.weight.shape[1], generator=g, device=device,
+                    dtype=lin.weight.dtype)
+    wq, ws = quant.quantize_weight(lin.weight)
+    wq_c, ws_c = quant.quantize_weight(lin.weight.cpu())
+    xq, sx = quant.quantize_activations(x)
+    xq_c, _ = quant.quantize_activations(x.cpu())
+    calls = quant.INT_MM_CALLS
+    y = quant.int_mm(xq, wq.t())
+    if quant.INT_MM_CALLS != calls + 1:
+        raise AssertionError("the int8 product did not take torch._int_mm")
+    y_c = quant.int_mm(xq_c, wq_c.t())
+    out = quant.int8_matmul(x, wq, ws)
+    out_c = quant.int8_matmul(x.cpu(), wq_c, ws_c)
+    same_w = torch.equal(wq.cpu(), wq_c) and torch.equal(ws.cpu(), ws_c)
+    same_x = torch.equal(xq.cpu(), xq_c)
+    exact = torch.equal(y.cpu(), y_c)
+    ulps = bf16_ulps(out.cpu(), out_c)
+    ms = {"int_mm_ms": cuda_ms(lambda: torch._int_mm(xq, wq.t()), 20,
+                               graph=True),
+          "w8a8_ms": cuda_ms(lambda: quant.int8_matmul(x, wq, ws), 20,
+                             graph=True),
+          "bf16_ms": cuda_ms(lambda: torch.nn.functional.linear(
+              x, lin.weight), 20, graph=True)}
+    log(f"approximate (e): W8A8 {tuple(x.shape)} x {tuple(lin.weight.shape)}"
+        f": weights/scales equal {same_w}, activations equal {same_x}, "
+        f"int32 sums exact {exact}, output {ulps:.2f} bf16 ulps from the "
+        f"CPU's; int8 GEMM {ms['int_mm_ms']:.4f} ms, W8A8 linear "
+        f"{ms['w8a8_ms']:.4f} ms, bf16 linear {ms['bf16_ms']:.4f} ms")
+    if not (same_w and same_x and exact) or ulps > 1.0:
+        raise AssertionError("approximate (e): the card's W8A8 differs")
+    return dict(ms, ulps=ulps)
+
+
+def quant_runs(device, cfg, params, loras) -> dict:
+    """(e) the W8A8 UNet forward against the bf16 one, then ``generate``
+    with quantize="int8"."""
+    rec = {"linear": quant_linear_check(device, params)}
+    tok = ToyTokenizer(cfg.text_encoder.vocab_size)
+    t0 = time.perf_counter()
+    engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok,
+                         tokenizer_2=tok, mask_provider=left_right_masks,
+                         num_steps=STEPS, quantize="int8")
+    torch.cuda.synchronize()
+    qlin = [m for m in engine.params.unet.modules()
+            if isinstance(m, nn_layers.QuantLinear)]
+    int8_gb = sum(m.weight_q.numel() + 4 * m.w_scale.numel()
+                  for m in qlin) / 2**30
+    bf16_gb = sum(2 * m.weight_q.numel() for m in qlin) / 2**30
+    rec.update(quantize_s=time.perf_counter() - t0, quantized_linears=len(
+        qlin), int8_weights_gib=int8_gb, bf16_weights_gib=bf16_gb)
+    sample, ehs, pooled, tids = unet_inputs(device, cfg, 2, seed=42)
+    t = int(schedulers.make_schedule("euler", STEPS).timesteps[STEPS // 5])
+    kw = dict(text_embeds=pooled, time_ids=tids)
+    ref = params.unet(sample, t, ehs, **kw).double().flatten()
+    got = engine.params.unet(sample, t, ehs, **kw).double().flatten()
+    cos = float(ref @ got / (ref.norm() * got.norm()))
+    rec["unet_cosine"] = cos
+    rec["unet_ms"] = cuda_ms(lambda: engine.params.unet(sample, t, ehs, **kw),
+                             3)
+    rec["bf16_unet_ms"] = cuda_ms(lambda: params.unet(sample, t, ehs, **kw), 3)
+    log(f"approximate (e): {len(qlin)} int8 linears ({int8_gb:.2f} GiB "
+        f"beside their {bf16_gb:.2f} GiB in bf16) in {rec['quantize_s']:.1f}"
+        f" s; W8A8 UNet vs bf16 at b = 2: cosine {cos:.6f} (bound "
+        f"{QUANT_COS}); forward {rec['unet_ms']:.2f} ms vs bf16 "
+        f"{rec['bf16_unet_ms']:.2f} ms")
+    if not cos > QUANT_COS:
+        raise AssertionError(f"approximate (e): cosine {cos}")
+    shapes, memory = {}, {}
+    calls = quant.INT_MM_CALLS
+    launches, res, peak = run_generate(engine, loras, name="w8a8",
+                                       expect=MAIN_PATH_LAUNCHES,
+                                       shapes=shapes, memory=memory)
+    rec["generate"] = dict(_run_record(launches, res, peak, shapes, memory),
+                           int_mm_calls=quant.INT_MM_CALLS - calls)
+    if quant.INT_MM_CALLS == calls:
+        raise AssertionError("approximate (e): no int8 GEMM in generate")
+    return rec
+
+
+def deepcache_serving(device, cfg, params, loras, front: dict) -> dict:
+    """(f) a server whose engine has cache_interval 3 answers a POST with a
+    per-request "front" schedule: (b)'s front launches."""
+    tok = ToyTokenizer(cfg.text_encoder.vocab_size)
+    engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok,
+                         tokenizer_2=tok, mask_provider=left_right_masks,
+                         num_steps=STEPS, cache_interval=DC_INTERVAL)
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix=".phase12-", dir=here)
+    srv = None
+    try:
+        srv = OMGServer(engine, kohya_registry(tmp, loras))
+        call = start_server(srv)
+        caps = call("/registry")
+        if not caps["deepcache_per_request"] or \
+                caps["approx_modes"]["cache_interval"] != DC_INTERVAL:
+            raise AssertionError(f"approximate (f): {caps}")
+        shapes: dict = {}
+        torch.cuda.synchronize()
+        fa.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with launch_shapes(shapes):
+            out = call("/generate", {
+                "prompt": "photo of the man and the woman at the beach",
+                "character1": "char0", "character2": "char1",
+                "negative_prompt": "ugly", "seed": SEED, "steps": STEPS,
+                "height": HEIGHT, "width": WIDTH,
+                "cache_schedule": "front"})
+        wall = time.perf_counter() - t0
+        launches = fa.LAUNCHES
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        shutil.rmtree(tmp)
+    img = image_io.decode_png(base64.b64decode(out["image"]))
+    log(f"approximate (f): POST /generate with cache_schedule front in "
+        f"{wall:.3f} s, {launches} K1 launches ({shapes})")
+    if shapes != front["launches_by_shape"] or img.shape != (HEIGHT, WIDTH,
+                                                             3):
+        raise AssertionError(f"approximate (f): {shapes} {img.shape}")
+    return {"wall_s": wall, "launches": launches,
+            "launches_by_shape": shapes}
+
+
+def approximate_phase(device, cfg, params, loras) -> dict:
+    """Phase 12 on phase 5's live weights."""
+    t0 = time.perf_counter()
+    rec = {"invariant": deepcache_invariant(device, cfg, params)}
+    rec["deepcache"] = deepcache_runs(device, cfg, params, loras)
+    rec["deepcache_config3"] = deepcache_controlnet(device, cfg, params,
+                                                    loras)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["crop"] = crop_run(device, cfg, params, loras)
+    rec["serving"] = deepcache_serving(device, cfg, params, loras,
+                                       rec["deepcache"]["front"])
+    rec["w8a8"] = quant_runs(device, cfg, params, loras)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["jpeg"] = jpeg_phase(JPEG_NEW_FIXTURES, "approximate (h)")
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"approximate: phase 12 took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def _profile_forward(name: str, forward) -> None:
     from torch.profiler import ProfilerActivity, profile
     forward()
@@ -2302,6 +2703,33 @@ def mesh_generate(mesh, cfg, params, loras) -> dict:
             "seq_launches": seq_launches, "launches": launches}
 
 
+def mesh_deepcache(mesh, cfg, params, loras) -> dict:
+    """Phase 12 (g): ``OMG(mesh=..., cache_interval=2).generate`` at 6 steps:
+    K1b on stage 1's full steps only, K1 on stage 2's."""
+    tok = ToyTokenizer(cfg.text_encoder.vocab_size)
+    engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok,
+                         tokenizer_2=tok, mask_provider=left_right_masks,
+                         num_steps=MESH_DC_STEPS, mesh=mesh,
+                         cache_interval=MESH_DC_INTERVAL)
+    n1, n2 = deepcache_forwards(MESH_DC_STEPS, MESH_DC_INTERVAL)
+    want = (n1 * LAUNCHES_PER_FORWARD, n2 * LAUNCHES_PER_FORWARD)
+    torch.cuda.synchronize()
+    fa.LAUNCHES = fa.SEQ_LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = generate(engine, loras, num_steps=MESH_DC_STEPS)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    got = (fa.SEQ_LAUNCHES, fa.LAUNCHES)
+    if got != want or res.stage2 is None or not all(
+            img.shape == (2, HEIGHT, WIDTH, 3)
+            for img in (res.stage1, res.stage2)):
+        raise AssertionError(f"rank {mesh.rank}: mesh DeepCache K1b/K1 "
+                             f"launches {got}, want {want}")
+    return {"stage1": res.stage1, "stage2": res.stage2,
+            "timings": res.timings, "total": total,
+            "seq_launches": got[0], "launches": got[1]}
+
+
 def mesh_rank(rank: int, device) -> dict:
     """One rank of phase 6 (``launch.spawn`` runs it in its own process)."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2318,6 +2746,7 @@ def mesh_rank(rank: int, device) -> dict:
         out = {"spatial": spatial_forward(mesh, cfg, params),
                "lanes": lane_forward(mesh, cfg, params, loras)}
         out.update(mesh_generate(mesh, cfg, params, loras))
+        out["deepcache"] = mesh_deepcache(mesh, cfg, params, loras)
     return out
 
 
@@ -2347,8 +2776,23 @@ def mesh_phase(single) -> dict:
         log(f"mesh: {name} images vs phase 5: max |diff| {diff.max()}, mean "
             f"{diff.mean():.3f} (uint8; the 4+2K program and the split "
             "reductions round differently)")
+    dcs = [out["deepcache"] for out in ranks]
+    for r, dc in enumerate(dcs):
+        tm = dc["timings"]
+        log(f"approximate (g): mesh rank {r}, DeepCache interval "
+            f"{MESH_DC_INTERVAL} at {MESH_DC_STEPS} steps: stage1 "
+            f"{tm['stage1']:.3f} s, stage2 {tm['stage2']:.3f} s, total "
+            f"{dc['total']:.3f} s; K1b launches {dc['seq_launches']}, K1 "
+            f"launches {dc['launches']}")
+        for name in ("stage1", "stage2"):
+            if not np.array_equal(dc[name], dcs[0][name]):
+                raise AssertionError(f"mesh DeepCache: rank {r}'s {name} "
+                                     "images differ from rank 0's")
     return {"seq_launches": [out["seq_launches"] for out in ranks],
-            "launches": [out["launches"] for out in ranks]}
+            "launches": [out["launches"] for out in ranks],
+            "deepcache": [{k: dc[k] for k in ("timings", "total",
+                                              "seq_launches", "launches")}
+                          for dc in dcs]}
 
 
 def main() -> int:
@@ -2364,18 +2808,20 @@ def main() -> int:
     torch.cuda.empty_cache()     # the plain version's scores at B = 28
     log("== K1b vs plain")
     sstats = seq_kernel_phase(device)
-    launches, single, masks, cond, ckpt, serve, pre = single_card_phases(
-        device)
+    launches, single, masks, cond, ckpt, serve, pre, approx = \
+        single_card_phases(device)
     cond["k1_by_shape"] = {key: by_shape[key] for key in (
         "1,10,4096,64", "3,10,4096,64", "4,10,4096,64", "1,20,1024,64",
         "3,20,1024,64", "4,20,1024,64")}
     serve["k1_by_shape"] = {key: by_shape[key] for key in (
         "8,10,4096,64", "8,20,1024,64", "28,10,4096,64", "28,20,1024,64",
         "6,10,4096,64", "6,20,1024,64", "14,10,4096,64", "14,20,1024,64")}
+    approx["k1_by_shape"] = {"4,10,2048,64": by_shape["4,10,2048,64"]}
     gc.collect()
     torch.cuda.empty_cache()
     log("== mesh")
     mstats = mesh_phase(single)
+    approx["mesh_deepcache"] = mstats["deepcache"]
     source = "omg_tpu_torch/ops/csrc/flash_attention.cu"
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "bound_share")
@@ -2398,13 +2844,24 @@ def main() -> int:
         "serving_path_launches": {
             name: serve[name]["launches"]
             for name in ("throughput", "config5", "guess_mode", "http")},
-        "preprocessors_path_launches": pre["http"]["launches"]}, {
+        "preprocessors_path_launches": pre["http"]["launches"],
+        "approximate_path_launches": {
+            "deepcache_uniform": approx["deepcache"]["uniform"]["launches"],
+            "deepcache_front": approx["deepcache"]["front"]["launches"],
+            "deepcache_config3": approx["deepcache_config3"]["launches"],
+            "concept_crop": approx["crop"]["launches"],
+            "w8a8": approx["w8a8"]["generate"]["launches"],
+            "served_front": approx["serving"]["launches"],
+            "mesh_deepcache_by_rank": [
+                dc["launches"] for dc in mstats["deepcache"]]}}, {
         "name": "flash_attention_fwd_seq_local",
         "route": "cuda",
         "source": source,
         "replaces": "omg_tpu/ops/flash_attention.py:108-126 via :249",
         "launches": mstats["seq_launches"][0],
         "launches_by_rank": mstats["seq_launches"],
+        "approximate_path_launches": {"mesh_deepcache_by_rank": [
+            dc["seq_launches"] for dc in mstats["deepcache"]]},
         **{key: sstats[key] for key in timed},
         "timed_at": "q [%d,%d,%d,64] against k/v of %d, bf16"
                     % SEQ_TIMED_SHAPE}]}
@@ -2414,6 +2871,7 @@ def main() -> int:
     log(json.dumps({"checkpoint": ckpt}))
     log(json.dumps({"serving": serve}))
     log(json.dumps({"preprocessors": pre}))
+    log(json.dumps({"approximate": approx}))
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

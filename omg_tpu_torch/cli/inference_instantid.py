@@ -58,10 +58,11 @@ def parse_args(argv=None):
     p.add_argument("--height", default=1024, type=int)
     p.add_argument("--width", default=1024, type=int)
     p.add_argument("--cache_interval", default=0, type=int, metavar="N",
-                   help="DeepCache; not ported (0 = exact)")
+                   help="approximate mode: DeepCache every N-th step "
+                        "(0 = exact)")
     p.add_argument("--cache_schedule", default="uniform",
                    choices=["uniform", "front"],
-                   help="DeepCache full-step placement; not ported")
+                   help="DeepCache full-step placement")
     p.add_argument("--device", default="cuda",
                    help="device of the models: cuda (default) or cpu")
     return p.parse_args(argv)
@@ -145,7 +146,9 @@ def main(argv=None):
 
     engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok1,
                          tokenizer_2=tok2, mask_provider=provider,
-                         cn_cfg=idnet_cfg, num_steps=args.num_steps)
+                         cn_cfg=idnet_cfg, num_steps=args.num_steps,
+                         cache_interval=args.cache_interval,
+                         cache_schedule=args.cache_schedule)
     result = engine.generate(
         args.prompt, negative_prompt=args.negative_prompt,
         prompt_rewrite=args.prompt_rewrite,

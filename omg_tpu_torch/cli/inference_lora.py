@@ -9,9 +9,11 @@ an optional style LoRA, the segment type, the seed), plus ``--device``
 and ``image---<suffix>---<hash>.txt`` holding the four config lines, the
 hash being the first 8 hex digits of their sha256.
 
-Options the port does not have yet raise ``NotImplementedError`` before
-any weight loads: ``--mesh`` (ROADMAP §1 item 8) and DeepCache,
-``--cache_interval`` > 1 or ``--cache_schedule front`` (item 6).
+``--cache_interval N`` (> 1) and ``--cache_schedule`` turn on DeepCache,
+the approximate mode (a full UNet forward every N-th step, a shallow one
+from the cached feature otherwise). ``--mesh`` is not ported to the CLI
+yet and raises ``NotImplementedError`` before any weight loads (ROADMAP
+§1 item 8).
 
 Usage:
     python -m omg_tpu_torch.cli.inference_lora \
@@ -63,10 +65,14 @@ def parse_args(argv=None):
                         help="multi-device latency mode over N devices; "
                              "not ported to the CLI (0 = one device)")
     parser.add_argument("--cache_interval", default=0, type=int,
-                        metavar="N", help="DeepCache; not ported (0 = exact)")
+                        metavar="N",
+                        help="approximate mode: DeepCache, a full UNet "
+                             "forward every N-th step and a shallow one "
+                             "from the cache otherwise (0 = exact)")
     parser.add_argument("--cache_schedule", default="uniform",
                         choices=["uniform", "front"],
-                        help="DeepCache full-step placement; not ported")
+                        help="DeepCache full-step placement: 'front' packs "
+                             "the same number of full steps towards step 0")
     parser.add_argument("--device", default="cuda",
                         help="device of the models: cuda (default) or cpu")
     return parser.parse_args(argv)
@@ -78,10 +84,6 @@ def check_not_ported(args) -> None:
         raise NotImplementedError(
             f"--mesh {args.mesh}: the multi-device mode of the CLI is not "
             "ported yet (ROADMAP §1 item 8)")
-    if args.cache_interval > 1 or args.cache_schedule == "front":
-        raise NotImplementedError(
-            "--cache_interval / --cache_schedule: DeepCache is not ported "
-            "yet (ROADMAP §1 item 6, approximate modes)")
 
 
 def load_condition(path: str, height: int, width: int):
@@ -166,7 +168,9 @@ def main(argv=None):
              if args.style_lora else None)
     engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok1,
                          tokenizer_2=tok2, mask_provider=provider,
-                         cn_cfg=cn_cfg, num_steps=args.num_steps)
+                         cn_cfg=cn_cfg, num_steps=args.num_steps,
+                         cache_interval=args.cache_interval,
+                         cache_schedule=args.cache_schedule)
     result = engine.generate(
         args.prompt, negative_prompt=args.negative_prompt,
         prompt_rewrite=args.prompt_rewrite,

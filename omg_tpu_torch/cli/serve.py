@@ -12,10 +12,11 @@ preprocessors that turn a photo into a pose or depth map
 ``--dpt_checkpoint``: a transformers DPT directory); ``--warmup`` runs
 ``serving.warmup.default_serving_warmup`` before serving.
 
-Options the port does not have yet raise ``NotImplementedError`` before
-any weight loads: ``--mesh`` (ROADMAP §1 item 8), ``--quantize``,
-``--concept_crop`` and ``--cache_interval`` > 1 or ``--cache_schedule
-front`` (item 6, approximate modes).
+The approximate modes: ``--quantize int8`` (W8A8 on the UNet's
+transformer linears), ``--concept_crop`` (stage 2's concept lanes on
+strips) and DeepCache (``--cache_interval``, ``--cache_schedule``; also
+per request). ``--mesh`` is not ported to the CLI yet and raises
+``NotImplementedError`` before any weight loads (ROADMAP §1 item 8).
 """
 
 from __future__ import annotations
@@ -52,18 +53,22 @@ def parse_args(argv=None):
     p.add_argument("--dpt_checkpoint", default="",
                    help="transformers DPT directory (photo -> depth map)")
     p.add_argument("--quantize", default="", choices=["", "int8"],
-                   help="int8 W8A8 transformer GEMMs; not ported")
+                   help="approximate mode: int8 W8A8 transformer linears")
     p.add_argument("--scheduler", default="euler",
                    choices=["euler", "ddim", "dpmpp_2m", "lcm"],
                    help="lcm + --num_steps 8 is the few-step serving mode "
                         "(needs an LCM-LoRA'd checkpoint)")
     p.add_argument("--concept_crop", action="store_true",
-                   help="stage-2 concept lanes on strips; not ported")
+                   help="approximate mode: stage-2 concept lanes on "
+                        "vertical strips (exact per request when "
+                        "per-concept ControlNets are on)")
     p.add_argument("--cache_interval", default=0, type=int, metavar="N",
-                   help="DeepCache; not ported (0 = exact)")
+                   help="approximate mode: DeepCache every N-th step "
+                        "(0 = exact); exclusive with --concept_crop")
     p.add_argument("--cache_schedule", default="uniform",
                    choices=["uniform", "front"],
-                   help="DeepCache full-step placement; not ported")
+                   help="DeepCache full-step placement; also a per-request "
+                        "job field")
     p.add_argument("--mesh", default=0, type=int, metavar="N",
                    help="multi-device latency mode; not ported to the CLI "
                         "(0 = one device)")
@@ -76,10 +81,6 @@ def check_not_ported(args) -> None:
     """Raise for the options the port does not have yet, before loading."""
     from omg_tpu_torch.cli.inference_lora import check_not_ported as common
     common(args)
-    if args.quantize or args.concept_crop:
-        raise NotImplementedError(
-            "--quantize / --concept_crop: the approximate modes are not "
-            "ported yet (ROADMAP §1 item 6)")
 
 
 def build_server(args):
@@ -102,7 +103,11 @@ def build_server(args):
         device=device)
     engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok1,
                          tokenizer_2=tok2, mask_provider=provider,
-                         num_steps=args.num_steps, scheduler=args.scheduler)
+                         num_steps=args.num_steps, scheduler=args.scheduler,
+                         quantize=args.quantize,
+                         concept_crop=args.concept_crop,
+                         cache_interval=args.cache_interval,
+                         cache_schedule=args.cache_schedule)
     registry = (Registry.from_json(args.registry) if args.registry
                 else default_registry())
 
@@ -162,7 +167,9 @@ def build_server(args):
                          if isinstance(sample, dict) else None),
             sample_ip_adapter=(iid.ip_adapter_layers
                                if iid is not None else None),
-            vae_params=engine.params.vae, max_batch=server.max_batch)
+            vae_params=engine.params.vae,
+            cache_interval=args.cache_interval,
+            cache_schedule=args.cache_schedule, max_batch=server.max_batch)
     return server
 
 

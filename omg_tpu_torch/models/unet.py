@@ -21,6 +21,17 @@ after the down blocks, ``mid_block_residual`` after the mid block; NCHW,
 the layout ``models/controlnet.py`` returns) and the IP-Adapter branch
 (``ip_adapter``: one ``IPKV`` per attn2 in traversal order, over
 ``ip_context`` tokens scaled by ``ip_scale``).
+
+DeepCache (Ma et al. 2023, arXiv 2312.00858; the JAX ``apply(...,
+return_cache=True)``/``apply_shallow``): ``forward(..., return_cache=True)``
+also returns the feature entering the last up block, and
+``apply_shallow`` recomputes only the shallowest level (conv_in and
+down_blocks[0] for fresh skips) and resumes from that feature through the
+last up block and the head. At SDXL's geometry level 0 has no attention,
+so a shallow step launches no attention kernel and applies no LoRA, IP or
+P2P edit; a geometry whose level 0 has attention takes them there (the IP
+layers of down block 0, then those of the last up block, the traversal
+order's tail).
 """
 
 from __future__ import annotations
@@ -219,14 +230,15 @@ class UNet2DConditionModel(nn.Module):
                 seq_group=None, down_block_residuals=None,
                 mid_block_residual: Optional[torch.Tensor] = None,
                 ip_adapter=None, ip_context: Optional[torch.Tensor] = None,
-                ip_scale: float = 1.0) -> torch.Tensor:
+                ip_scale: float = 1.0, return_cache: bool = False):
         """sample: [B, h, w, 4] NHWC latents -> eps prediction, same shape.
         ``seq_group``: sample is this rank's block of rows of the latent
         (``parallel.comm.Group``, equal blocks in group order).
         ``down_block_residuals``/``mid_block_residual``: ControlNet
         residuals, NCHW. ``ip_adapter``: a sequence of ``IPKV``, one per
         attn2 (``num_cross_attention_layers``), with ``ip_context``
-        [B, T, cross_attention_dim]."""
+        [B, T, cross_attention_dim]. ``return_cache``: (eps, the DeepCache
+        feature entering the last up block, NCHW ``cache_shape``)."""
         ctx, seq = encoder_hidden_states, seq_group
         ip = None
         if ip_adapter is not None and ip_context is not None:
@@ -255,17 +267,69 @@ class UNet2DConditionModel(nn.Module):
         if mid_block_residual is not None:
             x = x + mid_block_residual.to(x.dtype)
 
-        for blk in self.up_blocks:
-            for ri, res in enumerate(blk.resnets):
-                x = torch.cat([x, residuals.pop().to(x.dtype)], dim=1)
-                x = res(x, temb, seq)
-                if len(blk.attentions):
-                    x = blk.attentions[ri](x, ctx, lora, control, seq, ip)
+        cache = None
+        for bi, blk in enumerate(self.up_blocks):
+            if bi == len(self.up_blocks) - 1:
+                cache = x
+            x = self._up_block(blk, x, residuals, temb, ctx, lora, control,
+                               seq, ip)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0].conv(layers.upsample_nearest_2x(x), seq)
+        out = self._head(x, seq)
+        return (out, cache) if return_cache else out
 
+    def _up_block(self, blk, x, residuals, temb, ctx, lora, control, seq,
+                  ip):
+        for ri, res in enumerate(blk.resnets):
+            x = torch.cat([x, residuals.pop().to(x.dtype)], dim=1)
+            x = res(x, temb, seq)
+            if len(blk.attentions):
+                x = blk.attentions[ri](x, ctx, lora, control, seq, ip)
+        return x
+
+    def _head(self, x, seq):
         x = torch.nn.functional.silu(self.conv_norm_out(x, seq))
         return self.conv_out(x, seq).permute(0, 2, 3, 1)
+
+    def apply_shallow(self, sample: torch.Tensor, timestep,
+                      encoder_hidden_states: torch.Tensor, *,
+                      text_embeds: torch.Tensor, time_ids: torch.Tensor,
+                      cache: torch.Tensor, lora: Optional[dict] = None,
+                      control=None, seq_group=None, ip_adapter=None,
+                      ip_context: Optional[torch.Tensor] = None,
+                      ip_scale: float = 1.0) -> torch.Tensor:
+        """The DeepCache shallow forward (branch 0): conv_in and
+        down_blocks[0] for fresh skips, then the last up block from
+        ``cache`` (a full forward's ``return_cache`` feature) and the
+        head. Fed the cache of a full forward at the same (sample, t), it
+        gives that forward's eps: the approximation is only the cache's
+        age. ``seq_group``: the spatial split, as ``forward``'s (the cache
+        holds the same rows)."""
+        ctx, seq = encoder_hidden_states, seq_group
+        ip = None
+        last = self.up_blocks[-1]
+        if ip_adapter is not None and ip_context is not None:
+            ip_layers = list(ip_adapter)
+            first = self.down_blocks[0]
+            n_first = sum(len(a.transformer_blocks) for a in first.attentions)
+            n_last = sum(len(a.transformer_blocks) for a in last.attentions)
+            # down block 0's attn2 layers lead the traversal order, the
+            # last up block's end it
+            ip = IPInputs(ip_layers[:n_first]
+                          + ip_layers[len(ip_layers) - n_last:],
+                          ip_context.to(self.cfg.dtype), ip_scale)
+        temb = self.time_embeddings(timestep, text_embeds, time_ids)
+        x = self.conv_in(sample.permute(0, 3, 1, 2), seq)
+        residuals = [x]
+        blk = self.down_blocks[0]
+        for ri, res in enumerate(blk.resnets):
+            x = res(x, temb, seq)
+            if len(blk.attentions):
+                x = blk.attentions[ri](x, ctx, lora, control, seq, ip)
+            residuals.append(x)
+        x = self._up_block(last, cache, residuals, temb, ctx, lora, control,
+                           seq, ip)
+        return self._head(x, seq)
 
 
 def time_embeddings(model: nn.Module, cfg: UNetConfig, timestep,
@@ -298,6 +362,14 @@ def init_params(generator: torch.Generator, cfg: UNetConfig,
     (the generator's device when None)."""
     return layers.init_params(UNet2DConditionModel(
         cfg, device or generator.device), generator)
+
+
+def cache_shape(cfg: UNetConfig, batch: int, h: int, w: int) -> tuple:
+    """The DeepCache feature of an [batch, h, w, 4] latent, NCHW: the input
+    of the last up block, at the latent's resolution with the channels of
+    the second-shallowest level (the JAX ``cache_shape`` is its NHWC
+    form)."""
+    return (batch, cfg.block_out_channels[1], h, w)
 
 
 def num_cross_attention_layers(cfg: UNetConfig) -> int:

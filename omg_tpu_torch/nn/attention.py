@@ -27,6 +27,7 @@ from torch import nn
 
 from omg_tpu_torch.nn import layers
 from omg_tpu_torch.ops import flash_attention as fa
+from omg_tpu_torch.ops import quant
 from omg_tpu_torch.parallel import comm
 
 # Sequence-sharded self-attentions that ran the plain version (CPU
@@ -75,6 +76,18 @@ def _plus_lora(y: torch.Tensor, lin: layers.Linear, inp: torch.Tensor,
     return y if leaf is None else y + layers.lora_delta(leaf, inp)
 
 
+def _fused(inp: torch.Tensor, members: tuple) -> tuple:
+    """One product over the concatenated projections ``members`` (one
+    layout: float, or int8 whose per-output-channel scales concatenate
+    exactly) -> each member's output."""
+    if members[0].quantized:
+        y = quant.int8_matmul(inp, torch.cat([m.weight_q for m in members]),
+                              torch.cat([m.w_scale for m in members]))
+    else:
+        y = F.linear(inp, torch.cat([m.weight for m in members]))
+    return y.chunk(len(members), dim=-1)
+
+
 class IPKV(nn.Module):
     """One attn2's IP-Adapter projections over the image-prompt tokens
     (no bias: a lane with zero tokens gets a zero branch)."""
@@ -121,19 +134,22 @@ class Attention(nn.Module):
         ctx = context if is_cross else x
         fusable = (self.to_q.bias is None and self.to_k.bias is None
                    and self.to_v.bias is None)
-        if fusable and not is_cross:
+        # a fused product needs one layout over its members: the int8
+        # mode's min_dim gate may leave a small projection in float beside
+        # quantized ones, and such a group takes the per-projection path
+        same_qkv = len({m.quantized for m in (self.to_q, self.to_k,
+                                              self.to_v)}) == 1
+        if fusable and not is_cross and same_qkv:
             # one [C, 3*inner] product for q, k and v (same input)
-            w = torch.cat([self.to_q.weight, self.to_k.weight,
-                           self.to_v.weight])
-            q, k, v = F.linear(x, w).chunk(3, dim=-1)
+            q, k, v = _fused(x, (self.to_q, self.to_k, self.to_v))
             q = _plus_lora(q, self.to_q, x, lora)
             k = _plus_lora(k, self.to_k, x, lora)
             v = _plus_lora(v, self.to_v, x, lora)
-        elif fusable:
+        elif fusable and is_cross and \
+                self.to_k.quantized == self.to_v.quantized:
             # one [C_ctx, 2*inner] product for k and v over the context
             q = self.to_q(x, lora)
-            w = torch.cat([self.to_k.weight, self.to_v.weight])
-            k, v = F.linear(ctx, w).chunk(2, dim=-1)
+            k, v = _fused(ctx, (self.to_k, self.to_v))
             k = _plus_lora(k, self.to_k, ctx, lora)
             v = _plus_lora(v, self.to_v, ctx, lora)
         else:

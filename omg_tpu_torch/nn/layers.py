@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from omg_tpu_torch.ops import quant
 from omg_tpu_torch.parallel import comm
 
 
@@ -68,6 +69,8 @@ def lora_delta(leaf: dict, x: torch.Tensor) -> torch.Tensor:
 class Linear(nn.Module):
     """``x @ W.T`` plus this layer's LoRA delta, then the bias."""
 
+    quantized = False
+
     def __init__(self, in_dim: int, out_dim: int, *, bias: bool = True,
                  dtype=torch.float32, device=None):
         super().__init__()
@@ -78,12 +81,41 @@ class Linear(nn.Module):
     def lora_leaf(self, lora: Optional[dict]) -> Optional[dict]:
         return None if lora is None else lora.get(self.lora_key)
 
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """The base product ``x @ W.T``, without LoRA or bias."""
+        return F.linear(x, self.weight)
+
     def forward(self, x: torch.Tensor, lora: Optional[dict] = None):
         leaf = self.lora_leaf(lora)
-        if leaf is None:
+        if leaf is None and not self.quantized:
             return F.linear(x, self.weight, self.bias)
-        y = F.linear(x, self.weight) + lora_delta(leaf, x)
+        y = self.matmul(x)
+        if leaf is not None:
+            y = y + lora_delta(leaf, x)
         return y if self.bias is None else y + self.bias
+
+
+class QuantLinear(Linear):
+    """A ``Linear`` whose base product is int8 W8A8 (``ops/quant.py``):
+    int8 ``weight_q`` [out, in] and fp32 ``w_scale`` [out] in place of
+    ``weight``; the LoRA delta and the bias stay in the compute dtype."""
+
+    quantized = True
+
+    @staticmethod
+    def quantize_(m: Linear) -> "QuantLinear":
+        """Turn the Linear ``m`` into a QuantLinear in place; its float
+        weight is dropped from ``m`` (not freed if another module holds
+        it)."""
+        wq, scale = quant.quantize_weight(m.weight)
+        m.weight = None
+        m.__class__ = QuantLinear
+        m.register_buffer("weight_q", wq)
+        m.register_buffer("w_scale", scale)
+        return m
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        return quant.int8_matmul(x, self.weight_q, self.w_scale)
 
 
 class Conv2d(nn.Module):
@@ -211,7 +243,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
                             dtype=torch.float32) * std)
 
     for m in model.modules():
-        if isinstance(m, (Linear, Conv2d)):
+        if isinstance(m, (Linear, Conv2d)) and m.weight is not None:
             fan_in = m.weight[0].numel()
             normal(m.weight, 1.0 / math.sqrt(max(fan_in, 1)))
             if m.bias is not None:

@@ -35,8 +35,23 @@ Conditioning on one device, in every program (the JAX package's
 IdentityNet on the concept lanes, and the IP-Adapter tokens on the
 concept lanes (zero tokens on the base lanes: an exact no-op, ``to_v_ip``
 has no bias). Their residuals are summed per lane, with zero rows for
-lanes no ControlNet serves. Under the mesh layouts, and with DeepCache or
-the concept crop strips, they raise ``NotImplementedError``.
+lanes no ControlNet serves. Under the mesh layouts they raise
+``NotImplementedError``.
+
+The approximate modes (opt-in, as in JAX):
+  * DeepCache (``cache_interval``, Ma et al. 2023): in every denoise range
+    a full UNet forward on the range's first step and then every
+    ``cache_interval``-th step phased from the range's start (an int), or
+    where a per-step schedule tuple says True (``deepcache_schedule``),
+    keeps the feature entering the last up block; the other steps run
+    ``apply_shallow`` from it, and skip the ControlNet forwards. The cache
+    is per lane, so it splits with the lanes and rows of the mesh layouts
+    and spans the request axis of the batched programs.
+  * the concept-crop strips (``concept_crop``,
+    ``_denoise_mc_range_traj_cropped``): stage 2's base rows full-frame,
+    each concept's lanes on its vertical strip of the latent.
+Both are host control flow here: the JAX package's ``lax.cond`` dispatch
+becomes a Python branch per step.
 
 The scheduler state carries LCM's noise seed; every loop steps with
 ``shared_batch_noise``: the batch axis holds copies of one image.
@@ -372,6 +387,82 @@ def duplicate_latents(latents_single: torch.Tensor) -> torch.Tensor:
     return torch.cat([latents_single, latents_single])
 
 
+def dc_on(spec) -> bool:
+    """Whether a DeepCache spec caches: an int interval > 1, or a per-step
+    full/shallow schedule tuple (the JAX ``_dc_on``)."""
+    return isinstance(spec, tuple) or (not isinstance(spec, bool)
+                                       and isinstance(spec, int) and spec > 1)
+
+
+# The named full-step placements ``deepcache_schedule`` takes (the server
+# checks request fields against them).
+DEEPCACHE_SCHEDULES = ("uniform", "front")
+
+
+def deepcache_schedule(num_steps: int, interval: int, *,
+                       kind: str = "front", power: float = 2.0,
+                       fusion_start: Optional[int] = None) -> tuple:
+    """Per-step DeepCache schedule, True = full forward: as many full
+    steps as a uniform ``interval`` over [0, num_steps), placed by
+    ``kind``. "front": the k-th at round((k / (n_full - 1))^power *
+    (num_steps - 1)), collisions shifted right, so they pack towards step
+    0 where the trajectory moves fastest. "uniform": the modulo schedule
+    on global step numbers (the int form phases it from each range's
+    start instead). ``fusion_start`` is forced full (stage 2's fusion
+    starts on a fresh cache); range starts are forced full at dispatch."""
+    if interval <= 1:
+        raise ValueError("schedule needs interval > 1")
+    n_full = -(-num_steps // interval)
+    if kind == "uniform":
+        idxs = set(range(0, num_steps, interval))
+    elif kind == "front":
+        idxs = set()
+        for k in range(n_full):
+            i = round((k / max(n_full - 1, 1)) ** power * (num_steps - 1))
+            while i in idxs:
+                i += 1
+            if i < num_steps:
+                idxs.add(i)
+    else:
+        raise ValueError(f"unknown DeepCache schedule kind {kind!r}")
+    idxs.add(0)
+    if fusion_start is not None and 0 <= fusion_start < num_steps:
+        idxs.add(fusion_start)
+    return tuple(i in idxs for i in range(num_steps))
+
+
+class _DeepCache:
+    """One denoise range's DeepCache: which steps run the full forward
+    (the JAX ``_deepcache_cond``: an int interval phased from the range's
+    start ``i0``, a tuple indexed by the global step, the first step of
+    the range always full) and the feature the last full one kept."""
+
+    def __init__(self, spec, i0: int):
+        self.spec, self.i0, self.on = spec, i0, dc_on(spec)
+        self.feature = None
+
+    def full(self, i: int) -> bool:
+        if not self.on:
+            return True
+        if isinstance(self.spec, tuple):
+            return bool(self.spec[i]) or i == self.i0
+        return (i - self.i0) % self.spec == 0
+
+    def step(self, unet, i: int, lanes, t, embeds, residuals=None, **kw):
+        """The UNet's eps at step i: the full forward (its ControlNet
+        residuals from ``residuals()``, the cache kept) or the shallow one
+        from the cache. ``kw``: the arguments both take."""
+        if not self.full(i):
+            return unet.apply_shallow(lanes, t, embeds, cache=self.feature,
+                                      **kw)
+        down, mid = residuals() if residuals is not None else (None, None)
+        out = unet(lanes, t, embeds, down_block_residuals=down,
+                   mid_block_residual=mid, return_cache=self.on, **kw)
+        if self.on:
+            out, self.feature = out
+        return out
+
+
 class Spatial(NamedTuple):
     """Stage 1's multi-device layout over ``mesh`` (the JAX
     ``spatial_sharding``): the two CFG lanes [uncond, cond] split over the
@@ -398,12 +489,14 @@ def _denoise_cfg_range_spatial(sched: schedulers.Schedule, unet,
                                latents: torch.Tensor,
                                state: schedulers.SchedulerState,
                                embeds2, tembeds2, tids2, guidance, *,
-                               i0: int, i1: int, spatial: Spatial) -> tuple:
+                               i0: int, i1: int, spatial: Spatial,
+                               cache_interval=0) -> tuple:
     """``_denoise_cfg_range`` under a ``Spatial`` layout. Each rank runs
     its CFG lanes on its block of latent rows; the eps of both lanes are
     gathered over the data axis, so CFG and the scheduler step run on the
     rank's rows, and the rows are gathered over the model axis at the
-    end: every rank returns the whole latents."""
+    end: every rank returns the whole latents. The DeepCache feature is
+    the rank's lanes and rows of it."""
     lanes, seq = _spatial_ctx(spatial)
     lo, hi = lanes.lo, lanes.hi
     x = latents
@@ -415,11 +508,13 @@ def _denoise_cfg_range_spatial(sched: schedulers.Schedule, unet,
         rows = h // seq.size
         x = latents[:, seq.index * rows:(seq.index + 1) * rows]
     st = state
+    dc = _DeepCache(cache_interval, i0)
     for i in range(i0, i1):
         t = int(sched.timesteps[i])
         lin = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
-        eps = unet(lin[lo:hi], t, embeds2[lo:hi], text_embeds=tembeds2[lo:hi],
-                   time_ids=tids2[lo:hi], seq_group=seq)
+        eps = dc.step(unet, i, lin[lo:hi], t, embeds2[lo:hi],
+                      text_embeds=tembeds2[lo:hi], time_ids=tids2[lo:hi],
+                      seq_group=seq)
         eps = comm.all_gather(eps, 0, lanes.group, sizes=lanes.sizes)
         guided = sampling.cfg_combine(eps, guidance)
         noise = None
@@ -442,14 +537,17 @@ def _denoise_cfg_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                        base_inputs: BaseInputs, *, i0: int, i1: int,
                        record_traj: bool = False,
                        spatial: Optional[Spatial] = None,
-                       base_controlnets: Sequence = ()) -> tuple:
+                       base_controlnets: Sequence = (),
+                       cache_interval=0) -> tuple:
     """Plain b=1 CFG denoise over steps [i0, i1) on rows [uncond, cond].
 
     ``record_traj`` also returns each step's input latent stacked
     [i1-i0, 1, h, w, 4] (copy A's stage-2 lane inputs). ``spatial``: the
     multi-device layout (``_denoise_cfg_range_spatial``); it records no
     trajectory. ``base_controlnets``: spatial ControlNets on both rows
-    (row 1 is the conditional one for guess mode)."""
+    (row 1 is the conditional one for guess mode). ``cache_interval``:
+    the DeepCache spec (``_DeepCache``); shallow steps skip the
+    ControlNets."""
     rows = [0, 2]
     embeds2 = base_inputs.prompt_embeds[rows]
     tembeds2 = base_inputs.text_embeds[rows]
@@ -462,19 +560,20 @@ def _denoise_cfg_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                              "trajectory (its stage 2 is the 4+2K program)")
         return _denoise_cfg_range_spatial(
             sched, unet, latents, state, embeds2, tembeds2, tids2,
-            base_inputs.guidance_scale, i0=i0, i1=i1, spatial=spatial)
+            base_inputs.guidance_scale, i0=i0, i1=i1, spatial=spatial,
+            cache_interval=cache_interval)
     traj = []
     x, st = latents, state
+    dc = _DeepCache(cache_interval, i0)
     for i in range(i0, i1):
         if record_traj:
             traj.append(x)
         t = int(sched.timesteps[i])
         lin = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
-        down, mid = _controlnet_residuals(
+        eps = dc.step(unet, i, lin, t, embeds2, lambda: _controlnet_residuals(
             base_controlnets, lin, t, embeds2, tembeds2, tids2, step_i=i,
-            num_steps=sched.num_steps, cond_rows=(1,))
-        eps = unet(lin, t, embeds2, text_embeds=tembeds2, time_ids=tids2,
-                   down_block_residuals=down, mid_block_residual=mid)
+            num_steps=sched.num_steps, cond_rows=(1,)),
+            text_embeds=tembeds2, time_ids=tids2)
         guided = sampling.cfg_combine(eps, base_inputs.guidance_scale)
         x, st = schedulers.step(sched, st, guided, i, x,
                                 shared_batch_noise=True)
@@ -495,14 +594,15 @@ def _denoise_mc_range_traj(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                            concept_ip_adapters: Sequence = (),
                            ip_scale: float = 1.0,
                            base_controlnets: Sequence = (),
-                           concept_controlnets: Sequence = ()
-                           ) -> torch.Tensor:
+                           concept_controlnets: Sequence = (),
+                           cache_interval=0) -> torch.Tensor:
     """Stage-2 suffix over steps [i0, S) with copy A as one
     trajectory-fed lane: lanes [cond_A, uncond_B, cond_B, c1_unc,
     c1_cond, c2_unc, ...]. latent_b: [1, h, w, 4] -> copy B's final.
 
     The base ControlNets run on lanes [:3] (rows 0 and 2 conditional), the
-    concept ControlNets (IdentityNet) on the 2K concept lanes."""
+    concept ControlNets (IdentityNet) on the 2K concept lanes.
+    ``cache_interval``: DeepCache over all 3+2K lanes."""
     K = len(concept_inputs)
     bidx = [2, 1, 3]    # [cond_A, uncond_B, cond_B] of the 4-row layout
     c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx = \
@@ -513,6 +613,7 @@ def _denoise_mc_range_traj(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     tids = torch.cat([base_inputs.time_ids[bidx], c_tids])
     masks = masks.to(latent_b.dtype)
     x, st = latent_b, state
+    dc = _DeepCache(cache_interval, i0)
     for i in range(i0, sched.num_steps):
         t = int(sched.timesteps[i])
         lin_a = schedulers.scale_model_input(sched, a_traj[i - i0], i)
@@ -521,19 +622,22 @@ def _denoise_mc_range_traj(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                            lin_b[1:2].expand((2 * K,) + lin_b.shape[1:])])
         ctrl = (controller.at_step(i, src_lane=0, dst_lane=2)
                 if controller is not None else None)
-        down, mid = _lane_residuals(
-            _controlnet_residuals(
-                base_controlnets, lanes[:3], t, embeds[:3], tembeds[:3],
-                tids[:3], step_i=i, num_steps=sched.num_steps,
-                cond_rows=(0, 2)),
-            _concept_cn_residuals(
-                concept_controlnets, concept_inputs, lanes[3:], t,
-                tembeds[3:], tids[3:], step_i=i, num_steps=sched.num_steps),
-            3, 2 * K)
-        eps_all = unet(lanes, t, embeds, text_embeds=tembeds, time_ids=tids,
-                       lora=lane_lora, control=ctrl,
-                       down_block_residuals=down, mid_block_residual=mid,
-                       ip_adapter=ipk, ip_context=ip_ctx, ip_scale=ip_scale)
+
+        def residuals():
+            return _lane_residuals(
+                _controlnet_residuals(
+                    base_controlnets, lanes[:3], t, embeds[:3], tembeds[:3],
+                    tids[:3], step_i=i, num_steps=sched.num_steps,
+                    cond_rows=(0, 2)),
+                _concept_cn_residuals(
+                    concept_controlnets, concept_inputs, lanes[3:], t,
+                    tembeds[3:], tids[3:], step_i=i,
+                    num_steps=sched.num_steps),
+                3, 2 * K)
+        eps_all = dc.step(unet, i, lanes, t, embeds, residuals,
+                          text_embeds=tembeds, time_ids=tids, lora=lane_lora,
+                          control=ctrl, ip_adapter=ipk, ip_context=ip_ctx,
+                          ip_scale=ip_scale)
         edit = eps_all[1:3]                          # [uncond_B, cond_B]
         region_preds = eps_all[3:].reshape((K, 2) + tuple(latent_b.shape[1:]))
         fused = regions.fuse_region_edit(edit, region_preds, masks,
@@ -554,8 +658,8 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                       concept_ip_adapters: Sequence = (),
                       ip_scale: float = 1.0,
                       base_controlnets: Sequence = (),
-                      concept_controlnets: Sequence = ()
-                      ) -> torch.Tensor:
+                      concept_controlnets: Sequence = (),
+                      cache_interval=0) -> torch.Tensor:
     """Stage-2 loop over steps [i0, S) on the reference's 4+2K lanes:
     [uncond_A, uncond_B, cond_A, cond_B] from both latent copies, then
     concept k's (uncond, cond) pair on lanes 4+2k, 4+2k+1, fed copy B's
@@ -569,8 +673,14 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     the same on every rank and every rank carries the same latents.
 
     Unsharded, the base ControlNets run on lanes [:4] (rows 2 and 3
-    conditional) and the concept ControlNets on the 2K concept lanes."""
+    conditional) and the concept ControlNets on the 2K concept lanes.
+    ``cache_interval``: DeepCache over the lanes (each rank keeps its
+    lanes' feature under ``lane_sharding``)."""
     K = len(concept_inputs)
+    if K == 0 and dc_on(cache_interval):
+        raise ValueError(
+            "cache_interval on the 4+2K program needs >=1 concept "
+            "(zero-concept stage 2 takes the plain CFG path)")
     if K == 0 and lane_sharding is not None:
         raise ValueError(
             "lane_sharding requires at least one concept (zero-concept "
@@ -599,25 +709,29 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     lane_lora = lora_lib.lane_slice(lane_lora, lo, hi)
     masks = masks.to(latents.dtype)
     x, st = latents, state
+    dc = _DeepCache(cache_interval, i0)
     for i in range(i0, sched.num_steps):
         t = int(sched.timesteps[i])
         lin4 = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
         rows = torch.cat([lin4, lin4[3:4].expand((2 * K,) + lin4.shape[1:])])
         ctrl = (controller.at_step(i, lanes=lanes)
                 if controller is not None else None)
-        down, mid = _lane_residuals(
-            _controlnet_residuals(
-                base_controlnets, lin4, t, base_inputs.prompt_embeds,
-                base_inputs.text_embeds, base_inputs.time_ids, step_i=i,
-                num_steps=sched.num_steps, cond_rows=(2, 3)),
-            _concept_cn_residuals(
-                concept_controlnets, concept_inputs, rows[4:], t,
-                tembeds[4:], tids[4:], step_i=i, num_steps=sched.num_steps),
-            4, 2 * K)
-        eps_all = unet(rows[lo:hi], t, embeds, text_embeds=tembeds,
-                       time_ids=tids, lora=lane_lora, control=ctrl,
-                       down_block_residuals=down, mid_block_residual=mid,
-                       ip_adapter=ipk, ip_context=ip_ctx, ip_scale=ip_scale)
+
+        def residuals():
+            return _lane_residuals(
+                _controlnet_residuals(
+                    base_controlnets, lin4, t, base_inputs.prompt_embeds,
+                    base_inputs.text_embeds, base_inputs.time_ids, step_i=i,
+                    num_steps=sched.num_steps, cond_rows=(2, 3)),
+                _concept_cn_residuals(
+                    concept_controlnets, concept_inputs, rows[4:], t,
+                    tembeds[4:], tids[4:], step_i=i,
+                    num_steps=sched.num_steps),
+                4, 2 * K)
+        eps_all = dc.step(unet, i, rows[lo:hi], t, embeds, residuals,
+                          text_embeds=tembeds, time_ids=tids, lora=lane_lora,
+                          control=ctrl, ip_adapter=ipk, ip_context=ip_ctx,
+                          ip_scale=ip_scale)
         if lanes is not None:
             eps_all = comm.all_gather(eps_all, 0, lane_sharding,
                                       sizes=lanes.sizes)
@@ -649,9 +763,9 @@ def sample_stage1_cached(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     the suffix's per-step store (cache.a_traj is None): the 4+2K stage 2
     never reads it. ``base_controlnets``: spatial ControlNets
     (``ControlNetInputs``). ``noise_seed``: the request's seed, LCM's
-    re-noise seed (the state carries it into stage 2)."""
-    if cache_interval > 1:
-        raise not_ported("DeepCache", "approximate modes")
+    re-noise seed (the state carries it into stage 2).
+    ``cache_interval``: DeepCache (approximate, opt-in) in the prefix and
+    the suffix, each phased from its own start."""
     device = base_inputs.prompt_embeds.device
     if initial_noise is not None:
         lat = schedulers.scale_initial_noise(sched, torch.tensor(
@@ -665,14 +779,151 @@ def sample_stage1_cached(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     lat_b, st_b = _denoise_cfg_range(cfg, sched, unet, lat, state,
                                      base_inputs, i0=0, i1=boundary,
                                      spatial=spatial,
-                                     base_controlnets=base_controlnets)
+                                     base_controlnets=base_controlnets,
+                                     cache_interval=cache_interval)
     out = _denoise_cfg_range(
         cfg, sched, unet, lat_b, st_b, base_inputs, i0=boundary,
         i1=sched.num_steps, record_traj=record_trajectory, spatial=spatial,
-        base_controlnets=base_controlnets)
+        base_controlnets=base_controlnets, cache_interval=cache_interval)
     lat_end, traj = out[0], (out[2] if record_trajectory else None)
     cache = StageCache(lat_b, st_b, a_traj=traj, a_final=lat_end)
     return duplicate_latents(lat_end), cache
+
+
+def _denoise_mc_range_traj_cropped(
+        cfg: sdxl.SDXLConfig, sched: schedulers.Schedule, unet,
+        latent_b: torch.Tensor, state: schedulers.SchedulerState,
+        a_traj: torch.Tensor, base_inputs: BaseInputs, controller,
+        concept_inputs, concept_loras, masks: torch.Tensor, *, i0: int,
+        fusion_start: int = regions.FUSION_START_STEP,
+        concept_ip_adapters: Sequence = (), ip_scale: float = 1.0,
+        base_controlnets: Sequence = ()) -> torch.Tensor:
+    """APPROXIMATE stage-2 suffix with the concept lanes on vertical
+    strips (opt-in ``concept_crop``). The base rows [cond_A, uncond_B,
+    cond_B] run full-frame with exact P2P (src 0, dst 2) and the base
+    ControlNets (rows 0 and 2 conditional), so their eps equal the exact
+    program's; concept k's (uncond, cond) pair runs on columns
+    [k w/K, (k+1) w/K) of copy B's latent only, and its output is written
+    back into a full-frame region prediction. A concept's self-attention
+    and convs no longer see the other strips. ``masks`` must already be
+    clipped to the strips (``check_crop_strips``). latent_b: [1, h, w, 4]
+    -> copy B's final."""
+    K = len(concept_inputs)
+    bidx = [2, 1, 3]    # [cond_A, uncond_B, cond_B] of the 4-row layout
+    b_embeds = base_inputs.prompt_embeds[bidx]
+    b_tembeds = base_inputs.text_embeds[bidx]
+    b_tids = base_inputs.time_ids[bidx]
+    c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx = \
+        _concept_lane_conditioning(concept_inputs, concept_loras, 0)
+    ipk = concept_ip_adapters[0] if concept_ip_adapters else None
+    ws = latent_b.shape[2] // K
+    masks = masks.to(latent_b.dtype)
+    x, st = latent_b, state
+    for i in range(i0, sched.num_steps):
+        t = int(sched.timesteps[i])
+        lin_a = schedulers.scale_model_input(sched, a_traj[i - i0], i)
+        lin_b = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
+        lanes_b = torch.cat([lin_a, lin_b])
+        ctrl = (controller.at_step(i, src_lane=0, dst_lane=2)
+                if controller is not None else None)
+        down, mid = _controlnet_residuals(
+            base_controlnets, lanes_b, t, b_embeds, b_tembeds, b_tids,
+            step_i=i, num_steps=sched.num_steps, cond_rows=(0, 2))
+        eps_base = unet(lanes_b, t, b_embeds, text_embeds=b_tembeds,
+                        time_ids=b_tids, control=ctrl,
+                        down_block_residuals=down, mid_block_residual=mid)
+        lanes_c = torch.cat([
+            lin_b[1:2, :, k * ws:(k + 1) * ws].expand(
+                (2, lin_b.shape[1], ws, lin_b.shape[3]))
+            for k in range(K)])
+        eps_c = unet(lanes_c, t, c_embeds, text_embeds=c_tembeds,
+                     time_ids=c_tids, lora=lane_lora, ip_adapter=ipk,
+                     ip_context=ip_ctx, ip_scale=ip_scale)
+        region_preds = eps_c.new_zeros((K, 2) + tuple(lin_b.shape[1:]))
+        for k in range(K):
+            region_preds[k, :, :, k * ws:(k + 1) * ws] = eps_c[2 * k:2 * k + 2]
+        fused = regions.fuse_region_edit(eps_base[1:3], region_preds, masks,
+                                         active=i > fusion_start)
+        guided = sampling.cfg_combine(fused, base_inputs.guidance_scale)
+        x, st = schedulers.step(sched, st, guided, i, x,
+                                shared_batch_noise=True)
+    return x
+
+
+def crop_strips_ok(cfg: sdxl.SDXLConfig, latent_w: int, k: int) -> bool:
+    """Whether ``latent_w`` splits into k strips whose width survives the
+    UNet's downsample/upsample round trip (the concept-crop
+    precondition)."""
+    ds = 2 ** (len(cfg.unet.block_out_channels) - 1)
+    return k > 0 and latent_w % k == 0 and (latent_w // k) % ds == 0
+
+
+def check_crop_strips(cfg: sdxl.SDXLConfig, masks: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """Check the strip geometry and return the masks clipped to their
+    strips."""
+    if not crop_strips_ok(cfg, masks.shape[-1], k):
+        raise ValueError(
+            f"latent width {masks.shape[-1]} not divisible into "
+            f"{k} UNet-compatible strips")
+    return clip_masks_to_strips(masks, k)
+
+
+def clip_masks_to_strips(masks: torch.Tensor, n_strips: int) -> torch.Tensor:
+    """[K, h, w] masks -> each clipped to its vertical strip, columns
+    [k w/K, (k+1) w/K)."""
+    K, _, w = masks.shape
+    assert K == n_strips, (K, n_strips)
+    ws = w // n_strips
+    cols = torch.arange(w, device=masks.device)
+    windows = torch.stack([(cols >= k * ws) & (cols < (k + 1) * ws)
+                           for k in range(n_strips)]).to(masks.dtype)
+    return masks * windows[:, None, :]
+
+
+def two_stage_latents(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
+                      unet, latents0: torch.Tensor, base_inputs: BaseInputs,
+                      controller, concept_inputs, concept_loras,
+                      masks: torch.Tensor, *,
+                      fusion_start: int = regions.FUSION_START_STEP,
+                      concept_ip_adapters: Sequence = (),
+                      ip_scale: float = 1.0,
+                      noise_seed: Optional[int] = None,
+                      concept_crop: bool = False,
+                      cache_interval=0) -> tuple:
+    """Both stages from ``latents0`` ([1, h, w, 4], already scaled) with
+    the masks given up front -> (stage-1 latents [2, ...], stage-2 latents
+    [2, ...]), with no host read between the stages. ``concept_crop``:
+    the strip program (masks clipped here); ``cache_interval``: DeepCache
+    in every range; the two are exclusive. ``noise_seed``: LCM's re-noise
+    seed."""
+    if dc_on(cache_interval) and concept_crop:
+        raise ValueError("cache_interval and concept_crop are exclusive")
+    state = schedulers.init_state(noise_seed)
+    boundary = min(fusion_start + 1, sched.num_steps)
+    lat_b, st_b = _denoise_cfg_range(cfg, sched, unet, latents0, state,
+                                     base_inputs, i0=0, i1=boundary,
+                                     cache_interval=cache_interval)
+    lat1, _, traj = _denoise_cfg_range(
+        cfg, sched, unet, lat_b, st_b, base_inputs, i0=boundary,
+        i1=sched.num_steps, record_traj=True, cache_interval=cache_interval)
+    if len(concept_inputs) == 0 or traj.shape[0] == 0:
+        return duplicate_latents(lat1), duplicate_latents(lat1)
+    K = len(concept_inputs)
+    kw = dict(i0=boundary, fusion_start=fusion_start,
+              concept_ip_adapters=tuple(concept_ip_adapters),
+              ip_scale=ip_scale)
+    if concept_crop:
+        lat2b = _denoise_mc_range_traj_cropped(
+            cfg, sched, unet, lat_b, st_b, traj, base_inputs, controller,
+            tuple(concept_inputs), tuple(concept_loras),
+            check_crop_strips(cfg, masks, K), **kw)
+    else:
+        lat2b = _denoise_mc_range_traj(
+            cfg, sched, unet, lat_b, st_b, traj, base_inputs, controller,
+            tuple(concept_inputs), tuple(concept_loras), masks,
+            cache_interval=cache_interval, **kw)
+    return duplicate_latents(lat1), torch.cat([lat1, lat2b])
 
 
 def sample_stage2_resumed(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
@@ -686,7 +937,7 @@ def sample_stage2_resumed(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                           base_controlnets: Sequence = (),
                           concept_controlnets: Sequence = (),
                           lane_sharding=None, concept_crop: bool = False,
-                          cache_interval: int = 0) -> torch.Tensor:
+                          cache_interval=0) -> torch.Tensor:
     """Stage 2 resumed from the cached boundary -> [2, h, w, 4].
 
     With copy A's recorded trajectory, at least one concept and no lane
@@ -700,23 +951,45 @@ def sample_stage2_resumed(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     ``IPKV`` per attn2; the first entry serves every lane, as in JAX),
     scaled by ``ip_scale``. ``base_controlnets``/``concept_controlnets``:
     ``ControlNetInputs`` on the base lanes and per concept (None for a
-    concept without one; the live ones share one model)."""
+    concept without one; the live ones share one model).
+
+    ``cache_interval``: DeepCache on whichever program runs (never with
+    ``concept_crop`` or zero concepts). ``concept_crop``: the strip
+    program (masks clipped to the strips here); it needs the trajectory,
+    a concept, no per-concept ControlNet and no lane sharding."""
     validate_concept_controlnets(concept_controlnets)
-    if concept_crop:
-        raise not_ported("concept_crop strips", "approximate modes")
-    if cache_interval > 1:
-        raise not_ported("DeepCache", "approximate modes")
     boundary = min(fusion_start + 1, sched.num_steps)
+    if dc_on(cache_interval) and (concept_crop or len(concept_inputs) == 0):
+        raise ValueError(
+            "cache_interval needs a full-frame concept program "
+            "(no concept_crop, >=1 concept) — it runs on the 3+2K "
+            "trajectory path, the 4-row fallback, or the lane-sharded "
+            "4+2K mesh program")
+    kw = dict(i0=boundary, fusion_start=fusion_start,
+              concept_ip_adapters=tuple(concept_ip_adapters),
+              ip_scale=ip_scale, base_controlnets=tuple(base_controlnets))
+    if concept_crop:
+        K = len(concept_inputs)
+        if (cache.a_traj is None or K == 0 or lane_sharding is not None
+                or any(c is not None for c in concept_controlnets)):
+            raise ValueError(
+                "concept_crop requires the trajectory cache, >=1 "
+                "concept, no per-concept ControlNets, and no "
+                "lane_sharding (base-row spatial ControlNets compose: "
+                "the base rows run full-frame)")
+        lat_b = _denoise_mc_range_traj_cropped(
+            cfg, sched, unet, cache.latents, cache.sched_state, cache.a_traj,
+            base_inputs, controller, tuple(concept_inputs),
+            tuple(concept_loras), check_crop_strips(cfg, masks, K), **kw)
+        return torch.cat([cache.a_final, lat_b])
     if (cache.a_traj is not None and cache.a_traj.shape[0] > 0
             and lane_sharding is None and len(concept_inputs) > 0):
         lat_b = _denoise_mc_range_traj(
             cfg, sched, unet, cache.latents, cache.sched_state, cache.a_traj,
             base_inputs, controller, tuple(concept_inputs),
-            tuple(concept_loras), masks, i0=boundary,
-            fusion_start=fusion_start,
-            concept_ip_adapters=tuple(concept_ip_adapters),
-            ip_scale=ip_scale, base_controlnets=tuple(base_controlnets),
-            concept_controlnets=tuple(concept_controlnets))
+            tuple(concept_loras), masks,
+            concept_controlnets=tuple(concept_controlnets),
+            cache_interval=cache_interval, **kw)
         return torch.cat([cache.a_final, lat_b])
     # Both copies from the boundary latents: the state's per-row history
     # (DPM++2M's previous x0) is doubled with them, as in JAX.
@@ -727,11 +1000,9 @@ def sample_stage2_resumed(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     return _denoise_mc_range(
         cfg, sched, unet, duplicate_latents(cache.latents), st,
         base_inputs, controller, tuple(concept_inputs), tuple(concept_loras),
-        masks, i0=boundary, fusion_start=fusion_start,
-        lane_sharding=lane_sharding,
-        concept_ip_adapters=tuple(concept_ip_adapters), ip_scale=ip_scale,
-        base_controlnets=tuple(base_controlnets),
-        concept_controlnets=tuple(concept_controlnets))
+        masks, lane_sharding=lane_sharding,
+        concept_controlnets=tuple(concept_controlnets),
+        cache_interval=cache_interval, **kw)
 
 
 # --------------------------------------------------------------------------
@@ -775,9 +1046,9 @@ def sample_stage1_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     forward per step. ``base_cn_params`` + ``base_cn_conds_r``: a shared
     spatial ControlNet with per-request conditioning (cond_image
     [R, 1, H, W, C], scale [R], guidance_start [R], guidance_end [R]);
-    requests without a condition ride along with scale 0."""
-    if cache_interval > 1:
-        raise not_ported("DeepCache", "approximate modes")
+    requests without a condition ride along with scale 0.
+    ``cache_interval``: DeepCache over the 2R lanes, phased from each
+    range's start."""
     R = len(seeds)
     device = base_inputs_r[0].prompt_embeds.device
     xs = [sdxl.prepare_latents(torch.Generator("cpu").manual_seed(int(s)),
@@ -791,20 +1062,20 @@ def sample_stage1_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     boundary = min(fusion_start + 1, sched.num_steps)
     trajs: list = [[] for _ in range(R)]
     caches: list = [None] * R
+    dc = _DeepCache(cache_interval, 0)
     for i in range(sched.num_steps):
         if i == boundary:
             caches = [StageCache(x, st) for x, st in zip(xs, states)]
+            dc = _DeepCache(cache_interval, boundary)
         if i >= boundary:
             for r in range(R):
                 trajs[r].append(xs[r])
         t = int(sched.timesteps[i])
         lin = schedulers.scale_model_input(
             sched, torch.cat(xs).repeat_interleave(2, 0), i)
-        down, mid = _controlnet_residuals(cn, lin, t, embeds, tembeds, tids,
-                                          step_i=i,
-                                          num_steps=sched.num_steps)
-        eps = unet(lin, t, embeds, text_embeds=tembeds, time_ids=tids,
-                   down_block_residuals=down, mid_block_residual=mid)
+        eps = dc.step(unet, i, lin, t, embeds, lambda: _controlnet_residuals(
+            cn, lin, t, embeds, tembeds, tids, step_i=i,
+            num_steps=sched.num_steps), text_embeds=tembeds, time_ids=tids)
         for r in range(R):
             guided = sampling.cfg_combine(eps[2 * r:2 * r + 2],
                                           base_inputs_r[r].guidance_scale)
@@ -849,9 +1120,8 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     the shared IdentityNet on the concept lanes. ``base_cn_params`` +
     ``base_cn_conds_r``: the spatial ControlNet on the 3 base lanes, as in
     ``sample_stage1_batch``. With an empty suffix (``fusion_start + 1 >=
-    steps``) every request returns stage 1's copy A twice."""
-    if cache_interval > 1:
-        raise not_ported("DeepCache", "approximate modes")
+    steps``) every request returns stage 1's copy A twice.
+    ``cache_interval``: DeepCache over the R(3+2K) lanes."""
     boundary = min(fusion_start + 1, sched.num_steps)
     if boundary >= sched.num_steps:
         return torch.stack([duplicate_latents(c.a_final) for c in cache_r])
@@ -909,6 +1179,7 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     masks_r = masks_r.to(cache_r[0].latents.dtype)
     xs = [c.latents for c in cache_r]
     states = [c.sched_state for c in cache_r]
+    dc = _DeepCache(cache_interval, boundary)
     for i in range(boundary, sched.num_steps):
         t = int(sched.timesteps[i])
         lanes = []
@@ -922,20 +1193,22 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
         lanes = torch.cat(lanes)
         ctrl = (controller.at_step(i, pairs=pairs)
                 if controller is not None else None)
-        down, mid = _lane_residuals(
-            _controlnet_residuals(base_cn, lanes[base_rows], t,
-                                  embeds[base_rows], tembeds[base_rows],
-                                  tids[base_rows], step_i=i,
-                                  num_steps=sched.num_steps),
-            _controlnet_residuals(concept_cn, lanes[concept_rows], t,
-                                  embeds[concept_rows],
-                                  tembeds[concept_rows], tids[concept_rows],
-                                  step_i=i, num_steps=sched.num_steps),
-            3, 2 * K)
-        eps_all = unet(lanes, t, embeds, text_embeds=tembeds, time_ids=tids,
-                       lora=lane_lora, control=ctrl,
-                       down_block_residuals=down, mid_block_residual=mid,
-                       ip_adapter=ipk, ip_context=ip_ctx, ip_scale=ip_scale)
+        def residuals():
+            return _lane_residuals(
+                _controlnet_residuals(base_cn, lanes[base_rows], t,
+                                      embeds[base_rows], tembeds[base_rows],
+                                      tids[base_rows], step_i=i,
+                                      num_steps=sched.num_steps),
+                _controlnet_residuals(concept_cn, lanes[concept_rows], t,
+                                      embeds[concept_rows],
+                                      tembeds[concept_rows],
+                                      tids[concept_rows], step_i=i,
+                                      num_steps=sched.num_steps),
+                3, 2 * K)
+        eps_all = dc.step(unet, i, lanes, t, embeds, residuals,
+                          text_embeds=tembeds, time_ids=tids, lora=lane_lora,
+                          control=ctrl, ip_adapter=ipk, ip_context=ip_ctx,
+                          ip_scale=ip_scale)
         for r in range(R):
             e = eps_all[r * L:(r + 1) * L]
             region_preds = e[3:].reshape((K, 2) + tuple(xs[r].shape[1:]))

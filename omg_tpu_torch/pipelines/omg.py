@@ -16,8 +16,15 @@ scale, guidance window and guess mode; BASELINE config #3) and InstantID
 lanes' IP cross-attention and the IdentityNet on the concept lanes in
 stage 2, from ``face_embeddings`` and ``face_kps_image`` or
 ``face_kps_provider``; config #4), with any of the Euler, DDIM, DPM++2M
-and LCM schedulers. DeepCache raises ``NotImplementedError``; so do
-ControlNet and InstantID under a mesh.
+and LCM schedulers. ControlNet and InstantID under a mesh raise
+``NotImplementedError``.
+
+The approximate modes, opt-in as in JAX: ``quantize="int8"`` (W8A8 on
+the UNet's transformer linears, ``ops/quant.py``), ``concept_crop`` (stage
+2's concept lanes on vertical strips, where the request allows it) and
+DeepCache (``cache_interval``, placed by ``cache_schedule``, per request
+in ``generate`` and ``generate_batch``), which composes with the
+ControlNets, InstantID and the mesh.
 
 ``OMG(mesh=...)`` is the multi-device latency mode: every rank of the
 mesh builds the engine over its own copy of the same weights and calls
@@ -42,6 +49,7 @@ from omg_tpu_torch import rewrite
 from omg_tpu_torch.config import ControlNetConfig, ResamplerConfig
 from omg_tpu_torch.control import p2p, regions as regions_lib
 from omg_tpu_torch.diffusion import schedulers
+from omg_tpu_torch.ops import quant
 from omg_tpu_torch.parallel import mesh as mesh_lib
 from omg_tpu_torch.pipelines import multiconcept, sdxl
 
@@ -87,11 +95,6 @@ class InstantIDModels:
     identitynet_cfg: Optional[ControlNetConfig] = None
     ip_scale: float = 0.8
     identitynet_scale: float = 0.8
-
-
-def _check_exact(cache_interval, cache_schedule) -> None:
-    if (cache_interval or 0) > 1 or cache_schedule is not None:
-        raise multiconcept.not_ported("DeepCache", "approximate modes")
 
 
 def _fusion_start(steps: int, fusion_start: Optional[int]) -> int:
@@ -144,6 +147,22 @@ class OMG:
     concept_lora_scale: float = 0.8
     # set_adapters([char, style], [0.7, 0.5]) mix.
     char_style_weights: tuple = (0.7, 0.5)
+    # "int8": W8A8 on the UNet's transformer linears (approximate, opt-in;
+    # ops/quant.py); "" keeps the weights as they are.
+    quantize: str = ""
+    # Approximate, opt-in: stage 2's concept lanes on vertical strips
+    # (multiconcept._denoise_mc_range_traj_cropped). A request with
+    # per-concept ControlNets, or whose width does not split, runs exact;
+    # generate_batch always runs exact.
+    concept_crop: bool = False
+    # Approximate, opt-in DeepCache in both stages: a full UNet forward
+    # every cache_interval-th step, a shallow one from the cached feature
+    # otherwise. 0 or 1 = exact. Exclusive with concept_crop.
+    cache_interval: int = 0
+    # How the full steps are placed: "uniform" (modulo, phased from each
+    # range's start) or "front" (the same count packed towards step 0,
+    # the fusion-start step forced full). Per request: "cache_schedule".
+    cache_schedule: str = "uniform"
     # Multi-device latency layout: this rank's view of a (data, model)
     # grid (parallel.mesh.make_mesh). Stage 1 runs spatially split (CFG
     # lanes over data, latent H over model, K1b self-attention), stage 2
@@ -151,9 +170,55 @@ class OMG:
     # None = one device.
     mesh: Optional[mesh_lib.Mesh] = None
 
+    def __post_init__(self):
+        if self.cache_schedule not in multiconcept.DEEPCACHE_SCHEDULES:
+            raise ValueError(
+                f"unknown cache_schedule {self.cache_schedule!r} "
+                f"(one of {multiconcept.DEEPCACHE_SCHEDULES})")
+        if self.quantize == "int8":
+            self.params = self.params._replace(
+                unet=quant.quantize_unet(self.params.unet))
+        elif self.quantize:
+            raise ValueError(f"unknown quantize mode {self.quantize!r}")
+        if self.mesh is not None and self.concept_crop:
+            raise ValueError(
+                "concept_crop and mesh are mutually exclusive (the "
+                "strip program is single-chip; the lane-parallel mode "
+                "keeps the power-of-two 4+2K layout)")
+        if self.cache_interval > 1 and self.concept_crop:
+            raise ValueError(
+                "cache_interval is exclusive with concept_crop (the "
+                "strip program has no shallow variant); it composes "
+                "with mesh — the shallow path spatially shards in "
+                "stage 1 and the per-lane cache shards with the lanes "
+                "in stage 2")
+
     @property
     def device(self) -> torch.device:
         return self.params.unet.conv_in.weight.device
+
+    def _resolve_cache_spec(self, cache_interval, cache_schedule,
+                            steps: int, fusion_start: int):
+        """A request's DeepCache spec: 0 (exact), an int interval > 1
+        (uniform) or a per-step bool tuple (a schedule, or the caller's
+        own list). None takes the engine's defaults; an interval <= 1 is
+        0."""
+        if isinstance(cache_interval, (tuple, list)):
+            spec = tuple(bool(b) for b in cache_interval)
+            if len(spec) != steps:
+                raise ValueError(
+                    f"cache_interval schedule has {len(spec)} entries "
+                    f"for {steps} steps")
+            return spec
+        interval = (self.cache_interval if cache_interval is None
+                    else int(cache_interval))
+        if interval <= 1:
+            return 0
+        kind = cache_schedule or self.cache_schedule or "uniform"
+        if kind == "uniform":
+            return interval
+        return multiconcept.deepcache_schedule(
+            steps, interval, kind=kind, fusion_start=fusion_start)
 
     def _check_mesh_weights(self) -> None:
         """Once per engine: every rank of the mesh holds the same weights
@@ -303,7 +368,6 @@ class OMG:
             raise multiconcept.not_ported(
                 "ControlNet and InstantID under the mesh layout",
                 multiconcept.MESH_ITEM)
-        _check_exact(cache_interval, cache_schedule)
         self._check_cn_geometry(controlnet_params if use_cn else None,
                                 instantid)
         device = self.device
@@ -311,6 +375,13 @@ class OMG:
         steps = num_steps or self.num_steps
         fusion_start = _fusion_start(steps, fusion_start)
         sched = schedulers.make_schedule(scheduler or self.scheduler, steps)
+        eff_interval = self._resolve_cache_spec(cache_interval,
+                                                cache_schedule, steps,
+                                                fusion_start)
+        if eff_interval and self.concept_crop:
+            raise ValueError(
+                "cache_interval is exclusive with concept_crop (the "
+                "strip program has no shallow variant); mesh composes")
         # a CPU generator: one seed, one image, on any device
         generator = torch.Generator("cpu").manual_seed(seed)
 
@@ -358,7 +429,7 @@ class OMG:
             # the 4+2K stage 2 of the mesh layout never reads it
             record_trajectory=self.mesh is None,
             initial_noise=initial_noise, base_controlnets=base_cns,
-            noise_seed=seed)
+            noise_seed=seed, cache_interval=eff_interval)
         clock.lap("stage1")
         img1 = self._decode(lat1)
         clock.lap("decode")
@@ -403,7 +474,17 @@ class OMG:
                           else 1.0),
                 base_controlnets=base_cns, concept_controlnets=concept_cns,
                 lane_sharding=(lane_sharding if len(region_specs) > 0
-                               else None))
+                               else None),
+                # base-row ControlNets compose with the strips (the base
+                # rows run full-frame); per-concept IdentityNet rows and
+                # widths that do not split run the exact program
+                concept_crop=(self.concept_crop and self.mesh is None
+                              and len(region_specs) > 0
+                              and not any(c is not None for c in concept_cns)
+                              and multiconcept.crop_strips_ok(
+                                  self.cfg, width // 8, len(region_specs))),
+                cache_interval=(eff_interval if len(region_specs) > 0
+                                else 0))
             clock.lap("stage2")
             img2 = self._decode(lat2)
             clock.lap("decode")
@@ -428,8 +509,10 @@ class OMG:
         guidance scale, adapters and scheduler state.
 
         Request dicts take ``generate``'s keyword arguments. They must
-        share height, width, steps, scheduler and fusion start (the server
-        buckets by these), else ``ValueError``. Masks are predicted per
+        share height, width, steps, scheduler, fusion start and DeepCache
+        spec (the server buckets by these), else ``ValueError``; the batch
+        runs exact stage-2 lanes even on a ``concept_crop`` engine. Masks
+        are predicted per
         request on the host between the stages; requests padded to the
         largest concept count get neutral concepts with zero masks. Face
         requests batch when they share one ``InstantIDModels`` (no-face
@@ -441,8 +524,6 @@ class OMG:
         serially through ``generate``. Every result's ``timings`` holds the
         batch's phase seconds."""
         requests = [self._request_args(r) for r in requests]
-        for r in requests:
-            _check_exact(r["cache_interval"], r["cache_schedule"])
 
         def serial(rs):
             out = []
@@ -467,13 +548,22 @@ class OMG:
 
         def bucket(r):
             steps = r["num_steps"] or self.num_steps
+            fusion = _fusion_start(steps, r["fusion_start"])
             return (steps, r["height"], r["width"],
-                    r["scheduler"] or self.scheduler,
-                    _fusion_start(steps, r["fusion_start"]))
-        steps, height, width, sched_name, fusion_start = bucket(requests[0])
+                    r["scheduler"] or self.scheduler, fusion,
+                    self._resolve_cache_spec(r["cache_interval"],
+                                             r["cache_schedule"], steps,
+                                             fusion))
+        steps, height, width, sched_name, fusion_start, eff_interval = \
+            bucket(requests[0])
+        if eff_interval and self.concept_crop:
+            raise ValueError(
+                "cache_interval is exclusive with mesh and concept_crop "
+                "(the shallow program is single-chip, full-frame)")
         if any(bucket(r) != bucket(requests[0]) for r in requests[1:]):
             raise ValueError("batched requests must share height/width/"
-                             "steps/scheduler/fusion_start (bucket them)")
+                             "steps/scheduler/fusion_start/cache_interval "
+                             "(bucket them)")
         device = self.device
         clock = _Clock(device)
         sched = schedulers.make_schedule(sched_name, steps)
@@ -530,7 +620,8 @@ class OMG:
             self.cfg, sched, self.params.unet,
             [int(r["seed"]) for r in requests], bases,
             height=height, width=width, fusion_start=fusion_start,
-            base_cn_params=cn_params, base_cn_conds_r=base_cn_conds)
+            base_cn_params=cn_params, base_cn_conds_r=base_cn_conds,
+            cache_interval=eff_interval)
         clock.lap("stage1")
         img1s = [self._decode(lat) for lat in lat1_r]
         clock.lap("decode")
@@ -596,7 +687,8 @@ class OMG:
             concept_cn_params=(iid_models.identitynet_params
                                if concept_cn_conds is not None else None),
             concept_cn_conds_r=concept_cn_conds,
-            base_cn_params=cn_params, base_cn_conds_r=base_cn_conds)
+            base_cn_params=cn_params, base_cn_conds_r=base_cn_conds,
+            cache_interval=eff_interval)
         clock.lap("stage2")
         results = [dataclasses.replace(res, stage2=self._decode(lat))
                    if live else res

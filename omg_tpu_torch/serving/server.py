@@ -29,10 +29,10 @@ and 500 for failures in the worker; preprocessing (face analysis,
 condition rendering) runs in the submitter's thread.
 
 What differs from the JAX server on a host without PIL: uploads are PNG
-or baseline JPEG (``utils/image.decode_image``; a progressive JPEG is
-answered 400 and the message names it), results go out as PNG; face
-photos need a ``face_provider`` (there is no insightface); DeepCache
-requests reach the engine, which refuses them.
+or JPEG (``utils/image.decode_image``, sequential or progressive, CMYK
+too; an arithmetic-coded JPEG is answered 400 and the message names it),
+results go out as PNG; face photos need a ``face_provider`` (there is no
+insightface).
 """
 
 from __future__ import annotations
@@ -52,14 +52,11 @@ import numpy as np
 from omg_tpu_torch import instantid as iid_lib
 from omg_tpu_torch import lora as lora_lib
 from omg_tpu_torch.diffusion.schedulers import KINDS as _SCHED_KINDS
+from omg_tpu_torch.pipelines import multiconcept
 from omg_tpu_torch.serving import conditions
 from omg_tpu_torch.serving.registry import Registry
 from omg_tpu_torch.utils import image as image_lib
 from omg_tpu_torch.utils.profiling import METRICS, trace
-
-# The job field "cache_schedule" takes these (DeepCache's full-step
-# placement); the engine refuses DeepCache until it is ported.
-DEEPCACHE_SCHEDULES = ("uniform", "front")
 
 
 def decode_upload(b64: str) -> np.ndarray:
@@ -562,17 +559,16 @@ class OMGServer:
                                  f"(one of {sorted(_SCHED_KINDS)})")
             sched_kwargs["scheduler"] = job["scheduler"]
         if job.get("cache_interval") is not None:
-            # per-request DeepCache (0/1 = exact); the engine refuses
-            # an interval > 1 until DeepCache is ported
+            # per-request DeepCache (0/1 = exact)
             sched_kwargs["cache_interval"] = int(job["cache_interval"])
         if job.get("cache_schedule"):
             # full-step placement kind (uniform/front) — validated at
             # submit time, where ValueError maps to HTTP 400
             ks = str(job["cache_schedule"])
-            if ks not in DEEPCACHE_SCHEDULES:
+            if ks not in multiconcept.DEEPCACHE_SCHEDULES:
                 raise ValueError(
                     f"unknown cache_schedule {ks!r} (one of "
-                    f"{DEEPCACHE_SCHEDULES})")
+                    f"{multiconcept.DEEPCACHE_SCHEDULES})")
             sched_kwargs["cache_schedule"] = ks
         return dict(
             prompt=job["prompt"],
@@ -672,9 +668,14 @@ class OMGServer:
                             "cache_interval": getattr(
                                 server.engine, "cache_interval", 0) or None,
                         },
-                        # per-request DeepCache: not ported yet
-                        "deepcache_per_request": False,
-                        "cache_schedules": list(DEEPCACHE_SCHEDULES),
+                        # per-request DeepCache (the job field
+                        # "cache_interval"; requests bucket by it), on
+                        # any engine but a concept-crop one, which
+                        # refuses it
+                        "deepcache_per_request": not getattr(
+                            server.engine, "concept_crop", False),
+                        "cache_schedules": list(
+                            multiconcept.DEEPCACHE_SCHEDULES),
                     }))
                 elif self.path == "/metrics":
                     self._send(200, json.dumps(METRICS.summary()))

@@ -9,6 +9,9 @@ each batch width R, with the concept lanes' LoRA, the stage-2 P2P edits
 and, given the IP layers, the InstantID branch, so the allocator and the
 library's kernel choices are warm. Given the VAE it decodes once per
 bucket. It logs the seconds of each program and returns their count.
+With DeepCache on (``cache_interval`` > 1, either schedule) each program
+is the full forward that keeps the cache and one shallow forward from
+it, the two forwards a DeepCache step takes.
 """
 
 from __future__ import annotations
@@ -22,17 +25,19 @@ from omg_tpu_torch import lora as lora_lib
 from omg_tpu_torch.control import p2p
 from omg_tpu_torch.diffusion import schedulers
 from omg_tpu_torch.ops import flash_attention as fa
-from omg_tpu_torch.pipelines import multiconcept, sdxl
+from omg_tpu_torch.pipelines import sdxl
 from omg_tpu_torch.serving.conditions import RESOLUTIONS
 
 
 def _unet_forward(cfg: sdxl.SDXLConfig, unet, sched, *, height: int,
                   width: int, lanes: int, stage2: Optional[tuple],
                   sample_lora: Optional[dict], ip_layers, ip_tokens: int,
-                  ip_scale: float) -> None:
+                  ip_scale: float, deepcache: bool = False) -> None:
     """One forward on zero inputs. ``stage2``: (R, K) for the stage-2
     layout (R requests of 3 + 2K lanes: the LoRA on the concept lanes,
-    each request's P2P pair, the IP tokens), None for stage 1."""
+    each request's P2P pair, the IP tokens), None for stage 1.
+    ``deepcache``: the full forward keeps its cache and a shallow forward
+    resumes from it."""
     u = cfg.unet
     device = unet.conv_in.weight.device
     pdim = cfg.text_encoder_2.projection_dim or cfg.text_encoder_2.hidden_size
@@ -57,9 +62,12 @@ def _unet_forward(cfg: sdxl.SDXLConfig, unet, sched, *, height: int,
                                        u.cross_attention_dim))
     tids = sdxl.add_time_ids((height, width), (0, 0), (height, width),
                              device=device).expand(lanes, 6)
-    unet(zeros(lanes, height // 8, width // 8, 4), int(sched.timesteps[0]),
-         zeros(lanes, 77, u.cross_attention_dim),
-         text_embeds=zeros(lanes, pdim), time_ids=tids, **kw)
+    args = (zeros(lanes, height // 8, width // 8, 4),
+            int(sched.timesteps[0]), zeros(lanes, 77, u.cross_attention_dim))
+    kw.update(text_embeds=zeros(lanes, pdim), time_ids=tids)
+    out = unet(*args, return_cache=deepcache, **kw)
+    if deepcache:
+        unet.apply_shallow(*args, cache=out[1], **kw)
 
 
 def warmup(cfg: sdxl.SDXLConfig, *, unet_params, steps: int = 50,
@@ -84,12 +92,11 @@ def warmup(cfg: sdxl.SDXLConfig, *, unet_params, steps: int = 50,
     ``vae_params``: the VAE, decoded once per bucket. ``batch_sizes``:
     the server's batch widths (1 runs the single programs only).
     ``fusion_fraction`` is the JAX signature's; the forwards do not
-    depend on it. DeepCache (``cache_interval`` > 1 or a ``front``
-    schedule) is not ported and raises. Returns the number of programs
-    run."""
-    del fusion_fraction
-    if cache_interval > 1 or cache_schedule != "uniform":
-        raise multiconcept.not_ported("DeepCache", "approximate modes")
+    depend on it, nor on ``cache_schedule`` (a DeepCache step is a full
+    or a shallow forward whatever the placement). Returns the number of
+    programs run."""
+    del fusion_fraction, cache_schedule
+    deepcache = cache_interval > 1
     sched = schedulers.make_schedule(scheduler, steps)
     device = unet_params.conv_in.weight.device
     if device.type == "cuda":
@@ -111,7 +118,8 @@ def warmup(cfg: sdxl.SDXLConfig, *, unet_params, steps: int = 50,
                               width=width, lanes=lanes, stage2=stage2,
                               sample_lora=sample_lora,
                               ip_layers=sample_ip_adapter,
-                              ip_tokens=ip_tokens, ip_scale=ip_scale)
+                              ip_tokens=ip_tokens, ip_scale=ip_scale,
+                              deepcache=deepcache)
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 log(f"warmup {height}x{width} {name}: "

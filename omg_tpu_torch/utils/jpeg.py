@@ -1,13 +1,20 @@
-"""Baseline JPEG decoding without PIL, bit for bit as PIL decodes it.
+"""JPEG decoding without PIL, bit for bit as PIL decodes it.
 
 The JAX package opens uploads and CLI inputs with PIL, whose JPEG decoder
 is libjpeg-turbo with its defaults; the GPU host has no PIL. This module
 decodes the same files to the same pixels:
 
   * markers: SOI, APPn and COM (skipped; APP0 "JFIF" and APP14 "Adobe"
-    read for the colour space), DQT (8- and 16-bit tables), SOF0 and SOF1
-    (8-bit samples, 1 or 3 components), DHT, SOS (interleaved or not, one
-    scan or several), DRI with RST0-7, EOI;
+    read for the colour space), DQT (8- and 16-bit tables), SOF0, SOF1 and
+    SOF2 (8-bit samples, 1, 3 or 4 components), DHT, SOS (interleaved or
+    not, one scan or several), DRI with RST0-7, EOI;
+  * progressive files (SOF2, ``jdphuff.c``): DC first and refine scans,
+    AC first and refine scans with end-of-band runs, into one coefficient
+    buffer for the whole image, then the same transform as a sequential
+    file. libjpeg smooths the blocks (``jdcoefct.c``) only while some
+    coefficient bits are still unknown at output, which a complete file
+    never leaves; a file that stops before its last scan raises
+    ``ValueError`` instead;
   * entropy decoding: Huffman, through one 16-bit lookahead table per DHT
     table whose entries also hold the coefficient's extra bits when code
     and bits fit in 16 (libjpeg-turbo's fast path), so a symbol costs one
@@ -21,11 +28,13 @@ decodes the same files to the same pixels:
     h2v1 and h2v2 on a component at most 2 samples wide and for any other
     integer ratio;
   * colour (``jdcolor.c``): the fixed-point YCbCr -> RGB tables, 16
-    fraction bits.
+    fraction bits; 4 components are CMYK, or YCCK under an Adobe marker
+    with transform 2 (``ycck_cmyk_convert``), stored inverted as Adobe
+    writes them (PIL's "CMYK;I"), and become RGB as PIL's
+    ``convert("RGB")`` computes it (``cmyk2rgb``).
 
-Progressive (SOF2), lossless (SOF3), hierarchical (SOF5-7) and
-arithmetic-coded (SOF9-15, DAC) files, 12-bit samples, and 4-component
-(CMYK/YCCK) files raise ``ValueError`` naming the format.
+Lossless (SOF3), hierarchical (SOF5-7) and arithmetic-coded (SOF9-15,
+DAC) files and 12-bit samples raise ``ValueError`` naming the format.
 """
 
 from __future__ import annotations
@@ -43,7 +52,6 @@ ZIGZAG = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
 _REFUSED = {
-    0xC2: "progressive JPEG (SOF2)",
     0xC3: "lossless JPEG (SOF3)",
     0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical JPEG (SOF6)",
     0xC7: "hierarchical JPEG (SOF7)",
@@ -54,6 +62,10 @@ _REFUSED = {
     "(SOF14)", 0xCF: "arithmetic-coded JPEG (SOF15)",
 }
 _RST = re.compile(rb"\xff+[\xd0-\xd7]")
+
+_TRUNCATED = ("truncated progressive JPEG: the file ends before its EOI "
+              "or before its scans make the first ten coefficients exact "
+              "(libjpeg would smooth the blocks; not decoded)")
 
 # an AC entry's run for end-of-block, and for a code no table holds
 _EOB, _BAD = -1, -2
@@ -106,6 +118,48 @@ def _huffman_luts(counts: bytes, symbols: bytes, ac: bool) -> list:
         return list(zip(nbits.tolist(), run.tolist(), value.tolist()))
     nbits[run == _BAD] = 0
     return list(zip(nbits.tolist(), value.tolist()))
+
+
+def _symbol_lut(counts: bytes, symbols: bytes) -> list:
+    """A DHT table -> a list indexed by the next 16 bits of the stream of
+    ``(code length, symbol)``, length 0 for bit strings that start no code
+    (the progressive scans read the symbol's extra bits themselves)."""
+    n = 1 << 16
+    length_of = np.zeros(n, np.int64)
+    symbol_of = np.zeros(n, np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            shift = 16 - length
+            if k >= len(symbols) or (code + 1) << shift > n:
+                raise ValueError("corrupt JPEG: bad Huffman table")
+            length_of[code << shift:(code + 1) << shift] = length
+            symbol_of[code << shift:(code + 1) << shift] = symbols[k]
+            code += 1
+            k += 1
+        code <<= 1
+    return list(zip(length_of.tolist(), symbol_of.tolist()))
+
+
+class _Table:
+    """One DHT table; its lookup lists are built on first use (a
+    progressive file defines a table for nearly every scan)."""
+
+    def __init__(self, counts: bytes, symbols: bytes, ac: bool):
+        self.counts, self.symbols, self.ac = counts, symbols, ac
+        self._fast = self._raw = None
+
+    @property
+    def fast(self) -> list:
+        if self._fast is None:
+            self._fast = _huffman_luts(self.counts, self.symbols, self.ac)
+        return self._fast
+
+    @property
+    def raw(self) -> list:
+        if self._raw is None:
+            self._raw = _symbol_lut(self.counts, self.symbols)
+        return self._raw
 
 
 def _windows(segment: bytes) -> list:
@@ -167,6 +221,120 @@ def _decode_interval(win: list, slots: list, mcus: range, mcux: int,
                 k += 1
             if k > 64:
                 raise ValueError("corrupt JPEG: AC run past the block")
+
+
+def _get(win: list, pos: int, n: int) -> int:
+    """The n unsigned bits at bit ``pos``."""
+    return (win[pos >> 3] >> (32 - (pos & 7) - n)) & ((1 << n) - 1)
+
+
+def _symbol(win: list, pos: int, lut: list) -> tuple:
+    n, sym = lut[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+    if n == 0:
+        raise ValueError("corrupt JPEG: bad Huffman code")
+    return n, sym
+
+
+def _dc_first(win, blocks, coefs, al) -> None:
+    pos = 0
+    pred = [0] * len(coefs)
+    for ci, base, lut in blocks:
+        n, s = _symbol(win, pos, lut)
+        pos += n
+        if s:
+            v = _extra(win, pos, s)
+            pos += s
+            pred[ci] += v
+        coefs[ci][base] = pred[ci] << al
+
+
+def _dc_refine(win, blocks, coefs, al) -> None:
+    p1 = 1 << al
+    for pos, (ci, base, _) in enumerate(blocks):
+        if _get(win, pos, 1):
+            coefs[ci][base] |= p1
+
+
+def _ac_first(win, blocks, coefs, ss, se, al) -> None:
+    """``decode_mcu_AC_first``: one component, end-of-band runs."""
+    pos = eobrun = 0
+    for ci, base, lut in blocks:
+        if eobrun:
+            eobrun -= 1
+            continue
+        out = coefs[ci]
+        k = ss
+        while k <= se:
+            n, sym = _symbol(win, pos, lut)
+            pos += n
+            r, s = sym >> 4, sym & 15
+            if s:
+                k += r
+                if k > se:
+                    raise ValueError("corrupt JPEG: AC run past the band")
+                out[base + k] = _extra(win, pos, s) << al
+                pos += s
+            elif r == 15:
+                k += 15
+            else:
+                eobrun = 1 << r
+                if r:
+                    eobrun += _get(win, pos, r)
+                    pos += r
+                eobrun -= 1
+                break
+            k += 1
+
+
+def _ac_refine(win, blocks, coefs, ss, se, al) -> None:
+    """``decode_mcu_AC_refine``: one more bit of every coefficient already
+    non-zero, and new coefficients of magnitude 1 << al."""
+    p1, m1 = 1 << al, -1 << al
+    pos = eobrun = 0
+    for ci, base, lut in blocks:
+        out = coefs[ci]
+        k = ss
+        if not eobrun:
+            while k <= se:
+                n, sym = _symbol(win, pos, lut)
+                pos += n
+                r, s = sym >> 4, sym & 15
+                if s:
+                    # a new coefficient is always of size 1
+                    s = p1 if _get(win, pos, 1) else m1
+                    pos += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += _get(win, pos, r)
+                        pos += r
+                    break
+                # skip r zero coefficients, refining the non-zero ones
+                while k <= se:
+                    c = out[base + k]
+                    if c:
+                        if _get(win, pos, 1) and not c & p1:
+                            out[base + k] = c + (p1 if c >= 0 else m1)
+                        pos += 1
+                    else:
+                        r -= 1
+                        if r < 0:
+                            break
+                    k += 1
+                if s:
+                    if k > se:
+                        raise ValueError("corrupt JPEG: AC run past the band")
+                    out[base + k] = s
+                k += 1
+        if eobrun:
+            while k <= se:
+                c = out[base + k]
+                if c:
+                    if _get(win, pos, 1) and not c & p1:
+                        out[base + k] = c + (p1 if c >= 0 else m1)
+                    pos += 1
+                k += 1
+            eobrun -= 1
 
 
 # libjpeg's ISLOW constants (jidctint.c), CONST_BITS = 13
@@ -276,6 +444,10 @@ def _fix(v: float) -> int:
 
 def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     """``jdcolor.c``'s ycc_rgb_convert: uint8 planes -> uint8 [H, W, 3]."""
+    return np.clip(_ycc_unclipped(y, cb, cr), 0, 255).astype(np.uint8)
+
+
+def _ycc_unclipped(y: np.ndarray, cb: np.ndarray, cr: np.ndarray):
     x = np.arange(256, dtype=np.int64) - 128
     half = 1 << 15
     cr_r = (_fix(1.40200) * x + half) >> 16
@@ -286,7 +458,7 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     r = y + cr_r[cr]
     g = y + ((cb_g[cb] + cr_g[cr]) >> 16)
     b = y + cb_b[cb]
-    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+    return np.stack([r, g, b], axis=-1)
 
 
 def _segment(data: bytes, pos: int) -> tuple:
@@ -314,17 +486,19 @@ def _scan_end(data: bytes, pos: int) -> int:
 
 
 class _Frame:
-    def __init__(self, body: bytes):
+    def __init__(self, body: bytes, progressive: bool = False):
         precision, self.height, self.width, n = struct.unpack(
             ">BHHB", body[:6])
         if precision != 8:
             raise ValueError(f"{precision}-bit JPEG is not decoded (8-bit "
                              "samples only)")
-        if n == 4:
-            raise ValueError("CMYK/YCCK JPEG (4 components) is not decoded")
-        if n not in (1, 3):
+        if n not in (1, 3, 4):
             raise ValueError(f"JPEG with {n} components is not decoded "
-                             "(1 or 3 only)")
+                             "(1, 3 or 4 only)")
+        self.progressive = progressive
+        # per component and zigzag index, the lowest bit a scan has sent
+        # (-1: none yet), as libjpeg's coef_bits
+        self.coef_bits = [[-1] * 64 for _ in range(n)]
         if self.height == 0 or self.width == 0:
             raise ValueError("JPEG with a DNL-defined or zero size is not "
                              "decoded")
@@ -365,24 +539,43 @@ def _decode_scan(frame: _Frame, body: bytes, entropy: bytes, dc: dict,
             raise ValueError(f"corrupt JPEG: scan names component {cid}")
         comps.append((frame.ids.index(cid), tables >> 4, tables & 15))
     ss, se, ahal = body[1 + 2 * ns:4 + 2 * ns]
-    if (ss, se, ahal) != (0, 63, 0):
+    ah, al = ahal >> 4, ahal & 15
+    if not frame.progressive and (ss, se, ahal) != (0, 63, 0):
         raise ValueError("corrupt JPEG: a sequential scan with spectral "
                          f"selection {ss}-{se}, approximation {ahal}")
+    if frame.progressive and (
+            (ss == 0 and se != 0) or (ss > 0 and (se < ss or se > 63
+                                                  or ns != 1))
+            or (ah and al != ah - 1) or al > 13):
+        raise ValueError("corrupt JPEG: bad progressive scan parameters "
+                         f"{ss}-{se}, approximation {ah}/{al}")
+    dc_refine = frame.progressive and ss == 0 and ah
     slots = []
     for ci, td, ta in comps:
-        if td not in dc or ta not in ac:
+        needs = ([] if dc_refine else [dc] if ss == 0 else [ac]) \
+            if frame.progressive else [dc, ac]
+        if any((td if t is dc else ta) not in t for t in needs):
             raise ValueError("corrupt JPEG: scan uses an undefined Huffman "
                              "table")
         if frame.tq[ci] not in qt:
             raise ValueError("corrupt JPEG: component uses an undefined "
                              "quantization table")
-        frame.qtables[ci] = qt[frame.tq[ci]]
-        if ns == 1:
-            slots.append((ci, dc[td], ac[ta], 1, 1, 0, 0, frame.bw[ci]))
+        if frame.qtables[ci] is None:     # latched on first use, as libjpeg
+            frame.qtables[ci] = qt[frame.tq[ci]]
+        if frame.progressive:
+            lut = (None if dc_refine else
+                   dc[td].raw if ss == 0 else ac[ta].raw)
+            tabs = (lut,)
         else:
-            slots += [(ci, dc[td], ac[ta], frame.v[ci], frame.h[ci], dy, dx,
+            tabs = (dc[td].fast, ac[ta].fast)
+        if ns == 1:
+            slots.append((ci, tabs, 1, 1, 0, 0, frame.bw[ci]))
+        else:
+            slots += [(ci, tabs, frame.v[ci], frame.h[ci], dy, dx,
                        frame.bw[ci]) for dy in range(frame.v[ci])
                       for dx in range(frame.h[ci])]
+        for k in range(ss, se + 1):
+            frame.coef_bits[ci][k] = al
     if ns == 1:
         ci = comps[0][0]
         mcux = -(-frame.dw[ci] // 8)
@@ -395,8 +588,41 @@ def _decode_scan(frame: _Frame, body: bytes, entropy: bytes, dc: dict,
         if i >= len(intervals):
             raise ValueError("corrupt JPEG: missing restart interval")
         win = _windows(intervals[i].replace(b"\xff\x00", b"\xff"))
-        _decode_interval(win, slots, range(start, min(start + step, total)),
-                         mcux, frame.coefs)
+        mcus = range(start, min(start + step, total))
+        if not frame.progressive:
+            _decode_interval(win, [(ci, t[0], t[1], vs, hs, dy, dx, bw)
+                                   for ci, t, vs, hs, dy, dx, bw in slots],
+                             mcus, mcux, frame.coefs)
+            continue
+        blocks = []
+        for m in mcus:
+            my, mx = divmod(m, mcux)
+            blocks += [(ci, ((my * vs + dy) * bw + mx * hs + dx) << 6, t[0])
+                       for ci, t, vs, hs, dy, dx, bw in slots]
+        try:
+            if ss == 0:
+                (_dc_refine if ah else _dc_first)(win, blocks, frame.coefs,
+                                                  al)
+            elif ah:
+                _ac_refine(win, blocks, frame.coefs, ss, se, al)
+            else:
+                _ac_first(win, blocks, frame.coefs, ss, se, al)
+        except IndexError:
+            raise ValueError(_TRUNCATED) from None
+
+
+def _would_smooth(frame: _Frame) -> bool:
+    """libjpeg-turbo's ``smoothing_ok`` (jdcoefct.c): every component's DC
+    is known and its first ten quantizers are nonzero, and in some
+    component one of zigzag coefficients 1-9 is not exact to bit 0. Then
+    libjpeg smooths the blocks on output; otherwise it decodes the
+    coefficients as they stand, those never sent as zeros."""
+    useful = False
+    for q, bits in zip(frame.qtables, frame.coef_bits):
+        if bits[0] < 0 or not q[ZIGZAG[:10]].all():
+            return False
+        useful = useful or any(b != 0 for b in bits[1:10])
+    return useful
 
 
 def _color_space(frame: _Frame, jfif: bool, adobe) -> str:
@@ -408,9 +634,32 @@ def _color_space(frame: _Frame, jfif: bool, adobe) -> str:
     return "rgb" if frame.ids == [82, 71, 66] else "ycc"
 
 
+def ycck_to_cmyk(y, cb, cr, k) -> list:
+    """``jdcolor.c``'s ycck_cmyk_convert: C, M, Y are 255 minus the RGB
+    that the YCbCr tables give, K passes through."""
+    return [np.clip(255 - p.astype(np.int64), 0, 255).astype(np.uint8)
+            for p in np.moveaxis(_ycc_unclipped(y, cb, cr), -1, 0)] + [k]
+
+
+def cmyk_to_rgb(planes: list) -> np.ndarray:
+    """Inverted (Adobe) CMYK planes as libjpeg returns them -> RGB as PIL
+    computes it: "CMYK;I" inverts each plane, then ``cmyk2rgb`` takes
+    ``nk - nk * c / 255`` with nk = 255 - k, in PIL's MULDIV255 integer
+    rounding."""
+    c, m, y, k = (255 - p.astype(np.int64) for p in planes)
+    nk = 255 - k
+
+    def muldiv255(a, b):
+        t = a * b + 128
+        return ((t >> 8) + t) >> 8
+    return np.clip(np.stack([nk - muldiv255(x, nk) for x in (c, m, y)], -1),
+                   0, 255).astype(np.uint8)
+
+
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """A baseline JPEG file's bytes -> uint8 [H, W, 1] (gray) or [H, W, 3]
-    (RGB), the pixels PIL decodes."""
+    """A JPEG file's bytes -> uint8 [H, W, 1] (gray) or [H, W, 3] (RGB;
+    CMYK and YCCK files as PIL's ``convert("RGB")``), the pixels PIL
+    decodes."""
     try:
         return _decode(data)
     except (IndexError, struct.error):
@@ -424,7 +673,7 @@ def _decode(data: bytes) -> np.ndarray:
     dc: dict = {}
     ac: dict = {}
     qt: dict = {}
-    restart, jfif, adobe = 0, False, None
+    restart, jfif, adobe, ended = 0, False, None, False
     while True:
         pos = data.find(b"\xff", pos)
         if pos < 0 or pos + 1 >= len(data):
@@ -435,15 +684,16 @@ def _decode(data: bytes) -> np.ndarray:
             pos -= 1 if marker == 0xFF else 0
             continue
         if marker == 0xD9:                                      # EOI
+            ended = True
             break
         if marker in _REFUSED:
             raise ValueError(f"{_REFUSED[marker]} is not decoded: only "
                              "baseline and extended sequential Huffman JPEG")
         body, pos = _segment(data, pos)
-        if marker in (0xC0, 0xC1):                             # SOF0/1
+        if marker in (0xC0, 0xC1, 0xC2):                       # SOF0/1/2
             if frame is not None:
                 raise ValueError("corrupt JPEG: two frame headers")
-            frame = _Frame(body)
+            frame = _Frame(body, progressive=marker == 0xC2)
         elif marker == 0xC4:                                    # DHT
             i = 0
             while i < len(body):
@@ -453,7 +703,7 @@ def _decode(data: bytes) -> np.ndarray:
                 symbols = body[i + 17:i + 17 + n]
                 if len(counts) < 16 or len(symbols) < n:
                     raise ValueError("corrupt JPEG: truncated DHT")
-                (ac if tc_th >> 4 else dc)[tc_th & 15] = _huffman_luts(
+                (ac if tc_th >> 4 else dc)[tc_th & 15] = _Table(
                     counts, symbols, bool(tc_th >> 4))
                 i += 17 + n
         elif marker == 0xDB:                                    # DQT
@@ -486,6 +736,8 @@ def _decode(data: bytes) -> np.ndarray:
     if frame is None or any(q is None for q in frame.qtables):
         raise ValueError("corrupt JPEG: no frame, or a component no scan "
                          "covers")
+    if frame.progressive and (not ended or _would_smooth(frame)):
+        raise ValueError(_TRUNCATED)
     planes = []
     for ci in range(len(frame.ids)):
         bw, bh = frame.bw[ci], frame.bh[ci]
@@ -500,6 +752,10 @@ def _decode(data: bytes) -> np.ndarray:
         planes.append(plane[:frame.height, :frame.width])
     if len(planes) == 1:
         return planes[0][:, :, None]
+    if len(planes) == 4:
+        if adobe == 2:
+            planes = ycck_to_cmyk(*planes)
+        return cmyk_to_rgb(planes)
     if _color_space(frame, jfif, adobe) == "rgb":
         return np.stack(planes, axis=-1)
     return ycc_to_rgb(*planes)

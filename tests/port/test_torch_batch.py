@@ -217,7 +217,9 @@ def test_serial_fallbacks_and_bucket_errors(setup, monkeypatch):
         teng.generate_batch([base[0], dict(base[1], scheduler="ddim")])
     with pytest.raises(ValueError, match="bucket them"):
         teng.generate_batch([base[0], dict(base[1], num_steps=3)])
-    with pytest.raises(NotImplementedError, match="approximate modes"):
+    # DeepCache (refused before it was ported): requests with different
+    # intervals do not batch, as in JAX
+    with pytest.raises(ValueError, match="bucket them"):
         teng.generate_batch([base[0], dict(base[1], cache_interval=2)])
 
 

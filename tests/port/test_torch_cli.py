@@ -3,8 +3,9 @@ files, loaded by each package's own loader, tokenizer and LoRA reader,
 through ``OMG.generate`` with the same initial noise (latents within
 5e-4, uint8 images within one level); then the port's two CLIs run
 in-process on the CPU on such files: the JAX CLI's output names and
-hash, the stage images equal ``OMG.generate``'s called directly, and the
-unported options fail before any weight loads."""
+hash, the stage images equal ``OMG.generate``'s called directly, the
+unported ``--mesh`` fails before any weight loads, and the DeepCache
+flags reach the engine."""
 
 import dataclasses
 import hashlib
@@ -208,15 +209,49 @@ def test_inference_instantid_cli(files, capsys):
 
 @pytest.mark.parametrize("cli,argv,err", [
     (inference_lora, ["--mesh", "2"], NotImplementedError),
-    (inference_lora, ["--cache_interval", "3"], NotImplementedError),
-    (inference_lora, ["--cache_schedule", "front"], NotImplementedError),
+    (inference_lora, ["--cache_interval", "3"], None),
+    (inference_lora, ["--cache_schedule", "front", "--cache_interval", "3"],
+     None),
     (inference_lora, ["--dino_checkpoint", "dino.pth"], SystemExit),
-    (inference_instantid, ["--cache_interval", "2"], NotImplementedError)])
-def test_cli_errors_fire_before_loading(tmp_path, cli, argv, err):
+    (inference_instantid, ["--cache_interval", "2"], None)])
+def test_cli_errors_fire_before_loading(files, tmp_path, monkeypatch, cli,
+                                        argv, err):
     """The model paths do not exist: an error about them would mean the
-    load began."""
+    load began. The DeepCache flags (refused here before DeepCache was
+    ported) reach the engine: each CLI runs from the tiny files with
+    shallow steps."""
     missing = str(tmp_path / "missing")
     flag = ("--pretrained_sdxl_model" if cli is inference_lora
             else "--pretrained_model")
-    with pytest.raises(err):
-        cli.main([flag, missing, "--device", "cpu"] + argv)
+    if err is not None:
+        with pytest.raises(err):
+            cli.main([flag, missing, "--device", "cpu"] + argv)
+        return
+    engines = []
+    init = omg.OMG.__post_init__
+    monkeypatch.setattr(omg.OMG, "__post_init__",
+                        lambda self: engines.append(self) or init(self))
+    shallow = []
+    apply_shallow = unet.UNet2DConditionModel.apply_shallow
+    monkeypatch.setattr(unet.UNet2DConditionModel, "apply_shallow",
+                        lambda *a, **k: shallow.append(1) or
+                        apply_shallow(*a, **k))
+    common = ["--prompt", PROMPT, "--efficientViT_checkpoint", files["sam"],
+              "--save_dir", str(tmp_path / "out"), "--num_steps", "6",
+              "--height", "64", "--width", "64", "--device", "cpu"]
+    if cli is inference_lora:
+        common += ["--prompt_rewrite", REWRITE,
+                   "--lora_path", "|".join(files["loras"])]
+    else:
+        common += ["--controlnet_path", files["idnet"],
+                   "--face_adapter_path", files["adapter"],
+                   "--prompt_rewrite",
+                   f"[photo of the man]-*-[ugly]-*-[{files['faces'][0]}]|"
+                   f"[photo of the woman]-*-[blurry]-*-[{files['faces'][1]}]"]
+    res = cli.main([flag, files["ckpt"]] + common + argv)
+    assert res.stage2 is not None and shallow
+    interval = int(argv[argv.index("--cache_interval") + 1])
+    schedule = (argv[argv.index("--cache_schedule") + 1]
+                if "--cache_schedule" in argv else "uniform")
+    assert (engines[-1].cache_interval, engines[-1].cache_schedule) == \
+        (interval, schedule)

@@ -49,6 +49,7 @@ def test_port_never_imports_jax():
             "import omg_tpu_torch.utils.jpeg, omg_tpu_torch.utils.cv\n"
             "import omg_tpu_torch.models.openpose\n"
             "import omg_tpu_torch.models.dpt\n"
+            "import omg_tpu_torch.ops.quant\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'omg_tpu', 'PIL', 'cv2',\n"
             "              'transformers', 'safetensors', 'regex', 'ftfy',\n"
@@ -141,3 +142,33 @@ def test_chip_smoke_preprocessor_counts():
     assert set(mod.PRE_HTTP_SHAPES) <= checked
     assert (mod.PRE_DPT_CONFIG.hidden_size, mod.PRE_OPENPOSE_WIDTH) == \
         (1024, 1.0)
+
+
+def test_chip_smoke_approximate_counts():
+    """Phase 3 holds K1 at every shape phase 12 launches it at (the crop
+    strips' [4, 10, 2048, 64] among them); DeepCache at interval 3 on
+    config #2 expects 6 + 12 full forwards at b = 2 and 12 at b = 7 (2100
+    launches), the "front" schedule the count its own full steps give,
+    and the ControlNet beside the full forwards only."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_approx",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    checked = {",".join(map(str, shape)) for shape in mod.KERNEL_SHAPES}
+    assert "4,10,2048,64" in checked
+    assert mod.deepcache_forwards(50, 3) == (18, 12)
+    uniform = mod.forward_shapes(18, 12)
+    assert sum(uniform.values()) == mod.DC_UNIFORM_LAUNCHES == 2100
+    front = mod.multiconcept.deepcache_schedule(50, 3, kind="front",
+                                                fusion_start=15)
+    n1, n2 = mod.deepcache_forwards(50, front)
+    assert n1 >= sum(front) and n2 == sum(front[16:]) + (not front[16])
+    config3 = mod.forward_shapes(18, 12, cn1=2, cn2=3)
+    assert sum(config3.values()) == 30 * (70 + mod.CN_LAUNCHES)
+    assert sum(mod.CROP_SHAPES.values()) == 3500 + 340 + 2040 + 340
+    assert mod.deepcache_forwards(6, 2) == (4, 2)
+    for table in (uniform, mod.forward_shapes(n1, n2), config3,
+                  mod.CROP_SHAPES):
+        assert set(table) <= checked
+    assert set(mod.JPEG_NEW_FIXTURES) <= {
+        p.stem for p in (ROOT / "tests" / "port" / "data").glob("*.jpg")}

@@ -1,7 +1,8 @@
 """``OMG(mesh=...).generate``, the multi-device latency mode, on four CPU
 ranks (``gloo``) against the JAX engine's mesh mode on four virtual
-devices and against the port on one device; and the tokenizer repair that
-lets ranks (and runs) agree on a prompt's ids."""
+devices and against the port on one device, exact and with DeepCache;
+and the tokenizer repair that lets ranks (and runs) agree on a prompt's
+ids."""
 
 import os
 import pathlib
@@ -28,6 +29,7 @@ from torch_port_helpers import (left_right_masks, mid_block_lora, normal,
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 PROMPT = "photo of the man and the woman at the beach"
 STEPS = 4
+CACHE_INTERVAL = 2
 
 
 @pytest.fixture(scope="module")
@@ -53,23 +55,31 @@ def runs():
                     mesh=jmesh.make_mesh(4, data=2))
     want = jeng.generate(PROMPT, concept_loras=[to_jax(c) for c in concepts],
                          style_lora=to_jax(style), **kw)
+    # DeepCache on the mesh (tests/test_omg_pipeline.py:460-481)
+    jeng = jomg.OMG(cfg=jsdxl.tiny_config(), params=to_jax(tree),
+                    tokenizer=tok, tokenizer_2=tok,
+                    mask_provider=left_right_masks, num_steps=STEPS,
+                    mesh=jmesh.make_mesh(4, data=2),
+                    cache_interval=CACHE_INTERVAL)
+    want_dc = jeng.generate(PROMPT,
+                            concept_loras=[to_jax(c) for c in concepts],
+                            style_lora=to_jax(style), **kw)
     teng = omg.OMG(cfg=sdxl.tiny_config(),
                    params=from_jax.sdxl_from_jax(tree, sdxl.tiny_config(),
                                                  device="cpu"),
                    tokenizer=tok, tokenizer_2=tok,
                    mask_provider=left_right_masks, num_steps=STEPS)
-    single = teng.generate(PROMPT,
-                           concept_loras=[
-                               from_jax.lora_from_jax(c, device="cpu")
-                               for c in concepts],
-                           style_lora=from_jax.lora_from_jax(
-                               style, device="cpu"), **kw)
+    tkw = dict(kw, concept_loras=[from_jax.lora_from_jax(c, device="cpu")
+                                  for c in concepts],
+               style_lora=from_jax.lora_from_jax(style, device="cpu"))
+    single = teng.generate(PROMPT, **tkw)
+    single_dc = teng.generate(PROMPT, cache_interval=CACHE_INTERVAL, **tkw)
     case = {"data": 2, "steps": STEPS, "prompt": PROMPT,
-            "params": tuple(tree),
+            "params": tuple(tree), "cache_interval": CACHE_INTERVAL,
             "kw": dict(kw, concept_loras=concepts, style_lora=style)}
     ranks = launch.spawn(workers.omg_rank, 4, backend="gloo", args=(case,),
                          timeout=240)
-    return want, single, ranks
+    return want, single, ranks, want_dc, single_dc
 
 
 def _close(got, want, what):
@@ -79,7 +89,7 @@ def _close(got, want, what):
 
 @pytest.mark.parametrize("name", ["stage1", "stage2"])
 def test_mesh_generate_matches_jax_mesh(runs, name):
-    want, _, ranks = runs
+    want, _, ranks, _, _ = runs
     assert getattr(want, name) is not None
     for r, res in enumerate(ranks):
         _close(res[name], getattr(want, name), f"{name} rank {r}")
@@ -89,7 +99,7 @@ def test_mesh_generate_matches_jax_mesh(runs, name):
 
 @pytest.mark.parametrize("name", ["stage1", "stage2"])
 def test_mesh_generate_matches_one_device(runs, name):
-    _, single, ranks = runs
+    _, single, ranks, _, _ = runs
     for r, res in enumerate(ranks):
         _close(res[name], getattr(single, name), f"{name} rank {r}")
 
@@ -97,11 +107,27 @@ def test_mesh_generate_matches_one_device(runs, name):
 def test_mesh_ranks_agree_and_split_the_sequence(runs):
     """Every rank returns the same images, and stage 1 ran its
     self-attention sequence-sharded (not the lane-only layout)."""
-    _, _, ranks = runs
+    _, _, ranks, _, _ = runs
     for res in ranks[1:]:
         for name in ("stage1", "stage2"):
             np.testing.assert_array_equal(res[name], ranks[0][name])
     assert all(res["seq_calls"] > 0 for res in ranks)
+
+
+@pytest.mark.parametrize("name", ["stage1", "stage2"])
+def test_mesh_deepcache_matches_jax_mesh_and_one_device(runs, name):
+    """``OMG(mesh=..., cache_interval=2)`` on 4 ranks against the JAX mesh
+    engine with the same interval and against the port's one-device
+    engine with the request's interval: the shallow steps run H-split in
+    stage 1 and lane-split in stage 2."""
+    _, _, ranks, want_dc, single_dc = runs
+    for r, res in enumerate(ranks):
+        got = res["deepcache"][name]
+        _close(got, getattr(want_dc, name), f"{name} rank {r} vs JAX")
+        _close(got, getattr(single_dc, name), f"{name} rank {r} vs one")
+        np.testing.assert_array_equal(got, ranks[0]["deepcache"][name])
+    assert np.abs(ranks[0]["deepcache"]["stage2"].astype(int)
+                  - ranks[0]["stage2"].astype(int)).max() > 0
 
 
 def _ids_under_hash_seed(module: str, seed: str) -> str:

@@ -1,8 +1,8 @@
 """The mesh latency mode's stage 1 and VAE decode on CPU ranks (``gloo``)
 against the JAX package's spatial sharding on virtual devices and against
 the unsharded runs: ``_denoise_cfg_range`` spatially split (CFG lanes over
-data, latent H over model), its lane-only layout, and the H-split
-``decode_latents``."""
+data, latent H over model), its lane-only layout, with DeepCache, and the
+H-split ``decode_latents``."""
 
 import jax
 import numpy as np
@@ -44,9 +44,14 @@ def reference():
            np.asarray(jax.random.normal(ks[2], (1, pdim))),
            np.asarray(jax.random.normal(ks[3], (1, pdim)))]
     out = {"unet": np_tree(params), "base": enc, "runs": {}}
-    for key, hw, data, model, seq in (("s22", 64, 2, 2, True),
-                                      ("s12", 64, 1, 2, True),
-                                      ("lanes22", 48, 2, 2, False)):
+    for key, hw, data, model, seq, steps, dc in (
+            ("s22", 64, 2, 2, True, STEPS, 0),
+            ("s12", 64, 1, 2, True, STEPS, 0),
+            ("lanes22", 48, 2, 2, False, STEPS, 0),
+            # DeepCache (tests/test_parallel.py:232-273): 3 steps at
+            # interval 2, full(0), shallow(1), full(2)
+            ("s22dc", 64, 2, 2, True, 3, 2)):
+        sched = jsched.make_schedule("euler", steps)
         base = jmc.make_base_inputs(enc[0], enc[2], enc[1], enc[3],
                                     jsdxl.add_time_ids((hw, hw), (0, 0),
                                                        (hw, hw)), 7.5)
@@ -57,12 +62,13 @@ def reference():
         spatial = NamedSharding(mesh, P(jmesh.DATA_AXIS,
                                         jmesh.MODEL_AXIS if seq else None))
         got, _ = jmc._denoise_cfg_range(cfg, sched, params, lat0, st0, base,
-                                        i0=0, i1=STEPS,
-                                        spatial_sharding=spatial)
+                                        i0=0, i1=steps,
+                                        spatial_sharding=spatial,
+                                        cache_interval=dc)
         ref, _ = jmc._denoise_cfg_range(cfg, sched, params, lat0, st0, base,
-                                        i0=0, i1=STEPS)
-        out["runs"][key] = dict(hw=hw, data=data, seq=seq,
-                                lat0=np.asarray(lat0),
+                                        i0=0, i1=steps, cache_interval=dc)
+        out["runs"][key] = dict(hw=hw, data=data, seq=seq, steps=steps,
+                                cache_interval=dc, lat0=np.asarray(lat0),
                                 jax_spatial=np.asarray(got),
                                 jax_plain=np.asarray(ref))
     vae_params = jvae.init_params(jax.random.PRNGKey(1), cfg.vae)
@@ -78,9 +84,10 @@ def reference():
 
 
 def _case(ref, keys):
-    runs = {k: dict(steps=STEPS, unet=ref["unet"], base=ref["base"],
+    runs = {k: dict(unet=ref["unet"], base=ref["base"],
                     **{f: ref["runs"][k][f]
-                       for f in ("hw", "data", "seq", "lat0")})
+                       for f in ("hw", "data", "seq", "lat0", "steps",
+                                 "cache_interval")})
             for k in keys}
     return {"stage1": runs,
             "decode": {"vae": ref["vae"], "latents": ref["latents"]}}
@@ -92,26 +99,29 @@ def ranks(reference):
     lane-only), 2 ranks the (1, 2) grid; both decode H-split."""
     return {
         4: launch.spawn(workers.pipeline_rank, 4, backend="gloo",
-                        args=(_case(reference, ["s22", "lanes22"]),),
+                        args=(_case(reference, ["s22", "lanes22", "s22dc"]),),
                         timeout=150),
         2: launch.spawn(workers.pipeline_rank, 2, backend="gloo",
                         args=(_case(reference, ["s12"]),), timeout=150)}
 
 
-@pytest.mark.parametrize("key,n", [("s22", 4), ("s12", 2), ("lanes22", 4)])
+@pytest.mark.parametrize("key,n", [("s22", 4), ("s12", 2), ("lanes22", 4),
+                                   ("s22dc", 4)])
 def test_spatial_stage1_matches_jax_and_unsharded(reference, ranks, key, n):
     """Every rank ends with the whole latents, equal to JAX's spatially
     sharded range and to the unsharded one; the split layouts ran their
-    self-attention sequence-sharded, the lane-only layout did not."""
+    self-attention sequence-sharded, the lane-only layout did not. With
+    DeepCache the shallow step runs split too, from each rank's rows of
+    the cache."""
     run = reference["runs"][key]
     cfg = sdxl.tiny_config()
     model = workers.tiny_unet(reference["unet"])
     with torch.no_grad():
         mine, _ = mc._denoise_cfg_range(
-            cfg, schedulers.make_schedule("euler", STEPS), model,
+            cfg, schedulers.make_schedule("euler", run["steps"]), model,
             workers.t(run["lat0"]), schedulers.init_state(),
             workers.base_inputs(reference["base"], (run["hw"],) * 2),
-            i0=0, i1=STEPS)
+            i0=0, i1=run["steps"], cache_interval=run["cache_interval"])
     np.testing.assert_allclose(mine.numpy(), run["jax_plain"], atol=ATOL)
     for r, res in enumerate(ranks[n]):
         got = res[key]["latents"]

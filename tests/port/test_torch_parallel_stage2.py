@@ -5,8 +5,8 @@ result on ``tests/test_parallel.py``'s inputs; and ``fuse_region_noise``.
 Splits: 8 lanes over 2 ranks (4/4) and over 3 ranks (3/3/2, so lane 2
 and lane 3 sit on different ranks and the P2P rows move between them;
 once with the self-replace window over all of stage 2 and masks that
-leave half the latent to lane 3), and K = 1 over 4 ranks (6 lanes,
-2/2/1/1)."""
+leave half the latent to lane 3), K = 1 over 4 ranks (6 lanes, 2/2/1/1),
+and DeepCache's per-lane cache split with the lanes over 2 ranks."""
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +33,8 @@ from torch_port_helpers import normal, np_tree, t
 ATOL = 2e-5             # tests/test_parallel.py:35-79
 
 
-def _case(n_concepts, steps, stage1_key, self_replace=0.4, quadrants=False):
+def _case(n_concepts, steps, stage1_key, self_replace=0.4, quadrants=False,
+          cache_interval=0):
     """tests/test_parallel.py's stage-2 inputs (K = 2: :35-79, K = 1:
     :186-230), the JAX stage-1 cache, and the JAX 4-row result on it.
 
@@ -41,7 +42,9 @@ def _case(n_concepts, steps, stage1_key, self_replace=0.4, quadrants=False):
     latent, so copy B never parts from copy A and the P2P edits of lane 3
     are no-ops. ``quadrants`` gives the concepts prompts of their own and
     masks two quadrants, so copy B parts from copy A after the first
-    fused step and lane 3's edits reach the output outside the masks."""
+    fused step and lane 3's edits reach the output outside the masks.
+    ``cache_interval``: DeepCache in both stages (tests/test_parallel.py:
+    276-318)."""
     H = W = 32
     cfg = jsdxl.tiny_config()
     params = junet.init_params(jax.random.PRNGKey(0), cfg.unet)
@@ -68,7 +71,8 @@ def _case(n_concepts, steps, stage1_key, self_replace=0.4, quadrants=False):
         m[1, rows if not quadrants else slice(2, 4), 2:] = 1.0
     _, cache = jmc.sample_stage1_cached(
         cfg, sched, params, key=jax.random.PRNGKey(stage1_key), height=H,
-        width=W, base_inputs=base, fusion_start=1)
+        width=W, base_inputs=base, fusion_start=1,
+        cache_interval=cache_interval)
     cache4 = jmc.StageCache(latents=cache.latents,
                             sched_state=cache.sched_state, a_traj=None,
                             a_final=cache.a_final)
@@ -76,8 +80,9 @@ def _case(n_concepts, steps, stage1_key, self_replace=0.4, quadrants=False):
         cfg, sched, params, cache4, base_inputs=base, controller=ctl,
         concept_inputs=[concept] * n_concepts,
         concept_loras=[None] * n_concepts, masks=jnp.asarray(m),
-        fusion_start=1)
+        fusion_start=1, cache_interval=cache_interval)
     return {"hw": H, "steps": steps, "fusion_start": 1,
+            "cache_interval": cache_interval,
             "n_concepts": n_concepts, "self_replace": self_replace,
             "unet": np_tree(params),
             "base": [np.asarray(a) for a in (ep, en, pp, pn)],
@@ -89,8 +94,11 @@ def _case(n_concepts, steps, stage1_key, self_replace=0.4, quadrants=False):
 
 @pytest.fixture(scope="module")
 def cases():
+    # k2_dc: 5 steps, boundary 2, interval 2: steps 2 (full), 3 (shallow)
+    # and 4 (full)
     return {"k2": _case(2, 4, 5), "k2_self": _case(2, 4, 5, 1.0, quadrants=True),
-            "k1": _case(1, 3, 3)}
+            "k1": _case(1, 3, 3),
+            "k2_dc": _case(2, 5, 5, quadrants=True, cache_interval=2)}
 
 
 @pytest.fixture(scope="module")
@@ -100,11 +108,11 @@ def ranks(cases):
                                if f != "want"} for k in keys}}
         return launch.spawn(workers.pipeline_rank, n, backend="gloo",
                             args=(case,), timeout=150)
-    return {2: spawn(2, ["k2"]), 3: spawn(3, ["k2", "k2_self"]),
+    return {2: spawn(2, ["k2", "k2_dc"]), 3: spawn(3, ["k2", "k2_self"]),
             4: spawn(4, ["k1"])}
 
 
-@pytest.mark.parametrize("key", ["k2", "k2_self", "k1"])
+@pytest.mark.parametrize("key", ["k2", "k2_self", "k1", "k2_dc"])
 def test_four_row_program_matches_jax(cases, key):
     """The 4+2K program on one device (no trajectory in the cache)."""
     got = workers.stage2_resumed(cases[key])
@@ -112,7 +120,7 @@ def test_four_row_program_matches_jax(cases, key):
 
 
 @pytest.mark.parametrize("n,key", [(2, "k2"), (3, "k2"), (3, "k2_self"),
-                                   (4, "k1")])
+                                   (4, "k1"), (2, "k2_dc")])
 def test_lane_sharded_program_matches_jax(cases, ranks, n, key):
     """Every rank carries the same latents, equal to the JAX unsharded
     4-row result."""

@@ -192,11 +192,32 @@ def test_predict_masks_rejects_short_provider(engines):
     ({"cache_interval": 3}, "DeepCache"),
     ({"cache_schedule": "front"}, "DeepCache"),
 ])
-def test_unported_options_raise(engines, kwargs, match):
-    """DeepCache, and ControlNet and InstantID under a mesh layout (here a
-    mesh that is never reached: the engine refuses first)."""
+def test_unported_options_raise(engines, kwargs, match, monkeypatch):
+    """ControlNet and InstantID under a mesh layout raise (here a mesh that
+    is never reached: the engine refuses first). DeepCache, refused here
+    before it was ported, now runs: a request's interval takes shallow
+    steps, and a schedule without an interval on an engine without one is
+    the exact program (as in JAX)."""
     from omg_tpu_torch.parallel import mesh as mesh_lib
     _, teng = engines
+    if match == "DeepCache":
+        shallow = []
+        apply_shallow = unet.UNet2DConditionModel.apply_shallow
+        monkeypatch.setattr(unet.UNet2DConditionModel, "apply_shallow",
+                            lambda *a, **k: shallow.append(1) or
+                            apply_shallow(*a, **k))
+        kw = dict(height=32, width=32, seed=3, prompt_rewrite="[the man]-*-[x]")
+        res = teng.generate("the man", **kw, **kwargs)
+        assert res.stage2 is not None
+        if "cache_interval" in kwargs:
+            # 4 steps, fusion after step 1: ranges [0, 2), [2, 4) and
+            # [2, 4), each a full forward on its first step only
+            assert len(shallow) == 3
+        else:
+            assert not shallow
+            np.testing.assert_array_equal(
+                res.image, teng.generate("the man", **kw).image)
+        return
     if "mesh" in kwargs.values():
         teng = omg.OMG(cfg=teng.cfg, params=teng.params,
                        tokenizer=teng.tokenizer, tokenizer_2=teng.tokenizer_2,

@@ -224,7 +224,13 @@ def test_endpoints_and_error_codes(fake_server):
         assert needle.encode() in page
     code, reg = _get(url, "/registry")
     reg = json.loads(reg)
-    assert code == 200 and reg["deepcache_per_request"] is False
+    # per-request DeepCache on any engine but a concept-crop one (JAX's
+    # expression; False before DeepCache was ported)
+    assert code == 200 and reg["deepcache_per_request"] is True
+    eng.concept_crop = True
+    assert json.loads(_get(url, "/registry")[1])[
+        "deepcache_per_request"] is False
+    del eng.concept_crop
     assert reg["instantid"] is False and reg["conditions"] == []
     assert len(reg["resolutions"]) == 9
     assert sorted(reg["schedulers"]) == ["ddim", "dpmpp_2m", "euler", "lcm"]
@@ -260,7 +266,8 @@ def test_endpoints_and_error_codes(fake_server):
 
 def test_jpeg_condition_uploads():
     """A baseline JPEG photo becomes the condition (decoded as PIL decodes
-    it); a progressive one is a 400 that names the format."""
+    it), and so does a progressive one (a 400 before progressive JPEG was
+    decoded)."""
     data = (DATA / "small_444.jpg").read_bytes()
     srv = OMGServer(FakeEngine(), registry.Registry(),
                     controlnets={"canny": "a ControlNet"})
@@ -282,7 +289,13 @@ def test_jpeg_condition_uploads():
                                  "condition": "canny",
                                  "condition_image": base64.b64encode(
                                      buf.getvalue()).decode()})
-        assert code == 400 and b"progressive JPEG" in body
+        assert code == 200, body
+        prog = np.asarray(PIL.Image.open(io.BytesIO(buf.getvalue())).convert(
+            "RGB"))
+        np.testing.assert_array_equal(
+            image_lib.decode_png(base64.b64decode(
+                json.loads(body)["condition"])),
+            jcond.prepare_condition(prog, "canny", H, W))
     finally:
         srv.shutdown()
 
@@ -485,10 +498,20 @@ def test_warmup_runs_every_program(tiny_engine):
     # lanes, one decode
     assert n == 2 * 7 == len(logs)
     assert any("stage 2 K=2 (21 lanes)" in m for m in logs)
-    with pytest.raises(NotImplementedError, match="approximate modes"):
-        warmup_lib.warmup(tiny_engine.cfg,
-                          unet_params=tiny_engine.params.unet,
-                          cache_interval=3)
+    # DeepCache (refused before it was ported): each program is the full
+    # forward that keeps the cache and a shallow forward from it
+    shallow = []
+    apply_shallow = type(tiny_engine.params.unet).apply_shallow
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(type(tiny_engine.params.unet), "apply_shallow",
+                   lambda self, x, *a, **k: shallow.append(x.shape[0])
+                   or apply_shallow(self, x, *a, **k))
+        n = warmup_lib.warmup(tiny_engine.cfg,
+                              unet_params=tiny_engine.params.unet, steps=4,
+                              buckets=((32, 32),), concept_counts=(2,),
+                              sample_lora=lora, cache_interval=3,
+                              cache_schedule="front", log=logs.append)
+    assert n == 2 and shallow == [2, 7]
 
 
 def test_profiling_trace_and_metrics():
@@ -526,15 +549,13 @@ def _tiny_preprocessor_files(root):
 
 
 def test_serve_cli_from_a_tiny_checkout(tmp_path):
-    """Unported flags fail before loading; the server from files on the
-    CPU, with both condition preprocessors, answers a request."""
-    for flags, match in ((["--mesh", "2"], "item 8"),
-                         (["--cache_interval", "3"], "item 6"),
-                         (["--quantize", "int8"], "item 6"),
-                         (["--concept_crop"], "item 6")):
-        with pytest.raises(NotImplementedError, match=match):
-            cli_serve.build_server(cli_serve.parse_args(
-                ["--pretrained_sdxl_model", "no/such/dir", *flags]))
+    """``--mesh`` fails before loading; the server from files on the
+    CPU, with both condition preprocessors, answers a request; the
+    approximate modes' flags (refused before they were ported) reach the
+    engine and the warmup."""
+    with pytest.raises(NotImplementedError, match="item 8"):
+        cli_serve.build_server(cli_serve.parse_args(
+            ["--pretrained_sdxl_model", "no/such/dir", "--mesh", "2"]))
     from omg_tpu_torch.models import dpt, openpose
     body, depth = _tiny_preprocessor_files(tmp_path)
     from omg_tpu_torch.segment import sam_provider, vit_sam
@@ -567,6 +588,39 @@ def test_serve_cli_from_a_tiny_checkout(tmp_path):
         out = json.loads(out)
         assert image_lib.decode_png(base64.b64decode(out["image"])).shape \
             == (64, 64, 3)
+    finally:
+        srv.shutdown()
+    from omg_tpu_torch.nn import layers
+    base = ["--pretrained_sdxl_model", ckpt, "--efficientViT_checkpoint", sam,
+            "--registry", str(reg), "--num_steps", "4", "--device", "cpu"]
+    srv = cli_serve.build_server(cli_serve.parse_args(
+        base + ["--quantize", "int8", "--concept_crop"]))
+    assert srv.engine.quantize == "int8" and srv.engine.concept_crop
+    assert any(isinstance(m, layers.QuantLinear)
+               for m in srv.engine.params.unet.modules())
+    # 8 steps: the request's "front" schedule for interval 3 is full on
+    # steps 0, 2 (fusion start), 7 and each range's first (3): shallow on
+    # step 1 and 4-6 in stage 1, 4-6 in stage 2
+    srv = cli_serve.build_server(cli_serve.parse_args(
+        base + ["--cache_interval", "3", "--num_steps", "8"]))
+    assert (srv.engine.cache_interval, srv.engine.cache_schedule) == \
+        (3, "uniform")
+    shallow = []
+    apply_shallow = type(srv.engine.params.unet).apply_shallow
+    url = _serve(srv)
+    try:
+        caps = json.loads(_get(url, "/registry")[1])
+        assert caps["deepcache_per_request"]
+        assert caps["approx_modes"]["cache_interval"] == 3
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(type(srv.engine.params.unet), "apply_shallow",
+                       lambda *a, **k: shallow.append(1) or
+                       apply_shallow(*a, **k))
+            code, out = _post(url, {"prompt": "the man", "character1": "A",
+                                    "height": 64, "width": 64, "seed": 1,
+                                    "cache_schedule": "front"})
+        assert code == 200, out
+        assert len(shallow) == 7
     finally:
         srv.shutdown()
 

@@ -184,7 +184,8 @@ def stage2_resumed(case: dict, lane_sharding=None) -> np.ndarray:
             concept_inputs=[concept_inputs(case["concept"], hw)] * K,
             concept_loras=[None] * K, masks=t(case["masks"]),
             fusion_start=case["fusion_start"],
-            lane_sharding=lane_sharding).numpy()
+            lane_sharding=lane_sharding,
+            cache_interval=case.get("cache_interval", 0)).numpy()
 
 
 def pipeline_rank(rank: int, device, case: dict) -> dict:
@@ -203,7 +204,7 @@ def pipeline_rank(rank: int, device, case: dict) -> dict:
                 cfg, schedulers.make_schedule("euler", run["steps"]),
                 tiny_unet(run["unet"]), t(run["lat0"]), schedulers.init_state(),
                 base_inputs(run["base"], hw), i0=0, i1=run["steps"],
-                spatial=spatial)
+                spatial=spatial, cache_interval=run.get("cache_interval", 0))
         out[key] = {"latents": got.numpy(),
                     "seq_calls": attention.SEQ_PLAIN_CALLS - plain}
     if "decode" in case:
@@ -236,5 +237,17 @@ def omg_rank(rank: int, device, case: dict) -> dict:
     with torch.no_grad():
         res = engine.generate(case["prompt"], concept_loras=loras,
                               style_lora=style, **kw)
-    return {"stage1": res.stage1, "stage2": res.stage2, "masks": res.masks,
-            "seq_calls": attention.SEQ_PLAIN_CALLS - plain}
+    out = {"stage1": res.stage1, "stage2": res.stage2, "masks": res.masks,
+           "seq_calls": attention.SEQ_PLAIN_CALLS - plain}
+    if case.get("cache_interval"):
+        # DeepCache on the mesh: an engine with the interval
+        engine = omg.OMG(cfg=sdxl.tiny_config(), params=params,
+                         tokenizer=tok, tokenizer_2=tok,
+                         mask_provider=left_right_masks,
+                         num_steps=case["steps"], mesh=m,
+                         cache_interval=case["cache_interval"])
+        with torch.no_grad():
+            res = engine.generate(case["prompt"], concept_loras=loras,
+                                  style_lora=style, **kw)
+        out["deepcache"] = {"stage1": res.stage1, "stage2": res.stage2}
+    return out
