@@ -146,8 +146,30 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      K1 launches per rank, identical images on both ranks; then phase 12
      (g): ``generate`` with ``cache_interval=2`` at 6 steps, 280 K1b and
      140 K1 launches per rank (K1b and K1 on the full steps only).
-The last eight lines are JSON records of the mask stage, of phases 8, 9,
-10, 11 and 12 and of the kernels, and ``{"ok": true, "device": {...}}``.
+  13. mesh, conditioned — in phase 6's ranks and weights after it, at
+     1024², 6 steps: (a) one SDXL ControlNet forward at b = 2 split by
+     rows, 34 K1b per rank, the residuals within MODEL_REL_BOUND of the
+     unsharded forward's; (b) config #3 (phase 8's seeded ControlNet and
+     condition) on the mesh: 624 K1b per rank in stage 1, 312 K1 on rank
+     0 (UNet and base ControlNet on the 4 base lanes) and 210 on rank 1 in
+     stage 2; (c) config #4 (phase 8's InstantID stack, keypoint image and
+     faces): 420 K1b, 210 / 312 K1 (the IdentityNet on rank 1's concept
+     lanes); both ranks' images identical, each run's latents within
+     MODEL_REL_BOUND of the unsharded engine's; (d) one UNet forward at
+     b = 4 with its attention split over the model axis
+     (``parallel/sharding.py``): 70 K1 per rank at [4,5,4096,64] and
+     [4,10,1024,64], the all-reduces' calls, bytes and seconds, eps
+     within MODEL_REL_BOUND; (f) ``cli.inference_lora.main([...,
+     "--mesh", "2"])`` on the checkpoint files of phase 9 (written again),
+     630 K1 per rank, against the single-device CLI; then, in this
+     process, (e) ``parallel.dryrun.dryrun_multichip(2)`` on the card.
+  5b. reference step — after phase 5: the reference's 4-row program
+     (``sample_stage``, stage 1 and 2 at 6 steps: 1050 K1 launches at
+     b = 4) against ``two_stage_latents`` (630 at b = 2 and 7) from the
+     same noise, latents within MODEL_REL_BOUND.
+The last nine lines are JSON records of the mask stage, of phases 8, 9,
+10, 11, 12 and 13 and of the kernels, and ``{"ok": true, "device":
+{...}}``.
 
     python3 chip_smoke.py --profile
 
@@ -163,6 +185,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -189,7 +212,8 @@ from omg_tpu_torch.models import (clip, clip_vision, controlnet, dpt,
 from omg_tpu_torch.nn import layers as nn_layers
 from omg_tpu_torch.ops import flash_attention as fa
 from omg_tpu_torch.ops import quant
-from omg_tpu_torch.parallel import comm, launch, mesh as mesh_lib
+from omg_tpu_torch.parallel import comm, dryrun, launch, mesh as mesh_lib
+from omg_tpu_torch.parallel import sharding
 from omg_tpu_torch.pipelines import multiconcept, omg as omg_lib, sdxl
 from omg_tpu_torch.segment import (detector, efficientvit, sam_decoder,
                                    sam_provider, vit_sam)
@@ -218,6 +242,32 @@ MESH_RANKS = 2
 MESH_SEQ_LAUNCHES = STEPS * LAUNCHES_PER_FORWARD
 MESH_LAUNCHES = (STEPS - 16) * LAUNCHES_PER_FORWARD
 MESH_TIMEOUT_S = 900
+# Phase 13 (mesh, conditioned), in phase 6's ranks at 6 steps. Stage 1
+# runs H-split with the ControlNet beside the UNet (K1b, 70 + 34 a step);
+# stage 2 the steps after fusion_start = round(6 * 15 / 50) = 2, the 8
+# lanes 4 per rank: rank 0 the base lanes (the base ControlNet's), rank 1
+# the concept lanes (the IdentityNet's). (K1b, (K1 on rank 0, rank 1)):
+MESH_COND_STEPS = 6
+MESH_COND_2 = MESH_COND_STEPS - round(MESH_COND_STEPS * 15 / 50) - 1
+MESH_CN_LAUNCHES = (MESH_COND_STEPS * (70 + 34),
+                    (MESH_COND_2 * (70 + 34), MESH_COND_2 * 70))
+MESH_IID_LAUNCHES = (MESH_COND_STEPS * 70,
+                     (MESH_COND_2 * 70, MESH_COND_2 * (70 + 34)))
+# (d) one UNet forward at b = 4, its attention split over the 2-way model
+# axis: 5 of level 1's 10 heads and 10 of level 2's 20 on each rank
+TP_SHAPES = {"4,5,4096,64": 10, "4,10,1024,64": 60}
+# ... and the same forward in fp32 (plain attention, TF32 off) against the
+# unsharded one: fp32 rounding (~6e-8) amplified as bf16's ulp is (~10x)
+# is ~1e-6 of max |eps|; a wrong split is O(1)
+TP_FP32_REL = 1e-4
+# (f) the CLI's --mesh 2 is make_latency_mesh(2), (data, model) = (2, 1):
+# one CFG lane a rank with H whole (K1 at b = 1) in stage 1, 4 lanes a
+# rank in stage 2; no K1b
+MESH_CLI_LAUNCHES = (MESH_COND_STEPS + MESH_COND_2) * 70
+# Phase 5b: the reference's 4-row program (sample_stage) at 6 steps: the
+# 4 base rows every step of both stages, the 2K = 4 concept lanes on
+# stage 2's fused steps; two_stage_latents: 2 lanes, then 7
+REF_STEPS = 6
 
 
 def path_launches(steps: int, per_step_1: int, per_step_2: int) -> int:
@@ -318,7 +368,9 @@ KERNEL_SHAPES = [  # (B, H, N, D): main-path, bucket, D=128, ragged tiles
     # the concept-crop strips (phase 12): 2K = 4 concept lanes on
     # 128 x 64 latent strips, level 1 (2048 tokens; level 2's 512 take
     # the plain attention, as the gate sends them in JAX)
-    (4, 10, 2048, 64)]
+    (4, 10, 2048, 64),
+    # tensor parallelism (phase 13 (d)): a rank's heads of a b = 4 forward
+    (4, 5, 4096, 64), (4, 10, 1024, 64)]
 TIMED_SHAPE = (7, 10, 4096, 64)
 SEQ_SHAPES = [  # (B, H, Nq local, Nk): q rows of a shard against all K/V
     (2, 10, 2048, 4096), (2, 20, 512, 1024),     # 2-way seq at 1024^2
@@ -778,6 +830,97 @@ def weights(device):
     return cfg, params, loras
 
 
+def _rel_err(name: str, got, want) -> float:
+    """max |got - want| / max |want|; raises past MODEL_REL_BOUND or on a
+    non-finite value."""
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{name}: not finite")
+    rel = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    if rel > MODEL_REL_BOUND:
+        raise AssertionError(f"{name}: max |diff| / max |ref| {rel:.3e} > "
+                             f"{MODEL_REL_BOUND}")
+    return rel
+
+
+def reference_step_phase(device, cfg, params, loras) -> dict:
+    """Phase 5b: the reference's 4-row program, ``sample_stage`` stage 1
+    and stage 2 at REF_STEPS, against ``two_stage_latents`` from the same
+    noise (phase 5's prompts, LoRAs and left/right masks): latents within
+    MODEL_REL_BOUND, copy B's stage-2 images, K1 launches by shape."""
+    tok = ToyTokenizer(cfg.text_encoder.vocab_size)
+    engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok,
+                         tokenizer_2=tok)
+    prompt = "photo of the man and the woman at the beach"
+    tids = sdxl.add_time_ids((HEIGHT, WIDTH), (0, 0), (HEIGHT, WIDTH),
+                             device=device)
+    base = multiconcept.make_base_inputs(*engine.encode(prompt, "ugly"),
+                                         tids, 7.5)
+    concepts = [multiconcept.make_concept_inputs(
+        *engine.encode(p, "ugly"), tids)
+        for p in ("photo of the man", "photo of the woman")]
+    masks = torch.stack([torch.as_tensor(left_right_masks(
+        np.zeros((HEIGHT // 8, WIDTH // 8)), c), device=device)
+        for c in ("man", "woman")])
+    ctl = p2p.P2PControl.build([prompt, prompt], REF_STEPS,
+                               self_replace_steps=0.4, width=WIDTH // 32,
+                               height=HEIGHT // 32, tokenizer=tok,
+                               device=device)
+    sched = schedulers.make_schedule("euler", REF_STEPS)
+    fusion = round(REF_STEPS * 15 / 50)
+    noise = torch.randn((1, HEIGHT // 8, WIDTH // 8, 4),
+                        generator=torch.Generator().manual_seed(SEED))
+
+    def four_row():
+        return [multiconcept.sample_stage(
+            cfg, sched, params.unet, height=HEIGHT, width=WIDTH,
+            base_inputs=base, controller=ctl, concept_inputs=concepts,
+            concept_loras=loras, masks=masks, stage=stage,
+            fusion_start=fusion, initial_noise=noise.numpy(),
+            noise_seed=SEED) for stage in (1, 2)]
+
+    def fast():
+        lat0 = schedulers.scale_initial_noise(
+            sched, noise.to(device=device, dtype=cfg.unet.dtype))
+        return list(multiconcept.two_stage_latents(
+            cfg, sched, params.unet, lat0, base, ctl, concepts, loras,
+            masks, fusion_start=fusion, noise_seed=SEED))
+
+    n2 = REF_STEPS - fusion - 1
+    expect = {"sample_stage": forward_shapes(2 * REF_STEPS + n2, 0, 4),
+              "two_stage_latents": forward_shapes(REF_STEPS, n2)}
+    rec, outs = {}, {}
+    for name, fn in (("sample_stage", four_row),
+                     ("two_stage_latents", fast)):
+        shapes: dict = {}
+        torch.cuda.synchronize()
+        fa.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with launch_shapes(shapes):
+            outs[name] = fn()
+        torch.cuda.synchronize()
+        rec[name] = {"s": time.perf_counter() - t0, "launches": fa.LAUNCHES,
+                     "launches_by_shape": shapes}
+        if shapes != expect[name]:
+            raise AssertionError(f"reference step: {name} launches by shape "
+                                 f"{shapes}, want {expect[name]}")
+    for j, stage in enumerate(("stage1", "stage2")):
+        rec[f"{stage}_rel_err"] = _rel_err(
+            f"reference step {stage}", outs["sample_stage"][j],
+            outs["two_stage_latents"][j])
+    imgs = [(sdxl.decode_latents(cfg, params.vae, out[1][1:2]) * 255).to(
+        torch.uint8).cpu().numpy().astype(int) for out in outs.values()]
+    rec["stage2_image_max_diff"] = int(np.abs(imgs[0] - imgs[1]).max())
+    log(f"reference step: sample_stage (4 rows) {rec['sample_stage']['s']:.3f}"
+        f" s, {rec['sample_stage']['launches']} K1 launches; "
+        f"two_stage_latents {rec['two_stage_latents']['s']:.3f} s, "
+        f"{rec['two_stage_latents']['launches']}; latents max |diff| / max "
+        f"|ref| {rec['stage1_rel_err']:.3e} (stage 1), "
+        f"{rec['stage2_rel_err']:.3e} (stage 2), bound {MODEL_REL_BOUND}; "
+        f"copy B's stage-2 image max |diff| {rec['stage2_image_max_diff']}")
+    return rec
+
+
 def single_card_phases(device) -> tuple:
     """Phases 4, 5, 7, 8, 9, 10, 11 and 12; the weights are freed on
     return. Returns (phase 5's launches, phase 5's result, phase 7's
@@ -791,6 +934,8 @@ def single_card_phases(device) -> tuple:
         phase5_memory: dict = {}
         launches, res, peak = main_phase(device, cfg, params, loras,
                                          memory=phase5_memory)
+        log("== reference step")
+        ref_step = reference_step_phase(device, cfg, params, loras)
         log("== masks")
         masks = masks_phase(device, cfg, params, loras, res.stage1[1])
         gc.collect()
@@ -814,6 +959,7 @@ def single_card_phases(device) -> tuple:
         # phase 5's own record, beside which phase 12's runs read
         approx["phase5"] = _run_record(launches, res, peak, None,
                                        phase5_memory)
+        cond["reference_step"] = ref_step
         return launches, res, masks, cond, ckpt, serve, pre, approx
 
 
@@ -2730,6 +2876,344 @@ def mesh_deepcache(mesh, cfg, params, loras) -> dict:
             "seq_launches": got[0], "launches": got[1]}
 
 
+# -------------------------------------------------------------- phase 13
+
+def mesh_cn_forward(mesh, cfg, cn) -> dict:
+    """(a) One ControlNet forward at b = 2 split by rows over the model
+    axis: 34 K1b launches; rank 0 holds the residuals, rows gathered,
+    against the unsharded forward (K1)."""
+    sample, ehs, cond, pooled, tids = cn_inputs(mesh.device, cfg, 2, seed=5)
+    t = int(schedulers.make_schedule("euler", STEPS).timesteps[P2P_STEP])
+    seq = mesh.model_group
+
+    def rows(x):
+        n = x.shape[1] // seq.size
+        return x[:, seq.index * n:(seq.index + 1) * n]
+    fa.SEQ_LAUNCHES = 0
+    down, mid = cn(rows(sample), t, ehs, rows(cond),
+                   text_embeds=pooled, time_ids=tids, seq_group=seq)
+    torch.cuda.synchronize()
+    launches = fa.SEQ_LAUNCHES
+    if launches != CN_LAUNCHES:
+        raise AssertionError(f"K1b launches per H-split ControlNet forward: "
+                             f"{launches}, want {CN_LAUNCHES}")
+    got = [comm.all_gather(r, 2, seq) for r in down + [mid]]
+    out = {"launches": launches}
+    if mesh.rank == 0:
+        d_ref, m_ref = cn(sample, t, ehs, cond, text_embeds=pooled,
+                          time_ids=tids)
+        out["rel_err"] = max(_rel_err(f"mesh: ControlNet residual {j}", g, w)
+                             for j, (g, w) in enumerate(zip(got,
+                                                            d_ref + [m_ref])))
+        log(f"mesh (13a): H-split ControlNet forward at b=2: {launches} K1b "
+            f"launches; residuals vs unsharded max |diff| / max |res| "
+            f"{out['rel_err']:.3e} (bound {MODEL_REL_BOUND})")
+    return out
+
+
+@contextlib.contextmanager
+def four_lane_stage2():
+    """One device on the mesh's stage-2 program: stage 1 records no
+    trajectory, so stage 2 runs the 4+2K lanes (not the 3+2K ones) and a
+    mesh run and its one-device reference differ only by the split."""
+    stage1 = multiconcept.sample_stage1_cached
+
+    def no_trajectory(*args, **kwargs):
+        return stage1(*args, **dict(kwargs, record_trajectory=False))
+    multiconcept.sample_stage1_cached = no_trajectory
+    try:
+        yield
+    finally:
+        multiconcept.sample_stage1_cached = stage1
+
+
+@contextlib.contextmanager
+def given_masks(masks):
+    """``OMG.generate`` takes ``masks`` in place of its provider's; yields
+    the list its provider's own masks are appended to."""
+    predict = omg_lib.OMG._predict_masks
+    seen: list = []
+
+    def fixed(self, *args, **kwargs):
+        seen.extend(predict(self, *args, **kwargs))
+        return list(masks)
+    omg_lib.OMG._predict_masks = fixed
+    try:
+        yield seen
+    finally:
+        omg_lib.OMG._predict_masks = predict
+
+
+def mesh_conditioned_run(mesh, cfg, params, loras, name: str,
+                         expect: tuple, **kw) -> dict:
+    """(b), (c): ``OMG(mesh=...).generate`` at MESH_COND_STEPS, counts
+    zeroed just before and read just after (K1b, K1 on this rank); then,
+    on rank 0, the unsharded engine's same call on the same 4+2K stage-2
+    program, its latents within MODEL_REL_BOUND of the mesh run's."""
+    tok = ToyTokenizer(cfg.text_encoder.vocab_size)
+    engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok,
+                         tokenizer_2=tok, mask_provider=left_right_masks,
+                         cn_cfg=config.sdxl_controlnet(),
+                         num_steps=MESH_COND_STEPS, mesh=mesh)
+    latents: dict = {}
+    torch.cuda.synchronize()
+    fa.LAUNCHES = fa.SEQ_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with record_latents(latents):
+        res = generate(engine, loras, num_steps=MESH_COND_STEPS, **kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    got = (fa.SEQ_LAUNCHES, fa.LAUNCHES)
+    check_result(res, latents)
+    want = (expect[0], expect[1][mesh.rank])
+    if got != want:
+        raise AssertionError(f"rank {mesh.rank}: {name} K1b/K1 launches "
+                             f"{got}, want {want}")
+    out = {"stage1": res.stage1, "stage2": res.stage2,
+           "timings": res.timings, "total": total, "seq_launches": got[0],
+           "launches": got[1]}
+    if mesh.rank == 0:
+        single = dataclasses.replace(engine, mesh=None)
+        ref: dict = {}
+        with four_lane_stage2(), record_latents(ref):
+            generate(single, loras, num_steps=MESH_COND_STEPS, **kw)
+        for stage in ("stage1", "stage2"):
+            out[f"{stage}_rel_err"] = _rel_err(
+                f"mesh {name} {stage} vs unsharded", latents[stage],
+                ref[stage])
+    return out
+
+
+def mesh_tp_forward(mesh, cfg, params, loras) -> dict:
+    """(d) One UNet forward at b = 4 (P2P in its window, LoRA on lanes 2
+    and 3) with its attention split over the model axis: 70 K1 launches
+    at TP_SHAPES on each rank, the all-reduces' calls, bytes and seconds
+    per forward; rank 0 holds its eps within MODEL_REL_BOUND of the
+    unsharded forward's, and, where bf16 rounding cannot hide a fault,
+    the same forward in fp32 (plain attention, TF32 off) within
+    TP_FP32_REL."""
+    sample, ehs, pooled, tids = unet_inputs(mesh.device, cfg, 4, seed=6)
+    lane_lora = lora_lib.stack_loras([None, None, loras[0], loras[1]])
+    ctl = p2p.P2PControl.build(["a photo", "a photo"], STEPS,
+                               self_replace_steps=0.4, width=WIDTH // 32,
+                               height=HEIGHT // 32, device=mesh.device)
+    t = int(schedulers.make_schedule("euler", STEPS).timesteps[P2P_STEP])
+
+    def split(unet):
+        return sharding.shard_params(copy.deepcopy(unet),
+                                     sharding.unet_tp_sharding(unet, mesh))
+
+    def forward(unet, dtype=None):
+        f = (lambda x: x) if dtype is None else (lambda x: x.to(dtype))
+        return unet(f(sample), t, f(ehs), text_embeds=f(pooled),
+                    time_ids=tids, lora=lane_lora,
+                    control=ctl.at_step(P2P_STEP))
+
+    tally = {"calls": 0, "bytes": 0, "s": 0.0}
+    reduce = comm._all_reduce
+
+    def timed_reduce(x, group, op):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = reduce(x, group, op)
+        torch.cuda.synchronize()
+        tally["s"] += time.perf_counter() - t0
+        tally["calls"] += 1
+        tally["bytes"] += x.numel() * x.element_size()
+        return y
+
+    tp = split(params.unet)
+    shapes: dict = {}
+    torch.cuda.synchronize()
+    fa.LAUNCHES = 0
+    comm._all_reduce = timed_reduce
+    try:
+        with launch_shapes(shapes):
+            eps = forward(tp)
+        torch.cuda.synchronize()
+    finally:
+        comm._all_reduce = reduce
+    if shapes != TP_SHAPES or fa.LAUNCHES != LAUNCHES_PER_FORWARD:
+        raise AssertionError(f"rank {mesh.rank}: TP forward K1 launches "
+                             f"{shapes}, want {TP_SHAPES}")
+    if not torch.isfinite(eps).all():
+        raise AssertionError("TP forward: eps not finite")
+    t0 = time.perf_counter()
+    forward(tp)
+    torch.cuda.synchronize()
+    out = {"launches_by_shape": shapes, "all_reduce": tally,
+           "forward_s": time.perf_counter() - t0}
+    del tp
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        out["bf16_rel_err"] = _rel_err("mesh (13d): TP forward vs "
+                                       "unsharded", eps, forward(params.unet))
+    # fp32: the same forward, plain attention
+    f32 = unet_lib.UNet2DConditionModel(
+        dataclasses.replace(cfg.unet, dtype=torch.float32), mesh.device)
+    f32.load_state_dict(params.unet.state_dict())
+    with plain_attention():
+        tp = split(f32)
+        eps = forward(tp, torch.float32)
+        del tp
+        gc.collect()
+        if mesh.rank == 0:
+            ref = forward(f32, torch.float32)
+            out["fp32_rel_err"] = ((eps - ref).abs().max()
+                                   / ref.abs().max()).item()
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        log(f"mesh (13d): TP forward at b=4: K1 by shape {shapes}; "
+            f"{tally['calls']} all-reduces, {tally['bytes'] / 2**20:.1f} MiB"
+            f", {tally['s']:.3f} s (gloo, host-staged) in the counted "
+            f"forward; {out['forward_s']:.3f} s for a forward untimed; eps "
+            f"vs unsharded max |diff| / max |eps| {out['bf16_rel_err']:.3e} "
+            f"in bf16 (bound {MODEL_REL_BOUND}), {out['fp32_rel_err']:.3e} "
+            f"in fp32 (bound {TP_FP32_REL})")
+        if out["fp32_rel_err"] > TP_FP32_REL:
+            raise AssertionError(f"TP forward in fp32 disagrees: "
+                                 f"{out['fp32_rel_err']:.3e}")
+    return out
+
+
+def mesh_cli(mesh, cfg, params, loras) -> dict:
+    """(f) ``cli.inference_lora.main([..., "--mesh", "2"])`` inside this
+    world (make_latency_mesh(2): (data, model) = (2, 1)) on the checkpoint
+    files phase 9 writes, written again here by rank 0 from the live
+    weights; then rank 0's single-device CLI run on the same 4+2K
+    stage-2 program and the mesh run's masks, its latents within
+    MODEL_REL_BOUND of the mesh run's. Counts zeroed just before and read
+    just after the mesh run."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = os.path.join(here, ".phase13-cli")
+    rec: dict = {}
+    if mesh.rank == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+        t0 = time.perf_counter()
+        write_sdxl_dir(os.path.join(tmp, "sdxl"), params, {})
+        for i, tree in enumerate(loras):
+            write_kohya(os.path.join(tmp, f"char{i}.safetensors"), tree)
+        write_xl1(os.path.join(tmp, "xl1.pt"), mesh.device)
+        rec["write_s"] = time.perf_counter() - t0
+    comm.all_reduce_sum(torch.zeros(1), mesh.flat)        # files written
+    argv = ["--pretrained_sdxl_model", os.path.join(tmp, "sdxl"),
+            "--lora_path", "|".join(os.path.join(tmp, f"char{i}.safetensors")
+                                    for i in range(len(loras))),
+            "--prompt", CLI_PROMPT, "--negative_prompt", "ugly",
+            "--prompt_rewrite",
+            "[photo of the man]-*-[ugly]|[photo of the woman]-*-[ugly]",
+            "--efficientViT_checkpoint", os.path.join(tmp, "xl1.pt"),
+            "--seed", str(SEED), "--num_steps", str(MESH_COND_STEPS),
+            "--height", str(HEIGHT), "--width", str(WIDTH),
+            "--device", mesh.device.type]
+    try:
+        latents: dict = {}
+        torch.cuda.synchronize()
+        fa.LAUNCHES = fa.SEQ_LAUNCHES = 0
+        t0 = time.perf_counter()
+        with record_latents(latents):
+            res = cli_lora.main(argv + ["--save_dir",
+                                        os.path.join(tmp, "mesh"),
+                                        "--mesh", "2"])
+        torch.cuda.synchronize()
+        rec.update(wall_s=time.perf_counter() - t0, timings=res.timings,
+                   seq_launches=fa.SEQ_LAUNCHES, launches=fa.LAUNCHES)
+        image = res.stage2
+        if (rec["seq_launches"], rec["launches"]) != (0, MESH_CLI_LAUNCHES):
+            raise AssertionError(
+                f"rank {mesh.rank}: CLI --mesh 2 K1b/K1 launches "
+                f"{rec['seq_launches']}/{rec['launches']}, want "
+                f"0/{MESH_CLI_LAUNCHES}")
+        check_result(res, latents)
+        rec["image_sum"] = int(image.astype(np.int64).sum())
+        masks = res.masks
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        if mesh.rank == 0:
+            ref: dict = {}
+            t0 = time.perf_counter()
+            with four_lane_stage2(), record_latents(ref), \
+                    given_masks(masks) as seen:
+                single = cli_lora.main(argv + ["--save_dir",
+                                               os.path.join(tmp, "one")])
+            # SAM's masks of two stage-1 images a few levels apart may
+            # differ: stage 2 is compared on the mesh run's masks
+            rec["own_mask_pixels_differing"] = [
+                None if m is None or o is None else
+                int((np.asarray(m) != np.asarray(o)).sum())
+                for m, o in zip(masks, seen)]
+            rec["single_wall_s"] = time.perf_counter() - t0
+            for stage in ("stage1", "stage2"):
+                rec[f"{stage}_rel_err"] = _rel_err(
+                    f"CLI --mesh 2 {stage} vs one device", latents[stage],
+                    ref[stage])
+            png = image_io.read_png(os.path.join(tmp, "mesh",
+                                                 f"seed_{SEED}",
+                                                 "stage-2.png"))
+            if not np.array_equal(png, image[1]):
+                raise AssertionError("CLI --mesh 2: rank 0's stage-2.png is "
+                                     "not its result")
+            rec["image_max_diff"] = int(np.abs(
+                image.astype(int) - single.stage2.astype(int)).max())
+            del single
+    finally:
+        comm.all_reduce_sum(torch.zeros(1), mesh.flat)    # runs done
+        if mesh.rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_conditioned(mesh, cfg, params, loras) -> dict:
+    """Phase 13 on phase 6's ranks and weights: (a) the H-split ControlNet
+    forward, (b) config #3 and (c) config #4 on the mesh, (d) the TP
+    forward, (f) the CLI's --mesh 2; (e) runs in the parent."""
+    device = mesh.device
+    t0 = time.perf_counter()
+    cn = controlnet.init_params(torch.Generator(device).manual_seed(30),
+                                config.sdxl_controlnet())
+    mesh_lib.replicated(mesh, cn)
+    out = {"cn_forward": mesh_cn_forward(mesh, cfg, cn)}
+    cond = np.random.default_rng(35).integers(0, 256, (HEIGHT, WIDTH, 3),
+                                              dtype=np.uint8)
+    out["config3"] = mesh_conditioned_run(
+        mesh, cfg, params, loras, "config #3", MESH_CN_LAUNCHES,
+        controlnet_params=cn, spatial_condition=cond, controlnet_scale=1.0)
+    del cn
+    gc.collect()
+    torch.cuda.empty_cache()
+    iid = omg_lib.InstantIDModels(
+        resampler_cfg=config.instantid_resampler(),
+        resampler_params=resampler.init_params(
+            torch.Generator(device).manual_seed(31),
+            config.instantid_resampler()),
+        ip_adapter_layers=unet_lib.init_ip_layers(
+            torch.Generator(device).manual_seed(32), cfg.unet),
+        identitynet_params=controlnet.init_params(
+            torch.Generator(device).manual_seed(33), config.sdxl_controlnet()),
+        identitynet_cfg=config.sdxl_controlnet(), ip_scale=0.8,
+        identitynet_scale=0.8)
+    rng = np.random.default_rng(36)
+    faces = [rng.standard_normal(512).astype(np.float32) for _ in range(2)]
+    kps = instantid.draw_kps(HEIGHT, WIDTH, [face_kps(300, 380),
+                                             face_kps(724, 380)])
+    out["config4"] = mesh_conditioned_run(
+        mesh, cfg, params, [], "config #4", MESH_IID_LAUNCHES, instantid=iid,
+        face_embeddings=faces, face_kps_image=kps, guidance_scale=3.0)
+    del iid
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["tp"] = mesh_tp_forward(mesh, cfg, params, loras)
+    out["cli"] = mesh_cli(mesh, cfg, params, loras)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def mesh_rank(rank: int, device) -> dict:
     """One rank of phase 6 (``launch.spawn`` runs it in its own process)."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2747,6 +3231,7 @@ def mesh_rank(rank: int, device) -> dict:
                "lanes": lane_forward(mesh, cfg, params, loras)}
         out.update(mesh_generate(mesh, cfg, params, loras))
         out["deepcache"] = mesh_deepcache(mesh, cfg, params, loras)
+        out["conditioned"] = mesh_conditioned(mesh, cfg, params, loras)
     return out
 
 
@@ -2792,7 +3277,49 @@ def mesh_phase(single) -> dict:
             "launches": [out["launches"] for out in ranks],
             "deepcache": [{k: dc[k] for k in ("timings", "total",
                                               "seq_launches", "launches")}
-                          for dc in dcs]}
+                          for dc in dcs],
+            "conditioned": conditioned_record(
+                [out["conditioned"] for out in ranks])}
+
+
+def conditioned_record(ranks: list) -> dict:
+    """Phase 13's checks across the ranks (identical images, the CLI's
+    too) and its record, images dropped."""
+    rec = {"cn_forward": ranks[0]["cn_forward"],
+           "phase_s": [r["phase_s"] for r in ranks]}
+    for name in ("config3", "config4"):
+        runs = [r[name] for r in ranks]
+        for r, run in enumerate(runs):
+            tm = run["timings"]
+            log(f"mesh (13 {name}): rank {r}: stage1 {tm['stage1']:.3f} s, "
+                f"stage2 {tm['stage2']:.3f} s, decode {tm['decode']:.3f} s, "
+                f"total {run['total']:.3f} s; K1b {run['seq_launches']}, K1 "
+                f"{run['launches']}")
+            for stage in ("stage1", "stage2"):
+                if not np.array_equal(run[stage], runs[0][stage]):
+                    raise AssertionError(f"mesh {name}: rank {r}'s {stage} "
+                                         "images differ from rank 0's")
+        log(f"mesh (13 {name}): both ranks' images identical; latents vs "
+            f"unsharded max |diff| / max |ref| {runs[0]['stage1_rel_err']:.3e}"
+            f" (stage 1), {runs[0]['stage2_rel_err']:.3e} (stage 2), bound "
+            f"{MODEL_REL_BOUND}")
+        rec[name] = [{k: v for k, v in run.items()
+                      if k not in ("stage1", "stage2")} for run in runs]
+    rec["tp"] = [r["tp"] for r in ranks]
+    cli = [r["cli"] for r in ranks]
+    if len({c["image_sum"] for c in cli}) != 1:
+        raise AssertionError("CLI --mesh 2: the ranks' images differ")
+    log(f"mesh (13f): CLI --mesh 2: {cli[0]['wall_s']:.2f} s from main's "
+        f"start (loading included; the files written in "
+        f"{cli[0]['write_s']:.2f} s), {cli[0]['launches']} K1 launches a "
+        f"rank; one device {cli[0]['single_wall_s']:.2f} s; latents vs one "
+        f"device {cli[0]['stage1_rel_err']:.3e} / "
+        f"{cli[0]['stage2_rel_err']:.3e} (stage 2 on the mesh run's masks; "
+        f"the one-device run's own differ in "
+        f"{cli[0]['own_mask_pixels_differing']} pixels); stage-2 image max "
+        f"|diff| {cli[0]['image_max_diff']}")
+    rec["cli"] = cli
+    return rec
 
 
 def main() -> int:
@@ -2822,6 +3349,12 @@ def main() -> int:
     log("== mesh")
     mstats = mesh_phase(single)
     approx["mesh_deepcache"] = mstats["deepcache"]
+    log("== mesh, conditioned (e): dry run")
+    t0 = time.perf_counter()
+    mcond = dict(mstats["conditioned"],
+                 dryrun=dryrun.dryrun_multichip(MESH_RANKS),
+                 dryrun_s=time.perf_counter() - t0,
+                 k1_by_shape={key: by_shape[key] for key in TP_SHAPES})
     source = "omg_tpu_torch/ops/csrc/flash_attention.cu"
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "bound_share")
@@ -2838,6 +3371,14 @@ def main() -> int:
             name: cond[name]["launches"]
             for name in ("config3", "config4", "ddim", "dpmpp_2m", "lcm")},
         "mesh_launches_by_rank": mstats["launches"],
+        "mesh_conditioned_launches_by_rank": {
+            "config3": [r["launches"] for r in mcond["config3"]],
+            "config4": [r["launches"] for r in mcond["config4"]],
+            "tp_forward": [r["launches_by_shape"] for r in mcond["tp"]],
+            "cli_mesh": [r["launches"] for r in mcond["cli"]]},
+        "reference_step_launches": {
+            name: cond["reference_step"][name]["launches"]
+            for name in ("sample_stage", "two_stage_latents")},
         "cli_path_launches": {
             name: ckpt[name]["launches"]
             for name in ("inference_lora", "inference_instantid")},
@@ -2860,6 +3401,10 @@ def main() -> int:
         "replaces": "omg_tpu/ops/flash_attention.py:108-126 via :249",
         "launches": mstats["seq_launches"][0],
         "launches_by_rank": mstats["seq_launches"],
+        "mesh_conditioned_launches_by_rank": {
+            "controlnet_forward": mcond["cn_forward"]["launches"],
+            "config3": [r["seq_launches"] for r in mcond["config3"]],
+            "config4": [r["seq_launches"] for r in mcond["config4"]]},
         "approximate_path_launches": {"mesh_deepcache_by_rank": [
             dc["seq_launches"] for dc in mstats["deepcache"]]},
         **{key: sstats[key] for key in timed},
@@ -2872,6 +3417,7 @@ def main() -> int:
     log(json.dumps({"serving": serve}))
     log(json.dumps({"preprocessors": pre}))
     log(json.dumps({"approximate": approx}))
+    log(json.dumps({"mesh_conditioned": mcond}))
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

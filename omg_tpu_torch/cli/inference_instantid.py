@@ -23,8 +23,7 @@ import os
 
 import numpy as np
 
-from omg_tpu_torch.cli.inference_lora import (check_not_ported,
-                                              load_condition, save_outputs)
+from omg_tpu_torch.cli.inference_lora import load_condition, save_outputs
 
 
 def parse_args(argv=None):
@@ -94,7 +93,6 @@ def main(argv=None):
     """Run the CLI on ``argv`` (the command line when None); returns the
     ``GenerationResult``."""
     args = parse_args(argv)
-    check_not_ported(args)
     from omg_tpu_torch import convert, instantid, loader
     from omg_tpu_torch.nn import layers
     from omg_tpu_torch.pipelines import omg as omg_lib

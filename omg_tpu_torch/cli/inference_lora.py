@@ -11,9 +11,21 @@ hash being the first 8 hex digits of their sha256.
 
 ``--cache_interval N`` (> 1) and ``--cache_schedule`` turn on DeepCache,
 the approximate mode (a full UNet forward every N-th step, a shallow one
-from the cached feature otherwise). ``--mesh`` is not ported to the CLI
-yet and raises ``NotImplementedError`` before any weight loads (ROADMAP
-§1 item 8).
+from the cached feature otherwise).
+
+``--mesh N`` is the multi-device latency mode, as in JAX:
+``make_latency_mesh(N)``, (data, model) = (2, N/2) when N is even, and
+``OMG(mesh=...)``; ``--spatial_condition`` and the DeepCache flags
+compose with it. The port runs one process per rank: the CLI starts N
+ranks (``parallel/launch.spawn``), each loads the same files (the engine
+checks that every rank holds the same weights) and runs ``generate``;
+rank 0 alone writes the images and prints. With ``--device cuda`` rank r
+takes ``cuda:{r % device_count}``, over ``nccl`` when every rank has a
+card of its own and over ``gloo`` when ranks share one; ``--device cpu``
+runs ``gloo`` CPU ranks. Called inside a world that is already running,
+the CLI is one of its ranks instead, and a world of fewer than N ranks
+is a ``SystemExit`` with ``make_latency_mesh``'s message, before any
+weight loads.
 
 Usage:
     python -m omg_tpu_torch.cli.inference_lora \
@@ -62,8 +74,9 @@ def parse_args(argv=None):
     parser.add_argument("--width", default=1024, type=int)
     parser.add_argument("--guidance_scale", default=7.5, type=float)
     parser.add_argument("--mesh", default=0, type=int, metavar="N",
-                        help="multi-device latency mode over N devices; "
-                             "not ported to the CLI (0 = one device)")
+                        help="multi-device latency mode over N ranks "
+                             "(stage 1 split over CFG lanes x latent H, "
+                             "stage 2 over the lanes); 0 = one device")
     parser.add_argument("--cache_interval", default=0, type=int,
                         metavar="N",
                         help="approximate mode: DeepCache, a full UNet "
@@ -76,14 +89,6 @@ def parse_args(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="device of the models: cuda (default) or cpu")
     return parser.parse_args(argv)
-
-
-def check_not_ported(args) -> None:
-    """Raise for the options the port does not have yet, before loading."""
-    if getattr(args, "mesh", 0):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the multi-device mode of the CLI is not "
-            "ported yet (ROADMAP §1 item 8)")
 
 
 def load_condition(path: str, height: int, width: int):
@@ -119,7 +124,7 @@ def save_outputs(args, model_path: str, result) -> str:
 
 def main(argv=None):
     """Run the CLI on ``argv`` (the command line when None); returns the
-    ``GenerationResult``."""
+    ``GenerationResult`` (rank 0's under ``--mesh``)."""
     args = parse_args(argv)
     if (args.segment_type.lower() != "groundingdino"
             and args.dino_checkpoint != DINO_DEFAULT):
@@ -131,15 +136,71 @@ def main(argv=None):
             f" x CLIP ranker). Pass --segment_type GroundingDINO to select "
             f"the reference's DINO pairing (SAM-ViT-H via --sam_checkpoint),"
             f" or drop the flag.")
-    check_not_ported(args)
-    # imported after parsing, so --help needs neither torch nor a card
+    if not args.mesh:
+        return run(args)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return run(args, latency_mesh(args, args.device))
+    return spawn_mesh(args)
+
+
+def latency_mesh(args, device):
+    """``make_latency_mesh(--mesh)`` over the running world; too few
+    ranks is a ``SystemExit`` carrying its message."""
+    from omg_tpu_torch.parallel import mesh as mesh_lib
+    try:
+        return mesh_lib.make_latency_mesh(args.mesh, device=device)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh}: {e}") from e
+
+
+def spawn_mesh(args):
+    """Start ``--mesh`` ranks on ``--device`` and return rank 0's
+    result."""
+    import torch
+
+    from omg_tpu_torch.parallel import launch
+    n = args.mesh
+    if args.device == "cpu":
+        devices, backend = ["cpu"] * n, "gloo"
+    else:
+        count = torch.cuda.device_count()
+        if count == 0:
+            raise RuntimeError("inference_lora: no CUDA device for the ranks; "
+                               "pass --device cpu for CPU ranks")
+        devices = [f"cuda:{r % count}" for r in range(n)]
+        # NCCL refuses two ranks on one card
+        backend = "nccl" if count >= n else "gloo"
+    return launch.spawn(_mesh_rank, n, backend=backend, devices=devices,
+                        args=(vars(args),), timeout=MESH_TIMEOUT_S)[0]
+
+
+# A mesh run's limit, the whole run and any one collective (loading a
+# checkpoint on every rank included).
+MESH_TIMEOUT_S = 3600.0
+
+
+def _mesh_rank(rank: int, device, args: dict):
+    """One rank of ``--mesh`` (``launch.spawn`` runs it in its own
+    process)."""
+    args = argparse.Namespace(**args)
+    return run(args, latency_mesh(args, device))
+
+
+def run(args, mesh=None):
+    """Load the models on ``--device`` (the mesh rank's device under
+    ``mesh``), build the engine and generate; rank 0 writes the
+    outputs."""
+    # imported here, so --help needs neither torch nor a card
     from omg_tpu_torch import loader
     from omg_tpu_torch import lora as lora_lib
     from omg_tpu_torch.nn import layers
     from omg_tpu_torch.pipelines import omg as omg_lib
     from omg_tpu_torch.segment import build_mask_provider
 
-    device = layers.target_device(args.device, "inference_lora")
+    lead = mesh is None or mesh.rank == 0
+    device = layers.target_device(
+        mesh.device if mesh is not None else args.device, "inference_lora")
     cfg, params, tok1, tok2 = loader.load_sdxl(args.pretrained_sdxl_model,
                                                device=device)
     cn_cfg = controlnet = spatial = None
@@ -152,9 +213,10 @@ def main(argv=None):
     if args.segment_type.lower() == "groundingdino":
         # the reference's pairing: GroundingDINO boxes, SAM-ViT-H masks;
         # detection runs in-framework, so the DINO weights are not read
-        print("note: --segment_type GroundingDINO pairs --sam_checkpoint "
-              "(SAM-ViT-H); --dino_checkpoint weights are not read - "
-              "detection runs in-framework (segment/detector.py)")
+        if lead:
+            print("note: --segment_type GroundingDINO pairs --sam_checkpoint "
+                  "(SAM-ViT-H); --dino_checkpoint weights are not read - "
+                  "detection runs in-framework (segment/detector.py)")
         sam_ckpt = args.sam_checkpoint
     else:
         sam_ckpt = args.efficientViT_checkpoint
@@ -168,7 +230,7 @@ def main(argv=None):
              if args.style_lora else None)
     engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok1,
                          tokenizer_2=tok2, mask_provider=provider,
-                         cn_cfg=cn_cfg, num_steps=args.num_steps,
+                         cn_cfg=cn_cfg, num_steps=args.num_steps, mesh=mesh,
                          cache_interval=args.cache_interval,
                          cache_schedule=args.cache_schedule)
     result = engine.generate(
@@ -178,7 +240,8 @@ def main(argv=None):
         seed=args.seed, height=args.height, width=args.width,
         guidance_scale=args.guidance_scale,
         spatial_condition=spatial, controlnet_params=controlnet)
-    save_outputs(args, args.pretrained_sdxl_model, result)
+    if lead:
+        save_outputs(args, args.pretrained_sdxl_model, result)
     return result
 
 

@@ -15,8 +15,9 @@ preprocessors that turn a photo into a pose or depth map
 The approximate modes: ``--quantize int8`` (W8A8 on the UNet's
 transformer linears), ``--concept_crop`` (stage 2's concept lanes on
 strips) and DeepCache (``--cache_interval``, ``--cache_schedule``; also
-per request). ``--mesh`` is not ported to the CLI yet and raises
-``NotImplementedError`` before any weight loads (ROADMAP §1 item 8).
+per request). ``--mesh`` is not ported to the server yet and raises
+``NotImplementedError`` before any weight loads (ROADMAP §1 item 10: rank
+0 serves and hands each job to the follower ranks).
 """
 
 from __future__ import annotations
@@ -70,8 +71,8 @@ def parse_args(argv=None):
                    help="DeepCache full-step placement; also a per-request "
                         "job field")
     p.add_argument("--mesh", default=0, type=int, metavar="N",
-                   help="multi-device latency mode; not ported to the CLI "
-                        "(0 = one device)")
+                   help="multi-device latency mode; not ported to the "
+                        "server (0 = one device)")
     p.add_argument("--device", default="cuda",
                    help="device of the models: cuda (default) or cpu")
     return p.parse_args(argv)
@@ -79,8 +80,11 @@ def parse_args(argv=None):
 
 def check_not_ported(args) -> None:
     """Raise for the options the port does not have yet, before loading."""
-    from omg_tpu_torch.cli.inference_lora import check_not_ported as common
-    common(args)
+    if args.mesh:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: a server over a mesh is not ported yet "
+            "(ROADMAP §1 item 10: rank 0 serves and hands each job to the "
+            "follower ranks)")
 
 
 def build_server(args):

@@ -16,6 +16,15 @@ takes the same route as the UNet's: the flash kernel on a CUDA device
 ``forward`` takes NHWC latents and an NHWC condition image like the JAX
 ``apply`` and returns the residuals NCHW, the layout the UNet's forward
 adds them in.
+
+``forward(..., seq_group=g)`` runs the spatially split layout of the
+multi-device stage 1, as the UNet's does: ``sample`` holds this rank's
+block of latent rows and ``cond_image`` the same block of pixel rows (8x
+as many); every conv of the encoder and of the conditioning embedder
+reads its neighbours' halo rows, group norms sum their statistics over
+the group, the self-attentions run K1b, and the residuals come back split
+by rows, as the UNet's levels are. The embedder's stride-2 convs need an
+even number of local rows at each stage and raise otherwise.
 """
 
 from __future__ import annotations
@@ -45,11 +54,11 @@ class ConditioningEmbedding(nn.Module):
             self.blocks.append(layers.Conv2d(a, b, 3, stride=2, **kw))
         self.conv_out = layers.Conv2d(chs[-1], out_ch, 3, **kw)
 
-    def forward(self, cond: torch.Tensor) -> torch.Tensor:
-        x = F.silu(self.conv_in(cond))
+    def forward(self, cond: torch.Tensor, seq=None) -> torch.Tensor:
+        x = F.silu(self.conv_in(cond, seq))
         for conv in self.blocks:
-            x = F.silu(conv(x))
-        return self.conv_out(x)
+            x = F.silu(conv(x, seq))
+        return self.conv_out(x, seq)
 
 
 class ControlNetModel(nn.Module):
@@ -115,37 +124,39 @@ class ControlNetModel(nn.Module):
                 encoder_hidden_states: torch.Tensor,
                 cond_image: torch.Tensor, *, text_embeds: torch.Tensor,
                 time_ids: torch.Tensor, conditioning_scale=1.0,
-                guess_mode: bool = False) -> tuple:
+                guess_mode: bool = False, seq_group=None) -> tuple:
         """-> (down residuals, mid residual), NCHW, scaled.
 
         ``sample``: [B, h, w, 4] NHWC latents; ``cond_image``: [B, H, W, C]
         at pixel resolution (8x the latents'). ``conditioning_scale``: a
         scalar or a per-lane [B, 1, 1, 1] tensor. ``guess_mode``: diffusers'
         residual ramp, the shallowest residual scaled by 0.1 rising
-        log-linearly to 1.0 at the mid block."""
-        u = self.cfg.unet
+        log-linearly to 1.0 at the mid block. ``seq_group``: both hold
+        this rank's block of rows (``parallel.comm.Group``, equal blocks in
+        group order), and so do the residuals."""
+        u, seq = self.cfg.unet, seq_group
         ctx = encoder_hidden_states.to(u.dtype)
         temb = unet_lib.time_embeddings(self, u, timestep, text_embeds,
                                         time_ids)
-        x = self.conv_in(sample.permute(0, 3, 1, 2))
+        x = self.conv_in(sample.permute(0, 3, 1, 2), seq)
         x = x + self.controlnet_cond_embedding(
-            cond_image.permute(0, 3, 1, 2).to(x.dtype)).to(x.dtype)
+            cond_image.permute(0, 3, 1, 2).to(x.dtype), seq).to(x.dtype)
         residuals = [x]
         for blk in self.down_blocks:
             for ri, res in enumerate(blk.resnets):
-                x = res(x, temb)
+                x = res(x, temb, seq)
                 if len(blk.attentions):
-                    x = blk.attentions[ri](x, ctx, None, None)
+                    x = blk.attentions[ri](x, ctx, None, None, seq)
                 residuals.append(x)
             if hasattr(blk, "downsamplers"):
-                x = blk.downsamplers[0].conv(x)
+                x = blk.downsamplers[0].conv(x, seq)
                 residuals.append(x)
 
         mid = self.mid_block
-        x = mid.resnets[0](x, temb)
+        x = mid.resnets[0](x, temb, seq)
         if len(mid.attentions):
-            x = mid.attentions[0](x, ctx, None, None)
-        x = mid.resnets[1](x, temb)
+            x = mid.attentions[0](x, ctx, None, None, seq)
+        x = mid.resnets[1](x, temb, seq)
 
         scale = torch.as_tensor(conditioning_scale, device=x.device).to(
             x.dtype)

@@ -9,6 +9,16 @@ IP-Adapter's decoupled branch (``IPKV``): a second attention of the same
 queries over the image-prompt tokens, added with ``ip_scale`` after the
 P2P rewrite.
 
+Under tensor parallelism (``parallel/sharding.py``: ``to_q``/``to_k``/
+``to_v`` and the IP projections split by output columns, ``to_out`` by
+input rows over the model group) each rank runs its own heads, K1 on
+[B, H/m, N, D], the P2P edits per head as unsharded, and its partial
+``to_out``, summed over the group with the bias after the sum. Where the
+model size m does not divide the heads, a rank's columns are not whole
+heads: it gathers the q/k/v columns of every rank, runs all heads, and
+keeps its own columns of the output for the row-split ``to_out`` (GSPMD
+reshards there in JAX).
+
 Under a ``seq_group`` (the spatially split stage 1 and VAE decode) each
 rank holds one block of the token sequence. Self-attention then
 all-gathers K/V over the group and runs its local query rows against
@@ -110,7 +120,7 @@ class Attention(nn.Module):
         inner = num_heads * head_dim
         ctx = context_dim if context_dim is not None else query_dim
         kw = dict(dtype=dtype, device=device)
-        self.num_heads = num_heads
+        self.num_heads, self.head_dim = num_heads, head_dim
         self.to_q = layers.Linear(query_dim, inner, bias=qkv_bias, **kw)
         self.to_k = layers.Linear(ctx, inner, bias=qkv_bias, **kw)
         self.to_v = layers.Linear(ctx, inner, bias=qkv_bias, **kw)
@@ -118,8 +128,19 @@ class Attention(nn.Module):
             [layers.Linear(inner, query_dim, bias=out_bias, **kw)])
 
     def _split_heads(self, t: torch.Tensor) -> torch.Tensor:
-        # [B, N, H*D] -> [B, H, N, D] as a strided view (no copy)
-        return t.unflatten(-1, (self.num_heads, -1)).transpose(1, 2)
+        """[B, N, H'*D] -> [B, H', N, D] as a strided view (no copy). Under
+        tensor parallelism: the heads this rank runs, from its columns (or
+        from all columns, where a projection was left whole)."""
+        tp = self.to_q.tp
+        if tp is not None:
+            whole = self.num_heads * self.head_dim
+            if self.num_heads % tp.split.group.size == 0:
+                if t.shape[-1] == whole:
+                    t = t[..., tp.split.lo:tp.split.hi]
+            elif t.shape[-1] != whole:
+                t = comm.all_gather(t, -1, tp.split.group,
+                                    sizes=tp.split.sizes)
+        return t.unflatten(-1, (-1, self.head_dim)).transpose(1, 2)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 *, lora: Optional[dict] = None, p2p=None,
@@ -180,4 +201,8 @@ class Attention(nn.Module):
 
         b, h, n, d = out.shape
         out = out.transpose(1, 2).reshape(b, n, h * d)
+        tp = self.to_out[0].tp
+        if tp is not None and h == self.num_heads:
+            # all heads ran (m does not divide them): this rank's rows
+            out = out[..., tp.split.lo:tp.split.hi]
         return self.to_out[0](out, lora)

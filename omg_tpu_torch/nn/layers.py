@@ -16,6 +16,16 @@ module serves the base lanes and every concept lane. A per-lane leaf has
 ``down [B, in, r]``, ``up [B, r, out]`` and ``scale [B]`` (a batched
 matmul: lane b runs adapter b).
 
+Tensor parallelism (``parallel/sharding.py``): a ``Linear`` may hold
+one rank's share of its weight over the mesh's model axis (``tp``, a
+``TPSplit``). Split by output columns (q/k/v) it computes those columns,
+its LoRA ``up`` cut to them; split by input rows (``to_out``) it takes
+those features of its input, multiplies them by its rows (LoRA ``down``
+cut to them) and sums the partial products over the group (in the
+compute dtype, as GSPMD's psum in JAX), the bias added after the sum; an
+int8 one takes the activation scale over the whole input axis and sums
+its int32 products before dequantizing.
+
 Spatial split (the multi-device modes): ``Conv2d`` and ``GroupNorm`` take
 an optional ``seq_group`` (``parallel.comm.Group``) whose ranks each hold
 an equal block of consecutive rows of the H axis, in group order. A 3x3
@@ -28,7 +38,7 @@ and stay local.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -66,6 +76,15 @@ def lora_delta(leaf: dict, x: torch.Tensor) -> torch.Tensor:
     return delta * scale
 
 
+class TPSplit(NamedTuple):
+    """A ``Linear``'s tensor-parallel split: ``dim`` 0 splits its output
+    columns, 1 its input rows; ``split``: that axis's
+    ``parallel.mesh.Split`` over the model group (this rank holds [lo,
+    hi))."""
+    dim: int
+    split: object
+
+
 class Linear(nn.Module):
     """``x @ W.T`` plus this layer's LoRA delta, then the bias."""
 
@@ -77,9 +96,17 @@ class Linear(nn.Module):
         self.weight = param((out_dim, in_dim), dtype, device)
         self.bias = param((out_dim,), dtype, device) if bias else None
         self.lora_key = ""      # module path; set by the model root
+        self.tp: Optional[TPSplit] = None
 
     def lora_leaf(self, lora: Optional[dict]) -> Optional[dict]:
-        return None if lora is None else lora.get(self.lora_key)
+        """This layer's LoRA leaf, cut to its tensor-parallel share."""
+        leaf = None if lora is None else lora.get(self.lora_key)
+        if leaf is None or self.tp is None:
+            return leaf
+        lo, hi = self.tp.split.lo, self.tp.split.hi
+        if self.tp.dim == 0:
+            return dict(leaf, up=leaf["up"][..., lo:hi])
+        return dict(leaf, down=leaf["down"][..., lo:hi, :])
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
         """The base product ``x @ W.T``, without LoRA or bias."""
@@ -87,11 +114,20 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor, lora: Optional[dict] = None):
         leaf = self.lora_leaf(lora)
-        if leaf is None and not self.quantized:
+        rows = self.tp is not None and self.tp.dim == 1
+        if leaf is None and not self.quantized and not rows:
             return F.linear(x, self.weight, self.bias)
         y = self.matmul(x)
-        if leaf is not None:
-            y = y + lora_delta(leaf, x)
+        delta = lora_delta(leaf, x) if leaf is not None else None
+        if rows and self.quantized:
+            # the int8 product comes back summed (its int32 sums are)
+            if delta is not None:
+                y = y + comm.all_reduce_sum(delta, self.tp.split.group)
+        elif rows:
+            y = comm.all_reduce_sum(y if delta is None else y + delta,
+                                    self.tp.split.group)
+        elif delta is not None:
+            y = y + delta
         return y if self.bias is None else y + self.bias
 
 
@@ -115,7 +151,9 @@ class QuantLinear(Linear):
         return m
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
-        return quant.int8_matmul(x, self.weight_q, self.w_scale)
+        group = (self.tp.split.group
+                 if self.tp is not None and self.tp.dim == 1 else None)
+        return quant.int8_matmul(x, self.weight_q, self.w_scale, group)
 
 
 class Conv2d(nn.Module):

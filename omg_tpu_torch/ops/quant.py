@@ -36,6 +36,8 @@ import copy
 import numpy as np
 import torch
 
+from omg_tpu_torch.parallel import comm
+
 _QUANT_SCOPES = ("transformer_blocks", "proj_in", "proj_out")
 # 1/127 rounded to fp32, as XLA folds the constant divisor
 _INV_127 = float(np.float32(1.0) / np.float32(127.0))
@@ -56,10 +58,16 @@ def quantize_weight(weight: torch.Tensor) -> tuple:
     return wq, scale[:, 0]
 
 
-def quantize_activations(x: torch.Tensor) -> tuple:
-    """[..., in] -> (int8 [..., in], fp32 per-token scale [..., 1])."""
+def quantize_activations(x: torch.Tensor, group=None) -> tuple:
+    """[..., in] -> (int8 [..., in], fp32 per-token scale [..., 1]).
+    ``group``: x holds this rank's share of the feature axis (a row-split
+    linear under tensor parallelism); the scale takes max|x| over the
+    whole axis, the maximum over the group."""
     xf = x.float()
-    sx = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-8) * _INV_127
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if group is not None:
+        amax = comm.all_reduce_max(amax, group)
+    sx = torch.clamp_min(amax, 1e-8) * _INV_127
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     return xq, sx
 
@@ -76,11 +84,17 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def int8_matmul(x: torch.Tensor, wq: torch.Tensor,
-                w_scale: torch.Tensor) -> torch.Tensor:
+                w_scale: torch.Tensor, group=None) -> torch.Tensor:
     """Dynamic per-token W8A8: x [..., in] against int8 wq [out, in] with
-    scales [out] -> [..., out] in x's dtype."""
-    xq, sx = quantize_activations(x)
+    scales [out] -> [..., out] in x's dtype. ``group``: x and wq hold this
+    rank's share of the input axis (a row-split linear); the activation
+    scale is the whole axis's and the int32 products are summed over the
+    group before the dequantization, where GSPMD places the reduction in
+    JAX, so the result equals the unsplit product bit for bit."""
+    xq, sx = quantize_activations(x, group)
     y = int_mm(xq.reshape(-1, xq.shape[-1]), wq.t())
+    if group is not None:
+        y = comm.all_reduce_sum(y, group)
     y = y.reshape(tuple(x.shape[:-1]) + (wq.shape[0],))
     return (y.float() * sx * w_scale.float()).to(x.dtype)
 

@@ -7,7 +7,8 @@ explicit calls on a ``Group`` of ranks:
 
   * ``all_gather(x, dim, group)`` — concatenate every rank's piece along
     ``dim`` in group order (uneven pieces with ``sizes``);
-  * ``all_reduce_sum(x, group)`` — the elementwise sum over the group;
+  * ``all_reduce_sum(x, group)`` / ``all_reduce_max(x, group)`` — the
+    elementwise sum / maximum over the group;
   * ``broadcast_rows(x, src, group)`` — the group member ``src``'s tensor
     on every member;
   * ``halo_rows(x, group, n)`` — the n rows above and below a rank's block
@@ -127,14 +128,23 @@ def all_gather(x: torch.Tensor, dim: int, group: Group,
     return _back(out, x)
 
 
-def all_reduce_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
-    """The elementwise sum of every member's ``x`` (a new tensor)."""
+def _all_reduce(x: torch.Tensor, group: Group, op) -> torch.Tensor:
     if group.size == 1:
         return x
     y = _host(x, group)
     y = y.clone() if y.data_ptr() == x.data_ptr() else y
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group.pg)
+    dist.all_reduce(y, op=op, group=group.pg)
     return _back(y, x)
+
+
+def all_reduce_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The elementwise sum of every member's ``x`` (a new tensor)."""
+    return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The elementwise maximum of every member's ``x`` (a new tensor)."""
+    return _all_reduce(x, group, dist.ReduceOp.MAX)
 
 
 def broadcast_rows(x: torch.Tensor, src: int, group: Group) -> torch.Tensor:

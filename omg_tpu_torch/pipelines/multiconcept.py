@@ -20,23 +20,31 @@ cond_A, cond_B] plus the 2K concept lanes, P2P reading lane 2 and editing
 lane 3. It runs when there is no recorded trajectory, and it is the stage
 2 of the multi-device latency mode, where its lanes split over the ranks.
 
+The reference's own 4-row step (``multiconcept_step``, looped by
+``denoise_multiconcept`` and ``sample_stage``) runs one stage end to end
+with no shortcut: both latent copies CFG-expanded to [uncond_A, uncond_B,
+cond_A, cond_B] on every step, and in stage 2 after ``fusion_start`` a
+second forward over the 2K concept lanes fed copy B. Every fast path
+equals it; the zero-concept stage 2 of ``_denoise_mc_range`` is it.
+
 Multi-device latency mode (``OMG(mesh=...)``), on ``parallel/``:
   * stage 1 takes a ``Spatial`` layout: the CFG lanes [uncond, cond] over
     the mesh's data axis and the latent's H over its model axis; every
     conv, group norm and self-attention works across the model axis
-    (halo rows, summed statistics, K1b on K/V gathered over the ranks);
-  * stage 2's 4+2K lanes split over all ranks (``lane_sharding``); the
-    eps of every lane are gathered after each forward, so region fusion,
-    CFG and the scheduler step run the same on every rank.
+    (halo rows, summed statistics, K1b on K/V gathered over the ranks),
+    and so does a spatial ControlNet on the same rows of its condition
+    image;
+  * stage 2's 4+2K lanes split over all ranks (``lane_sharding``); each
+    rank runs the ControlNets, IP tokens and LoRA rows of its own lanes,
+    and the eps of every lane are gathered after each forward, so region
+    fusion, CFG and the scheduler step run the same on every rank.
 
-Conditioning on one device, in every program (the JAX package's
-``ControlNetInputs`` plumbing): a spatial ControlNet on the base lanes
-(stage 1's cond lane, stage 2's conditional rows in guess mode), the
-IdentityNet on the concept lanes, and the IP-Adapter tokens on the
-concept lanes (zero tokens on the base lanes: an exact no-op, ``to_v_ip``
-has no bias). Their residuals are summed per lane, with zero rows for
-lanes no ControlNet serves. Under the mesh layouts they raise
-``NotImplementedError``.
+Conditioning, in every program (the JAX package's ``ControlNetInputs``
+plumbing): a spatial ControlNet on the base lanes (stage 1's cond lane,
+stage 2's conditional rows in guess mode), the IdentityNet on the concept
+lanes, and the IP-Adapter tokens on the concept lanes (zero tokens on the
+base lanes: an exact no-op, ``to_v_ip`` has no bias). Their residuals are
+summed per lane, with zero rows for lanes no ControlNet serves.
 
 The approximate modes (opt-in, as in JAX):
   * DeepCache (``cache_interval``, Ma et al. 2023): in every denoise range
@@ -80,15 +88,6 @@ from omg_tpu_torch.control import regions
 from omg_tpu_torch.diffusion import sampling, schedulers
 from omg_tpu_torch.parallel import comm, mesh as mesh_lib
 from omg_tpu_torch.pipelines import sdxl
-
-# ROADMAP.md's item for the conditioned paths under a mesh layout.
-MESH_ITEM = "parallel/ (item 18)"
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to omg_tpu_torch yet (ROADMAP.md: {item})")
-
 
 class ControlNetInputs(NamedTuple):
     """One ControlNet's weights and conditioning for a denoise run.
@@ -155,24 +154,46 @@ def _controlnet_residuals(cns: Sequence[ControlNetInputs], lin: torch.Tensor,
                           t: int, prompt_embeds: torch.Tensor,
                           text_embeds: torch.Tensor, time_ids: torch.Tensor,
                           *, step_i: Optional[int] = None, num_steps: int = 0,
-                          cond_rows: tuple = ()) -> tuple:
+                          cond_rows: tuple = (), lo: int = 0,
+                          seq_group: Optional[comm.Group] = None) -> tuple:
     """Run each ControlNet on the lanes ``lin`` and sum the residual
     stacks (diffusers MultiControlNet) -> (down list, mid), NCHW, or
-    (None, None) when no ControlNet is kept at this step.
+    (None, None) when no ControlNet runs.
 
     ``step_i``/``num_steps``: enable the guidance-window gate; outside its
     window a ControlNet does not run (its residuals would be exact zeros).
-    ``cond_rows``: the conditional CFG rows of ``lin``; a guess-mode
-    ControlNet runs only those and leaves zeros on the others."""
+    ``cond_rows``: the conditional CFG rows of the program's lanes; a
+    guess-mode ControlNet runs only those and leaves zeros on the others.
+    ``lo``: ``lin`` and the embeddings hold the program's lanes [lo,
+    lo + B) (a rank's share under a mesh); a guess-mode ControlNet runs the
+    conditional rows among them and adds nothing where there is none, and
+    a per-lane scale, condition image or context is cut to them.
+    ``seq_group``: ``lin`` holds this rank's block of latent rows; the
+    ControlNet runs split over the group on the same block of pixel rows
+    of its condition image, and its residuals hold those rows."""
     down_acc = mid_acc = None
     b = lin.shape[0]
+
+    def lanes_of(x):
+        return x[lo:lo + b] if x.shape[0] > 1 and lo + b <= x.shape[0] \
+            else x
+
     for cn in cns:
         scale = _cn_scale(cn, step_i, num_steps, lin.device)
         if scale is None:
             continue
+        if torch.is_tensor(scale) and scale.dim():
+            scale = lanes_of(scale)
+        cond = cn.cond_image
+        if seq_group is not None and seq_group.size > 1:
+            n = cond.shape[1] // seq_group.size
+            cond = cond[:, seq_group.index * n:(seq_group.index + 1) * n]
         if cn.guess_mode and cond_rows:
-            rows = torch.as_tensor(cond_rows, device=lin.device)
-            n = len(cond_rows)
+            local = [r - lo for r in cond_rows if lo <= r < lo + b]
+            if not local:
+                continue
+            rows = torch.as_tensor(local, device=lin.device)
+            n = len(local)
             ehs = cn.encoder_hidden_states
             if ehs is not None:
                 # a CFG-stacked [uncond; cond] context conditions on its
@@ -182,24 +203,26 @@ def _controlnet_residuals(cns: Sequence[ControlNetInputs], lin: torch.Tensor,
                 ehs = ehs.expand((n,) + tuple(ehs.shape[1:]))
             else:
                 ehs = prompt_embeds[rows]
-            cond = cn.cond_image.expand((n,) + tuple(cn.cond_image.shape[1:]))
+            cond = cond.expand((n,) + tuple(cond.shape[1:]))
             down, mid = cn.params(lin[rows], t, ehs, cond,
                                   text_embeds=text_embeds[rows],
                                   time_ids=time_ids[rows],
-                                  conditioning_scale=scale, guess_mode=True)
+                                  conditioning_scale=scale, guess_mode=True,
+                                  seq_group=seq_group)
 
             def spread(r):
                 return r.new_zeros((b,) + tuple(r.shape[1:])).index_copy(
                     0, rows, r)
             down, mid = [spread(r) for r in down], spread(mid)
         else:
-            cond = cn.cond_image.expand((b,) + tuple(cn.cond_image.shape[1:]))
-            ehs = (cn.encoder_hidden_states
+            cond = lanes_of(cond).expand((b,) + tuple(cond.shape[1:]))
+            ehs = (lanes_of(cn.encoder_hidden_states)
                    if cn.encoder_hidden_states is not None else prompt_embeds)
             if ehs.shape[0] != b:
                 ehs = ehs.expand((b,) + tuple(ehs.shape[1:]))
             down, mid = cn.params(lin, t, ehs, cond, text_embeds=text_embeds,
-                                  time_ids=time_ids, conditioning_scale=scale)
+                                  time_ids=time_ids, conditioning_scale=scale,
+                                  seq_group=seq_group)
         if down_acc is None:
             down_acc, mid_acc = list(down), mid
         else:
@@ -211,9 +234,11 @@ def _controlnet_residuals(cns: Sequence[ControlNetInputs], lin: torch.Tensor,
 def _concept_cn_residuals(concept_controlnets: Sequence, concept_inputs,
                           rl: torch.Tensor, t: int, tembeds: torch.Tensor,
                           tids: torch.Tensor, *, step_i: Optional[int] = None,
-                          num_steps: int = 0) -> tuple:
-    """ControlNet residuals over all 2K concept lanes ``rl`` in one
-    forward, or (None, None) when no concept has one.
+                          num_steps: int = 0, lo: int = 0) -> tuple:
+    """ControlNet residuals over the 2K concept lanes in one forward, or
+    (None, None) when no concept has one. ``rl``, ``tembeds`` and
+    ``tids`` hold the concept lanes [lo, lo + B) (all 2K unless a mesh
+    rank holds a share of them).
 
     Concepts without a ControlNet get zero-scale lanes (an exact no-op);
     each concept's scale (times its guidance-window gate) applies to its
@@ -258,10 +283,12 @@ def _concept_cn_residuals(concept_controlnets: Sequence, concept_inputs,
     if template.guess_mode:
         # residuals on the cond rows only (lanes are (uncond, cond) pairs)
         lane_scale = lane_scale * torch.tensor([0.0, 1.0]).repeat(K)
+    hi = lo + rl.shape[0]
     return template.params(
-        rl, t, torch.cat(ehs_rows), torch.cat(conds), text_embeds=tembeds,
-        time_ids=tids,
-        conditioning_scale=lane_scale.to(rl.device)[:, None, None, None],
+        rl, t, torch.cat(ehs_rows)[lo:hi], torch.cat(conds)[lo:hi],
+        text_embeds=tembeds, time_ids=tids,
+        conditioning_scale=lane_scale[lo:hi].to(rl.device)[:, None, None,
+                                                            None],
         guess_mode=template.guess_mode)
 
 
@@ -372,6 +399,88 @@ def _concept_lane_conditioning(concept_inputs, concept_loras,
             + [ci.ip_context if ci.ip_context is not None else zeros
                for ci in concept_inputs])
     return c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx
+
+
+def multiconcept_step(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
+                      unet, x: torch.Tensor, st: schedulers.SchedulerState,
+                      i: int, base_inputs: BaseInputs, controller,
+                      concept_inputs: Sequence, concept_loras: Sequence,
+                      masks: torch.Tensor, stage2: bool, *,
+                      concept_ip_adapters: Sequence = (),
+                      fusion_start: int = regions.FUSION_START_STEP,
+                      ip_scale: float = 1.0,
+                      base_controlnets: Sequence = (),
+                      concept_controlnets: Sequence = ()) -> tuple:
+    """One OMG denoise step in the reference's layout -> (x', state').
+
+    x: [2, h, w, 4] (copy A, copy B), CFG-expanded to the 4 base rows
+    [uncond_A, uncond_B, cond_A, cond_B]; P2P reads row 2 and edits row 3;
+    the base ControlNets run on those rows (rows 2 and 3 conditional).
+    In stage 2 after ``fusion_start`` the K concepts run as one forward
+    over 2K lanes fed row 3 (concept k's (uncond, cond) pair on lanes 2k,
+    2k+1, its LoRA lane-stacked, the IP tokens and the IdentityNet on
+    them), and ``fuse_region_noise`` writes their masked predictions into
+    copy B's rows; then CFG and one scheduler step."""
+    K = len(concept_inputs)
+    t = int(sched.timesteps[i])
+    lin = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
+    ctrl = controller.at_step(i) if controller is not None else None
+    down, mid = _controlnet_residuals(
+        base_controlnets, lin, t, base_inputs.prompt_embeds,
+        base_inputs.text_embeds, base_inputs.time_ids, step_i=i,
+        num_steps=sched.num_steps, cond_rows=(2, 3))
+    eps = unet(lin, t, base_inputs.prompt_embeds,
+               text_embeds=base_inputs.text_embeds,
+               time_ids=base_inputs.time_ids, control=ctrl,
+               down_block_residuals=down, mid_block_residual=mid)
+    if K > 0:
+        # the JAX lax.cond: the concept forward runs only while fusing
+        active = bool(stage2) and i > fusion_start
+        region_preds = eps.new_zeros((K, 2) + tuple(lin.shape[1:]))
+        if active:
+            rl2 = lin[3:4].expand((2 * K,) + tuple(lin.shape[1:]))
+            embeds, tembeds, tids, lane_lora, ip_ctx = \
+                _concept_lane_conditioning(concept_inputs, concept_loras, 0)
+            k_down, k_mid = _concept_cn_residuals(
+                concept_controlnets, concept_inputs, rl2, t, tembeds, tids,
+                step_i=i, num_steps=sched.num_steps)
+            out = unet(rl2, t, embeds, text_embeds=tembeds, time_ids=tids,
+                       lora=lane_lora,
+                       ip_adapter=(concept_ip_adapters[0]
+                                   if concept_ip_adapters else None),
+                       ip_context=ip_ctx, ip_scale=ip_scale,
+                       down_block_residuals=k_down, mid_block_residual=k_mid)
+            region_preds = out.reshape((K, 2) + tuple(lin.shape[1:]))
+        eps = regions.fuse_region_noise(eps, region_preds,
+                                        masks.to(eps.dtype), active=active)
+    guided = sampling.cfg_combine(eps, base_inputs.guidance_scale)
+    return schedulers.step(sched, st, guided, i, x, shared_batch_noise=True)
+
+
+def denoise_multiconcept(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
+                         unet, latents: torch.Tensor, base_inputs: BaseInputs,
+                         controller, concept_inputs: Sequence,
+                         concept_loras: Sequence, masks: torch.Tensor,
+                         stage2: bool, *, concept_ip_adapters: Sequence = (),
+                         fusion_start: int = regions.FUSION_START_STEP,
+                         ip_scale: float = 1.0,
+                         base_controlnets: Sequence = (),
+                         concept_controlnets: Sequence = (),
+                         noise_seed: Optional[int] = None) -> torch.Tensor:
+    """Every step of one stage by ``multiconcept_step`` from ``latents``
+    [2, h, w, 4] -> the final latents. ``noise_seed``: LCM's re-noise
+    seed, the request's seed, as the fast paths take it (the JAX
+    ``noise_key``), so both draw one stream."""
+    x, st = latents, schedulers.init_state(noise_seed)
+    for i in range(sched.num_steps):
+        x, st = multiconcept_step(
+            cfg, sched, unet, x, st, i, base_inputs, controller,
+            concept_inputs, concept_loras, masks, stage2,
+            concept_ip_adapters=concept_ip_adapters,
+            fusion_start=fusion_start, ip_scale=ip_scale,
+            base_controlnets=base_controlnets,
+            concept_controlnets=concept_controlnets)
+    return x
 
 
 class StageCache(NamedTuple):
@@ -490,13 +599,19 @@ def _denoise_cfg_range_spatial(sched: schedulers.Schedule, unet,
                                state: schedulers.SchedulerState,
                                embeds2, tembeds2, tids2, guidance, *,
                                i0: int, i1: int, spatial: Spatial,
+                               base_controlnets: Sequence = (),
                                cache_interval=0) -> tuple:
     """``_denoise_cfg_range`` under a ``Spatial`` layout. Each rank runs
     its CFG lanes on its block of latent rows; the eps of both lanes are
     gathered over the data axis, so CFG and the scheduler step run on the
     rank's rows, and the rows are gathered over the model axis at the
     end: every rank returns the whole latents. The DeepCache feature is
-    the rank's lanes and rows of it."""
+    the rank's lanes and rows of it.
+
+    ``base_controlnets`` run on the rank's lanes and rows (their residuals
+    split as the UNet's levels are); in guess mode only the conditional
+    lane runs one, so a rank that holds only the unconditional lane adds
+    no residual, as the zero rows of the unsharded program."""
     lanes, seq = _spatial_ctx(spatial)
     lo, hi = lanes.lo, lanes.hi
     x = latents
@@ -512,7 +627,13 @@ def _denoise_cfg_range_spatial(sched: schedulers.Schedule, unet,
     for i in range(i0, i1):
         t = int(sched.timesteps[i])
         lin = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
-        eps = dc.step(unet, i, lin[lo:hi], t, embeds2[lo:hi],
+        mine = lin[lo:hi]
+        eps = dc.step(unet, i, mine, t, embeds2[lo:hi],
+                      lambda: _controlnet_residuals(
+                          base_controlnets, mine, t, embeds2[lo:hi],
+                          tembeds2[lo:hi], tids2[lo:hi], step_i=i,
+                          num_steps=sched.num_steps, cond_rows=(1,), lo=lo,
+                          seq_group=seq),
                       text_embeds=tembeds2[lo:hi], time_ids=tids2[lo:hi],
                       seq_group=seq)
         eps = comm.all_gather(eps, 0, lanes.group, sizes=lanes.sizes)
@@ -553,15 +674,13 @@ def _denoise_cfg_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     tembeds2 = base_inputs.text_embeds[rows]
     tids2 = base_inputs.time_ids[rows]
     if spatial is not None:
-        if base_controlnets:
-            raise not_ported("ControlNet under the mesh layout", MESH_ITEM)
         if record_traj:
             raise ValueError("the spatial stage-1 layout records no "
                              "trajectory (its stage 2 is the 4+2K program)")
         return _denoise_cfg_range_spatial(
             sched, unet, latents, state, embeds2, tembeds2, tids2,
             base_inputs.guidance_scale, i0=i0, i1=i1, spatial=spatial,
-            cache_interval=cache_interval)
+            base_controlnets=base_controlnets, cache_interval=cache_interval)
     traj = []
     x, st = latents, state
     dc = _DeepCache(cache_interval, i0)
@@ -665,17 +784,22 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     concept k's (uncond, cond) pair on lanes 4+2k, 4+2k+1, fed copy B's
     latent (row 3). One UNet forward per step; P2P reads lane 2 and edits
     lane 3. latents: [2, h, w, 4] (copy A, copy B) -> the same, final.
+    With no concept it is ``multiconcept_step``'s loop (the 4 base rows).
 
     ``lane_sharding``: the group whose ranks split the 4+2K lanes
     (``tensor_split`` order; at least one lane each). Each rank keeps the
-    conditioning and LoRA rows of its lanes and runs them; the eps of all
-    lanes are then gathered, so region fusion, CFG and the scheduler step run
-    the same on every rank and every rank carries the same latents.
+    conditioning, LoRA and IP rows of its lanes and runs them; the eps of
+    all lanes are then gathered, so region fusion, CFG and the scheduler
+    step run the same on every rank and every rank carries the same
+    latents.
 
-    Unsharded, the base ControlNets run on lanes [:4] (rows 2 and 3
-    conditional) and the concept ControlNets on the 2K concept lanes.
-    ``cache_interval``: DeepCache over the lanes (each rank keeps its
-    lanes' feature under ``lane_sharding``)."""
+    The base ControlNets run on the base lanes [:4] (rows 2 and 3
+    conditional) and the concept ControlNets on the 2K concept lanes;
+    under ``lane_sharding`` each rank runs them on the base and concept
+    lanes it holds (none: that side's forward does not run there), and
+    its residuals follow its lane order. ``cache_interval``: DeepCache
+    over the lanes (each rank keeps its lanes' feature under
+    ``lane_sharding``)."""
     K = len(concept_inputs)
     if K == 0 and dc_on(cache_interval):
         raise ValueError(
@@ -685,21 +809,19 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
         raise ValueError(
             "lane_sharding requires at least one concept (zero-concept "
             "stage 2 is a plain CFG denoise; run it unsharded)")
-    if lane_sharding is not None and (
-            concept_ip_adapters or base_controlnets
-            or any(c is not None for c in concept_controlnets)):
-        raise not_ported("ControlNet and InstantID under the mesh layout",
-                         MESH_ITEM)
-    embeds = torch.cat([base_inputs.prompt_embeds]
-                       + [ci.prompt_embeds for ci in concept_inputs])
-    tembeds = torch.cat([base_inputs.text_embeds]
-                        + [ci.text_embeds for ci in concept_inputs])
-    tids = torch.cat([base_inputs.time_ids]
-                     + [ci.time_ids for ci in concept_inputs])
-    lane_lora = ip_ctx = None
-    if K:
-        _, _, _, lane_lora, ip_ctx = _concept_lane_conditioning(
-            concept_inputs, concept_loras, 4)
+    x, st = latents, state
+    if K == 0:
+        for i in range(i0, sched.num_steps):
+            x, st = multiconcept_step(
+                cfg, sched, unet, x, st, i, base_inputs, controller, (), (),
+                masks, True, fusion_start=fusion_start,
+                base_controlnets=base_controlnets)
+        return x
+    c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx = \
+        _concept_lane_conditioning(concept_inputs, concept_loras, 4)
+    embeds = torch.cat([base_inputs.prompt_embeds, c_embeds])
+    tembeds = torch.cat([base_inputs.text_embeds, c_tembeds])
+    tids = torch.cat([base_inputs.time_ids, c_tids])
     ipk = concept_ip_adapters[0] if concept_ip_adapters else None
     n = 4 + 2 * K
     lanes = (mesh_lib.Split(n, lane_sharding) if lane_sharding is not None
@@ -707,28 +829,38 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     lo, hi = (lanes.lo, lanes.hi) if lanes is not None else (0, n)
     embeds, tembeds, tids = embeds[lo:hi], tembeds[lo:hi], tids[lo:hi]
     lane_lora = lora_lib.lane_slice(lane_lora, lo, hi)
+    ip_ctx = ip_ctx[lo:hi] if ip_ctx is not None else None
+    # the base lanes [b_lo, b_hi) and concept lanes [4 + c_lo, 4 + c_hi)
+    # this rank holds
+    b_lo, b_hi = min(lo, 4), min(hi, 4)
+    c_lo, c_hi = max(lo, 4) - 4, max(hi, 4) - 4
     masks = masks.to(latents.dtype)
-    x, st = latents, state
     dc = _DeepCache(cache_interval, i0)
     for i in range(i0, sched.num_steps):
         t = int(sched.timesteps[i])
         lin4 = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
-        rows = torch.cat([lin4, lin4[3:4].expand((2 * K,) + lin4.shape[1:])])
+        rows = torch.cat([lin4[b_lo:b_hi],
+                          lin4[3:4].expand((c_hi - c_lo,)
+                                           + lin4.shape[1:])])
         ctrl = (controller.at_step(i, lanes=lanes)
                 if controller is not None else None)
 
         def residuals():
-            return _lane_residuals(
-                _controlnet_residuals(
-                    base_controlnets, lin4, t, base_inputs.prompt_embeds,
-                    base_inputs.text_embeds, base_inputs.time_ids, step_i=i,
-                    num_steps=sched.num_steps, cond_rows=(2, 3)),
-                _concept_cn_residuals(
-                    concept_controlnets, concept_inputs, rows[4:], t,
-                    tembeds[4:], tids[4:], step_i=i,
-                    num_steps=sched.num_steps),
-                4, 2 * K)
-        eps_all = dc.step(unet, i, rows[lo:hi], t, embeds, residuals,
+            base = concept = (None, None)
+            if b_hi > b_lo:
+                base = _controlnet_residuals(
+                    base_controlnets, lin4[b_lo:b_hi], t,
+                    base_inputs.prompt_embeds[b_lo:b_hi],
+                    base_inputs.text_embeds[b_lo:b_hi],
+                    base_inputs.time_ids[b_lo:b_hi], step_i=i,
+                    num_steps=sched.num_steps, cond_rows=(2, 3), lo=b_lo)
+            if c_hi > c_lo:
+                concept = _concept_cn_residuals(
+                    concept_controlnets, concept_inputs, rows[b_hi - b_lo:],
+                    t, c_tembeds[c_lo:c_hi], c_tids[c_lo:c_hi], step_i=i,
+                    num_steps=sched.num_steps, lo=c_lo)
+            return _lane_residuals(base, concept, b_hi - b_lo, c_hi - c_lo)
+        eps_all = dc.step(unet, i, rows, t, embeds, residuals,
                           text_embeds=tembeds, time_ids=tids, lora=lane_lora,
                           control=ctrl, ip_adapter=ipk, ip_context=ip_ctx,
                           ip_scale=ip_scale)
@@ -1003,6 +1135,45 @@ def sample_stage2_resumed(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
         masks, lane_sharding=lane_sharding,
         concept_controlnets=tuple(concept_controlnets),
         cache_interval=cache_interval, **kw)
+
+
+def sample_stage(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule, unet, *,
+                 generator: Optional[torch.Generator] = None, height: int,
+                 width: int, base_inputs: BaseInputs, controller,
+                 concept_inputs: Sequence[ConceptInputs] = (),
+                 concept_loras: Sequence[Optional[dict]] = (),
+                 masks: Optional[torch.Tensor] = None, stage: int = 1,
+                 fusion_start: int = regions.FUSION_START_STEP,
+                 concept_ip_adapters: Sequence = (), ip_scale: float = 1.0,
+                 base_controlnets: Sequence = (),
+                 concept_controlnets: Sequence = (),
+                 initial_noise=None,
+                 noise_seed: Optional[int] = None) -> torch.Tensor:
+    """One OMG stage end to end in the reference's layout: the seed's
+    noise duplicated to both latent copies, then ``denoise_multiconcept``
+    -> [2, h, w, 4]. Stage 1 and stage 2 take the same draw (the same
+    ``generator`` seed or ``initial_noise``, [1, h, w, 4] unit noise), so
+    stage 2 re-runs stage 1's steps up to the fusion gate; ``masks``
+    [K, h, w] default to zeros."""
+    validate_concept_controlnets(concept_controlnets)
+    device = base_inputs.prompt_embeds.device
+    if initial_noise is not None:
+        lat = schedulers.scale_initial_noise(sched, torch.tensor(
+            np.asarray(initial_noise, np.float32), device=device).to(
+                cfg.unet.dtype))
+    else:
+        lat = sdxl.prepare_latents(generator, 1, height, width, sched,
+                                   cfg.unet.dtype, device)
+    if masks is None:
+        masks = torch.zeros((len(concept_inputs), height // 8, width // 8),
+                            device=device)
+    return denoise_multiconcept(
+        cfg, sched, unet, duplicate_latents(lat), base_inputs, controller,
+        tuple(concept_inputs), tuple(concept_loras), masks, stage == 2,
+        concept_ip_adapters=tuple(concept_ip_adapters),
+        fusion_start=fusion_start, ip_scale=ip_scale,
+        base_controlnets=tuple(base_controlnets),
+        concept_controlnets=tuple(concept_controlnets), noise_seed=noise_seed)
 
 
 # --------------------------------------------------------------------------

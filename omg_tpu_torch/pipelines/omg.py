@@ -16,8 +16,7 @@ scale, guidance window and guess mode; BASELINE config #3) and InstantID
 lanes' IP cross-attention and the IdentityNet on the concept lanes in
 stage 2, from ``face_embeddings`` and ``face_kps_image`` or
 ``face_kps_provider``; config #4), with any of the Euler, DDIM, DPM++2M
-and LCM schedulers. ControlNet and InstantID under a mesh raise
-``NotImplementedError``.
+and LCM schedulers, on one device or under a mesh.
 
 The approximate modes, opt-in as in JAX: ``quantize="int8"`` (W8A8 on
 the UNet's transformer linears, ``ops/quant.py``), ``concept_crop`` (stage
@@ -30,7 +29,11 @@ ControlNets, InstantID and the mesh.
 mesh builds the engine over its own copy of the same weights and calls
 ``generate`` with the same arguments; stage 1 runs spatially split, stage
 2 lane-split and the decode H-split (``pipelines/multiconcept.py``), and
-every rank returns the same images.
+every rank returns the same images. A spatial ControlNet runs H-split
+beside the UNet in stage 1 and on the ranks that hold base lanes in stage
+2; InstantID's IP tokens and IdentityNet run on the ranks that hold
+concept lanes, the keypoints drawn from the gathered stage-1 image, which
+every rank holds whole.
 """
 
 from __future__ import annotations
@@ -220,12 +223,17 @@ class OMG:
         return multiconcept.deepcache_schedule(
             steps, interval, kind=kind, fusion_start=fusion_start)
 
-    def _check_mesh_weights(self) -> None:
-        """Once per engine: every rank of the mesh holds the same weights
-        on its mesh device (each rank built its own copy)."""
-        if not getattr(self, "_weights_checked", False):
-            mesh_lib.replicated(self.mesh, *self.params)
-            self._weights_checked = True
+    def _check_mesh_weights(self, *models) -> None:
+        """Every rank of the mesh holds the same weights on its mesh
+        device (each rank built its own copy): the engine's once, and each
+        ControlNet or InstantID model the first time a request brings it.
+        Every rank passes the same models, so all run the same checks."""
+        checked = self.__dict__.setdefault("_mesh_checked", {})
+        todo = [m for m in (*self.params, *models)
+                if m is not None and checked.get(id(m)) is not m]
+        if todo:
+            mesh_lib.replicated(self.mesh, *todo)
+            checked.update((id(m), m) for m in todo)
 
     def encode(self, prompt: str, negative: str,
                te_lora: tuple = (None, None)):
@@ -364,10 +372,6 @@ class OMG:
         ``face_embeddings``: per concept, an ArcFace embedding or None."""
         use_cn = (spatial_condition is not None
                   and controlnet_params is not None)
-        if self.mesh is not None and (use_cn or instantid is not None):
-            raise multiconcept.not_ported(
-                "ControlNet and InstantID under the mesh layout",
-                multiconcept.MESH_ITEM)
         self._check_cn_geometry(controlnet_params if use_cn else None,
                                 instantid)
         device = self.device
@@ -418,7 +422,11 @@ class OMG:
         # --- stage 1 (dedup fast path) ---------------------------------
         lane_sharding = spatial = None
         if self.mesh is not None:
-            self._check_mesh_weights()
+            self._check_mesh_weights(
+                controlnet_params if use_cn else None,
+                *((instantid.resampler_params, instantid.identitynet_params,
+                   *instantid.ip_adapter_layers)
+                  if instantid is not None else ()))
             lane_sharding = self.mesh.flat
             spatial = multiconcept.Spatial(
                 self.mesh, seq=seq_splits(self.cfg, height, self.mesh.model))

@@ -3,10 +3,12 @@ files, loaded by each package's own loader, tokenizer and LoRA reader,
 through ``OMG.generate`` with the same initial noise (latents within
 5e-4, uint8 images within one level); then the port's two CLIs run
 in-process on the CPU on such files: the JAX CLI's output names and
-hash, the stage images equal ``OMG.generate``'s called directly, the
-unported ``--mesh`` fails before any weight loads, and the DeepCache
-flags reach the engine."""
+hash, the stage images equal ``OMG.generate``'s called directly,
+``--mesh 2`` on two CPU ranks within a level of one device (and, in a
+world too small for it, a SystemExit before any weight loads), and the
+DeepCache flags reach the engine."""
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -26,6 +28,7 @@ from omg_tpu.pipelines import omg as jomg
 from omg_tpu_torch import config, loader, lora
 from omg_tpu_torch.cli import inference_instantid, inference_lora
 from omg_tpu_torch.models import resampler, unet
+from omg_tpu_torch.parallel import comm
 from omg_tpu_torch.pipelines import omg
 from omg_tpu_torch.segment import build_mask_provider, sam_provider, vit_sam
 from omg_tpu_torch.utils import image
@@ -207,8 +210,36 @@ def test_inference_instantid_cli(files, capsys):
         inference_instantid.get_face_info(str(files["root"] / "none.png"))
 
 
+def test_inference_lora_cli_mesh(files, tmp_path):
+    """``--mesh 2 --device cpu``: two gloo CPU ranks, (data, model) = (2,
+    1), with a spatial ControlNet (the tiny IdentityNet directory serves as
+    one) and a condition PNG: rank 0's images within one uint8 level of
+    ``--mesh 0``'s, and rank 0 wrote them."""
+    cond = str(tmp_path / "cond.png")
+    image.write_png(cond, np.random.default_rng(8).integers(
+        0, 256, (48, 48, 3), np.uint8))
+    argv = ["--pretrained_sdxl_model", files["ckpt"],
+            "--lora_path", "|".join(files["loras"]), "--prompt", PROMPT,
+            "--negative_prompt", "ugly", "--prompt_rewrite", REWRITE,
+            "--efficientViT_checkpoint", files["sam"], "--seed", "9",
+            "--suffix", "s", "--num_steps", "3", "--height", "64",
+            "--width", "64", "--device", "cpu",
+            "--controlnet_checkpoint", files["idnet"],
+            "--spatial_condition", cond]
+    out = {m: str(tmp_path / f"mesh{m}") for m in (0, 2)}
+    res = {m: inference_lora.main(argv + ["--save_dir", out[m], "--mesh",
+                                          str(m)]) for m in (0, 2)}
+    assert res[2].stage2 is not None
+    for name in ("stage1", "stage2"):
+        g, w = getattr(res[2], name), getattr(res[0], name)
+        assert g.shape == w.shape == (2, 64, 64, 3)
+        assert np.abs(g.astype(int) - w.astype(int)).max() <= 1, name
+    _check_outputs(os.path.join(out[2], "seed_9"), files["ckpt"], "ugly",
+                   res[2])
+
+
 @pytest.mark.parametrize("cli,argv,err", [
-    (inference_lora, ["--mesh", "2"], NotImplementedError),
+    (inference_lora, ["--mesh", "2"], SystemExit),
     (inference_lora, ["--cache_interval", "3"], None),
     (inference_lora, ["--cache_schedule", "front", "--cache_interval", "3"],
      None),
@@ -217,15 +248,23 @@ def test_inference_instantid_cli(files, capsys):
 def test_cli_errors_fire_before_loading(files, tmp_path, monkeypatch, cli,
                                         argv, err):
     """The model paths do not exist: an error about them would mean the
-    load began. The DeepCache flags (refused here before DeepCache was
+    load began. ``--mesh 2`` (refused here before the mesh CLI was ported)
+    inside a running world of one rank is ``make_latency_mesh``'s
+    SystemExit. The DeepCache flags (refused here before DeepCache was
     ported) reach the engine: each CLI runs from the tiny files with
     shallow steps."""
     missing = str(tmp_path / "missing")
     flag = ("--pretrained_sdxl_model" if cli is inference_lora
             else "--pretrained_model")
     if err is not None:
-        with pytest.raises(err):
-            cli.main([flag, missing, "--device", "cpu"] + argv)
+        with contextlib.ExitStack() as stack:
+            if "--mesh" in argv:
+                comm.init(str(tmp_path / "store"), 0, 1, "gloo", 60.0)
+                stack.callback(comm.shutdown)
+            with pytest.raises(err, match=(
+                    "latency mesh needs 2 devices; only 1 visible"
+                    if "--mesh" in argv else None)):
+                cli.main([flag, missing, "--device", "cpu"] + argv)
         return
     engines = []
     init = omg.OMG.__post_init__

@@ -2,7 +2,7 @@
 tiny config: a spatial ControlNet (default window, partial window, guess
 mode; BASELINE config #3), InstantID with an IdentityNet (config #4),
 DDIM, DPM++2M and LCM (JAX's draws injected), the 4+2K program against
-the 3+2K one, and the mesh layout refusing the conditioned paths. uint8
+the 3+2K one, and the mesh programs running the conditioned paths. uint8
 images within 1, latents within 5e-4 (tests/test_golden.py's bound)."""
 
 import jax
@@ -274,19 +274,33 @@ def test_four_lane_program_against_the_trajectory_program(setup):
 
 
 def test_mesh_refuses_controlnet_and_instantid(setup):
-    """A mesh engine raises before any collective runs (the reference has
-    no test of these paths under a mesh)."""
-    mesh = mesh_lib.Mesh(1, 2, 0, torch.device("cpu"), None, None, None)
+    """A mesh engine once refused these; it now runs them. On a one-rank
+    grid (groups of one rank run no collective) the mesh programs give the
+    one-device engine's images, with the spatial ControlNet in guess mode
+    and with InstantID (tests/port/test_torch_parallel_conditioned.py runs
+    four ranks)."""
+    from omg_tpu_torch.parallel import comm
+    one = comm.Group((0,), 0)
     teng = setup["teng"]
     eng = omg.OMG(cfg=teng.cfg, params=teng.params, tokenizer=teng.tokenizer,
-                  tokenizer_2=teng.tokenizer_2, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        eng.generate(PROMPT, height=H, width=W,
-                     controlnet_params=setup["tcn"],
-                     spatial_condition=setup["cond"])
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        eng.generate(PROMPT, height=H, width=W,
-                     instantid=omg.InstantIDModels(None, None, []))
+                  tokenizer_2=teng.tokenizer_2,
+                  mask_provider=teng.mask_provider, num_steps=teng.num_steps,
+                  cn_cfg=teng.cn_cfg,
+                  mesh=mesh_lib.Mesh(1, 1, 0, torch.device("cpu"), one, one,
+                                     one))
+    _, tid, faces, kimg = _instantid_pair(setup)
+    common = dict(negative_prompt="ugly", prompt_rewrite=REWRITE, seed=14,
+                  height=H, width=W, initial_noise=setup["noise"])
+    for kw in (dict(controlnet_params=setup["tcn"],
+                    spatial_condition=setup["cond"],
+                    controlnet_guess_mode=True),
+               dict(instantid=tid, face_embeddings=faces,
+                    face_kps_image=kimg)):
+        got = eng.generate(PROMPT, **common, **kw)
+        want = teng.generate(PROMPT, **common, **kw)
+        for name in ("stage1", "stage2"):
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(want, name))
 
 
 def test_controlnet_init_params_follow_the_generator():

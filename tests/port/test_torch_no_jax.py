@@ -50,6 +50,8 @@ def test_port_never_imports_jax():
             "import omg_tpu_torch.models.openpose\n"
             "import omg_tpu_torch.models.dpt\n"
             "import omg_tpu_torch.ops.quant\n"
+            "import omg_tpu_torch.parallel.sharding\n"
+            "import omg_tpu_torch.parallel.dryrun\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'omg_tpu', 'PIL', 'cv2',\n"
             "              'transformers', 'safetensors', 'regex', 'ftfy',\n"
@@ -172,3 +174,30 @@ def test_chip_smoke_approximate_counts():
         assert set(table) <= checked
     assert set(mod.JPEG_NEW_FIXTURES) <= {
         p.stem for p in (ROOT / "tests" / "port" / "data").glob("*.jpg")}
+
+
+def test_chip_smoke_mesh_conditioned_counts():
+    """Phase 3 holds K1 at every shape phase 13 and phase 5b launch it at
+    (the TP forward's 5 and 10 local heads at b = 4, the mesh stage 2's 4
+    lanes a rank, the CLI's one lane a rank in stage 1, the 4-row
+    program's b = 4) and phase 3b K1b at the H-split stage 1's; the
+    launch counts are the ones reckoned from the code: (70 + 34) x 6 K1b
+    with the ControlNet, 3 stage-2 steps of 104 or 70 K1 a rank."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_mesh13",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    checked = {",".join(map(str, shape)) for shape in mod.KERNEL_SHAPES}
+    assert mod.TP_SHAPES == {"4,5,4096,64": 10, "4,10,1024,64": 60}
+    assert sum(mod.TP_SHAPES.values()) == mod.LAUNCHES_PER_FORWARD
+    assert mod.MESH_CN_LAUNCHES == (624, (312, 210))
+    assert mod.MESH_IID_LAUNCHES == (420, (210, 312))
+    assert mod.MESH_CLI_LAUNCHES == 630
+    stage2 = mod.forward_shapes(0, 3, lanes2=4, cn2=4)
+    cli = mod.forward_shapes(6, 3, lanes1=1, lanes2=4)
+    ref = mod.forward_shapes(2 * mod.REF_STEPS + 3, 0, 4)
+    assert sum(ref.values()) == 1050
+    assert sum(mod.forward_shapes(mod.REF_STEPS, 3).values()) == 630
+    for table in (mod.TP_SHAPES, stage2, cli, ref):
+        assert set(table) <= checked
+    assert {(2, 10, 2048, 4096), (2, 20, 512, 1024)} <= set(mod.SEQ_SHAPES)

@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from omg_tpu.control import p2p as jp2p
 from omg_tpu.diffusion import schedulers as jsched
@@ -193,11 +194,15 @@ def test_predict_masks_rejects_short_provider(engines):
     ({"cache_schedule": "front"}, "DeepCache"),
 ])
 def test_unported_options_raise(engines, kwargs, match, monkeypatch):
-    """ControlNet and InstantID under a mesh layout raise (here a mesh that
-    is never reached: the engine refuses first). DeepCache, refused here
-    before it was ported, now runs: a request's interval takes shallow
-    steps, and a schedule without an interval on an engine without one is
-    the exact program (as in JAX)."""
+    """Options once refused here now run. ControlNet and InstantID under a
+    mesh layout: a one-rank grid (groups of one rank run no collective)
+    takes the mesh programs and gives the one-device engine's images.
+    DeepCache: a request's interval takes shallow steps, and a schedule
+    without an interval on an engine without one is the exact program (as
+    in JAX)."""
+    from omg_tpu_torch import config
+    from omg_tpu_torch.models import controlnet, resampler
+    from omg_tpu_torch.parallel import comm
     from omg_tpu_torch.parallel import mesh as mesh_lib
     _, teng = engines
     if match == "DeepCache":
@@ -218,11 +223,31 @@ def test_unported_options_raise(engines, kwargs, match, monkeypatch):
             np.testing.assert_array_equal(
                 res.image, teng.generate("the man", **kw).image)
         return
-    if "mesh" in kwargs.values():
-        teng = omg.OMG(cfg=teng.cfg, params=teng.params,
-                       tokenizer=teng.tokenizer, tokenizer_2=teng.tokenizer_2,
-                       mesh=mesh_lib.Mesh(1, 2, 0, teng.device, None, None,
-                                          None))
-        kwargs = {k: object() for k in kwargs}
-    with pytest.raises(NotImplementedError, match=match):
-        teng.generate("the man", height=32, width=32, **kwargs)
+    one = comm.Group((0,), 0)
+    eng = omg.OMG(cfg=teng.cfg, params=teng.params, tokenizer=teng.tokenizer,
+                  tokenizer_2=teng.tokenizer_2,
+                  mask_provider=teng.mask_provider, num_steps=teng.num_steps,
+                  mesh=mesh_lib.Mesh(1, 1, 0, teng.device, one, one, one))
+    g = torch.Generator().manual_seed(5)
+    cn = controlnet.init_params(g, config.tiny_controlnet(), device="cpu")
+    if "instantid" in kwargs:
+        kwargs = dict(
+            instantid=omg.InstantIDModels(
+                config.tiny_resampler(),
+                resampler.init_params(g, config.tiny_resampler(),
+                                      device="cpu"),
+                unet.init_ip_layers(g, config.tiny_unet(), device="cpu"),
+                identitynet_params=cn,
+                identitynet_cfg=config.tiny_controlnet()),
+            face_embeddings=[np.ones(16, np.float32)],
+            face_kps_image=np.full((32, 32, 3), 200, np.uint8))
+    else:
+        kwargs = dict(controlnet_params=cn,
+                      spatial_condition=np.full((32, 32, 3), 90, np.uint8))
+    kw = dict(height=32, width=32, seed=3, prompt_rewrite="[the man]-*-[x]",
+              **kwargs)
+    got, want = eng.generate("the man", **kw), teng.generate("the man", **kw)
+    assert got.stage2 is not None
+    for name in ("stage1", "stage2"):
+        assert np.abs(getattr(got, name).astype(int)
+                      - getattr(want, name).astype(int)).max() <= 1, name

@@ -553,7 +553,7 @@ def test_serve_cli_from_a_tiny_checkout(tmp_path):
     CPU, with both condition preprocessors, answers a request; the
     approximate modes' flags (refused before they were ported) reach the
     engine and the warmup."""
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         cli_serve.build_server(cli_serve.parse_args(
             ["--pretrained_sdxl_model", "no/such/dir", "--mesh", "2"]))
     from omg_tpu_torch.models import dpt, openpose

@@ -251,3 +251,212 @@ def omg_rank(rank: int, device, case: dict) -> dict:
                                   style_lora=style, **kw)
         out["deepcache"] = {"stage1": res.stage1, "stage2": res.stage2}
     return out
+
+
+# --------------------------------------------------------------------------
+# conditioned paths under the mesh layouts
+# --------------------------------------------------------------------------
+
+def _tiny_cn(tree):
+    from omg_tpu_torch import config
+    return from_jax.controlnet_from_jax(tree, config.tiny_controlnet(),
+                                        device="cpu")
+
+
+def _instantid(case) -> omg.InstantIDModels:
+    from omg_tpu_torch import config
+    return omg.InstantIDModels(
+        resampler_cfg=config.tiny_resampler(),
+        resampler_params=from_jax.resampler_from_jax(
+            case["resampler"], config.tiny_resampler(), device="cpu"),
+        ip_adapter_layers=from_jax.ip_layers_from_jax(
+            case["ip"], config.tiny_unet(), device="cpu"),
+        identitynet_params=_tiny_cn(case["identitynet"]),
+        identitynet_cfg=config.tiny_controlnet())
+
+
+def _cn_forward_checks(case: dict, group: comm.Group) -> dict:
+    """One ControlNet forward H-split over ``group`` (every rank's rows of
+    the residuals), and the embedder refusing an odd local row count."""
+    cn = _tiny_cn(case["cn"])
+    sample, ehs, pooled, tids, cond = (t(a) for a in case["inputs"])
+    with torch.no_grad():
+        down, mid = cn(rows_of(sample, group, 1), 981, ehs,
+                       rows_of(cond, group, 1), text_embeds=pooled,
+                       time_ids=tids, conditioning_scale=0.7,
+                       seq_group=group)
+        out = {"down": [r.numpy() for r in down], "mid": mid.numpy()}
+        odd = torch.zeros((1, 3, 6 * group.size, 8))
+        try:
+            cn.controlnet_cond_embedding(rows_of(odd, group, 2), group)
+        except ValueError as e:
+            out["odd_error"] = str(e)
+    return out
+
+
+def conditioned_rank(rank: int, device, case: dict) -> dict:
+    """The conditioned mesh paths ``case`` asks for: an H-split ControlNet
+    forward, spatial stage-1 ranges with a base ControlNet, lane-split
+    4+2K stage-2 runs with the base ControlNet, the IdentityNet and the IP
+    tokens, and ``OMG(mesh=...).generate`` with a ControlNet and with
+    InstantID."""
+    _, n = comm.world()
+    cfg = sdxl.tiny_config()
+    out = {}
+    if "cn_forward" in case:
+        out["cn_forward"] = _cn_forward_checks(
+            case["cn_forward"], mesh_lib.make_mesh(n, data=1).model_group)
+    model = tiny_unet(case["unet"]) if "unet" in case else None
+    for key, run in case.get("stage1", {}).items():
+        m = mesh_lib.make_mesh(n, data=run["data"])
+        hw = (run["hw"],) * 2
+        cns = [mc.ControlNetInputs(_tiny_cn(case["cn"]), t(run["cond"]), 0.9,
+                                   **run["cn_kw"])]
+        plain = attention.SEQ_PLAIN_CALLS
+        with torch.no_grad():
+            got, _ = mc._denoise_cfg_range(
+                cfg, schedulers.make_schedule("euler", run["steps"]), model,
+                t(run["lat0"]), schedulers.init_state(),
+                base_inputs(case["base"], hw), i0=0, i1=run["steps"],
+                spatial=mc.Spatial(m, seq=run["seq"]), base_controlnets=cns)
+        out[key] = {"latents": got.numpy(),
+                    "seq_calls": attention.SEQ_PLAIN_CALLS - plain}
+    for key, run in case.get("stage2", {}).items():
+        out[key] = conditioned_stage2(case, run, mesh_lib.make_mesh(n).flat)
+    if "generate" in case:
+        out["generate"] = _conditioned_generate(case["generate"], n)
+    return out
+
+
+def conditioned_stage2(case: dict, run: dict, lane_sharding=None):
+    """``sample_stage2_resumed`` on the 4+2K program (no trajectory) with
+    ``run``'s base ControlNet, IdentityNet and IP tokens, over
+    ``lane_sharding`` when given -> (latents, the ControlNet forwards run
+    on this rank)."""
+    cfg = sdxl.tiny_config()
+    hw = (run["hw"],) * 2
+    steps, fs = run["steps"], run["fusion_start"]
+    cache = mc.StageCache(latents=t(run["cache_latents"]),
+                          sched_state=schedulers.SchedulerState(fs + 1),
+                          a_traj=None, a_final=t(run["cache_latents"]))
+    ctl = p2p.P2PControl.build(["a", "a"], steps, self_replace_steps=0.4,
+                               width=2, height=2)
+    tokens = [t(x) for x in run["ip_tokens"]]
+    concepts = [concept_inputs(case["base"], hw)._replace(ip_context=tok)
+                for tok in tokens]
+    base_cns, concept_cns, ip = [], [], ()
+    if run.get("base_cn"):
+        base_cns = [mc.ControlNetInputs(_tiny_cn(case["cn"]), t(run["cond"]),
+                                        0.9, **run["base_cn"])]
+    if run.get("identitynet"):
+        idn = _tiny_cn(case["identitynet"])
+        concept_cns = [mc.ControlNetInputs(idn, t(run["kps"]), 0.8,
+                                           encoder_hidden_states=tok)
+                       for tok in tokens]
+        from omg_tpu_torch import config
+        ip = [from_jax.ip_layers_from_jax(case["ip"], config.tiny_unet(),
+                                          device="cpu")] * len(tokens)
+    forwards = []
+    for m in {c.params for c in base_cns + concept_cns}:
+        m.register_forward_hook(lambda mod, a, o: forwards.append(
+            a[0].shape[0]))
+    with torch.no_grad():
+        got = mc.sample_stage2_resumed(
+            cfg, schedulers.make_schedule("euler", steps),
+            tiny_unet(case["unet"]), cache,
+            base_inputs=base_inputs(case["base"], hw), controller=ctl,
+            concept_inputs=concepts, concept_loras=[None] * len(tokens),
+            masks=t(run["masks"]), fusion_start=fs,
+            concept_ip_adapters=ip, ip_scale=0.8, base_controlnets=base_cns,
+            concept_controlnets=concept_cns, lane_sharding=lane_sharding)
+    return {"latents": got.numpy(), "cn_lanes": forwards}
+
+
+def _conditioned_generate(case: dict, n: int) -> dict:
+    """``OMG(mesh=make_mesh(n, data=2)).generate`` with a spatial
+    ControlNet, then with InstantID (keypoints from a provider that sees
+    the stage-1 image)."""
+    from omg_tpu_torch import config
+    m = mesh_lib.make_mesh(n, data=case["data"])
+    params = from_jax.sdxl_from_jax(sdxl.SDXLParams(*case["params"]),
+                                    sdxl.tiny_config(), device="cpu")
+    tok = ToyTokenizer()
+    engine = omg.OMG(cfg=sdxl.tiny_config(), params=params, tokenizer=tok,
+                     tokenizer_2=tok, mask_provider=left_right_masks,
+                     cn_cfg=config.tiny_controlnet(), num_steps=case["steps"],
+                     mesh=m)
+    out = {}
+    seen = []
+
+    def provider(image):
+        seen.append(np.array(image))
+        return case["kps_image"]
+    with torch.no_grad():
+        res = engine.generate(case["prompt"],
+                              controlnet_params=_tiny_cn(case["cn"]),
+                              **case["kw"], **case["cn_kw"])
+        out["controlnet"] = (res.stage1, res.stage2)
+        res = engine.generate(case["prompt"], instantid=_instantid(case),
+                              face_kps_provider=provider, **case["kw"],
+                              **case["iid_kw"])
+        out["instantid"] = (res.stage1, res.stage2)
+    out["kps_seen"] = seen
+    return out
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism
+# --------------------------------------------------------------------------
+
+def tp_unet_config(kind: str):
+    """"tiny": the tiny UNet (8 heads at its attention level); "mixed": two
+    attention levels of 4 and 6 heads, so a 4-way model axis splits one
+    along heads and not the other."""
+    import dataclasses
+    cfg = sdxl.tiny_config().unet
+    if kind == "mixed":
+        cfg = dataclasses.replace(cfg, block_out_channels=(32, 48),
+                                  transformer_layers_per_block=(1, 1))
+    return cfg
+
+
+def tp_rank(rank: int, device, case: dict) -> dict:
+    """For each grid of ``case``: one UNet forward (4 lanes, P2P inside
+    its window, LoRA, IP tokens) with the attention split over the model
+    axis, the same after W8A8, and one split int8 ``to_q`` and ``to_out``
+    alone; every output whole on every rank."""
+    import copy
+    from omg_tpu_torch.ops import quant
+    from omg_tpu_torch.parallel import sharding
+    _, n = comm.world()
+    out = {}
+    for key, run in case.items():
+        m = mesh_lib.make_mesh(n, data=run["data"])
+        ucfg = tp_unet_config(run["unet"])
+        model = unet.init_params(torch.Generator().manual_seed(3), ucfg)
+        ip = unet.init_ip_layers(torch.Generator().manual_seed(4), ucfg)
+        lora = from_jax.lora_from_jax(run["lora"], device="cpu")
+        sample, ehs, pooled, tids, ip_ctx = (t(a) for a in run["inputs"])
+        ctl = p2p.P2PControl.build(["a", "a"], 4, self_replace_steps=0.5,
+                                   width=4, height=4)
+        res = {}
+        for name, unet_m in (("plain", model),
+                             ("w8a8", quant.quantize_unet(model))):
+            split = sharding.shard_params(
+                copy.deepcopy(unet_m), sharding.unet_tp_sharding(unet_m, m))
+            with torch.no_grad():
+                res[name] = split(
+                    sample, 961, ehs, text_embeds=pooled, time_ids=tids,
+                    lora=lora, control=ctl.at_step(1), ip_adapter=ip,
+                    ip_context=ip_ctx, ip_scale=0.7).numpy()
+            if name == "w8a8":
+                blk = split.mid_block.attentions[0].transformer_blocks[0]
+                x = t(run["linear_x"])
+                with torch.no_grad():
+                    res["q_linear"] = blk.attn1.to_q(x).numpy()
+                    cols = blk.attn1.to_out[0].tp.split
+                    res["out_linear"] = blk.attn1.to_out[0](
+                        x[..., cols.lo:cols.hi]).numpy()
+                res["q_rows"] = blk.attn1.to_q.weight_q.shape[0]
+        out[key] = res
+    return out
