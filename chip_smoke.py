@@ -63,8 +63,8 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      "!"), phase 5's LoRAs as kohya files and an EfficientViT-SAM-XL1
      ``xl1.pt`` in the upstream layout, bytes and seconds of each write;
      (b) ``loader.load_sdxl`` from it, every tensor bit-equal to the live
-     one, and ``load_lora`` equal to the live LoRAs, seconds and GB/s per
-     model and the peak memory; (c) ``cli.inference_lora.main`` in-process
+     one (the VAE's encoder half included), and ``load_lora`` equal to the
+     live LoRAs, seconds and GB/s per model and the peak memory; (c) ``cli.inference_lora.main`` in-process
      as phase 5 (1024x1024, 50 Euler steps, seed 14, the two LoRAs, SAM
      XL1 masks from the file): 5880 launches, both PNGs read back; (d)
      ``cli.inference_instantid.main`` from an IdentityNet directory and an
@@ -138,6 +138,22 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      launches; (h) the progressive and CMYK JPEG fixtures equal to their
      PIL decodes, the 1024x1024 one's host seconds. Each run: phase
      seconds, peak memory, launches by q shape; (g) runs in phase 6.
+  14. API surface — run after phase 12 while phase 5's SDXL weights are
+     live: (a) ``sdxl.text_to_image`` (BASELINE config #1) at 1024x1024,
+     50 Euler steps, guidance 7.5: 3500 K1 launches (500 at
+     [2,10,4096,64], 3000 at [2,20,1024,64]), seconds (denoise, decode),
+     peak over the start; (b) ``decode_latents`` of (a)'s latents in fp32
+     and in bf16 (the cast copy's first call, then again): seconds, peak
+     over the start, the uint8 images' largest difference; (c)
+     ``AutoencoderKL.encode`` of (a)'s image, seconds and peak, card
+     against CPU within CARD_CPU_REL; (d) ``python -m
+     omg_tpu_torch.cli.serve --mesh 2 --port 0`` in a subprocess on phase
+     9's files written again (the VAE with its encoder) and a registry of
+     phase 5's LoRAs, 2 gloo ranks on this card: one POST of both
+     characters at 6 steps, HTTP 200, a 1024x1024x3 PNG with stage 2 run,
+     each rank's K1b / K1 launches for it 0 / 630 (the layout of 13 (f)),
+     rank 1's images identical to rank 0's (their job records), then
+     SIGTERM with every process gone.
   6. mesh    — the multi-device latency mode, ``OMG(mesh=...)``, on 2 ranks
      that share this card through ``gloo`` (mesh data=1, model=2): the
      same seeded weights on both (checked), one H-split stage-1 UNet
@@ -167,8 +183,8 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      (``sample_stage``, stage 1 and 2 at 6 steps: 1050 K1 launches at
      b = 4) against ``two_stage_latents`` (630 at b = 2 and 7) from the
      same noise, latents within MODEL_REL_BOUND.
-The last nine lines are JSON records of the mask stage, of phases 8, 9,
-10, 11, 12 and 13 and of the kernels, and ``{"ok": true, "device":
+The last ten lines are JSON records of the mask stage, of phases 8, 9,
+10, 11, 12, 13 and 14 and of the kernels, and ``{"ok": true, "device":
 {...}}``.
 
     python3 chip_smoke.py --profile
@@ -208,7 +224,8 @@ from omg_tpu_torch.cli import inference_lora as cli_lora
 from omg_tpu_torch.control import p2p
 from omg_tpu_torch.diffusion import schedulers
 from omg_tpu_torch.models import (clip, clip_vision, controlnet, dpt,
-                                  openpose, resampler, unet as unet_lib)
+                                  openpose, resampler, unet as unet_lib,
+                                  vae as vae_lib)
 from omg_tpu_torch.nn import layers as nn_layers
 from omg_tpu_torch.ops import flash_attention as fa
 from omg_tpu_torch.ops import quant
@@ -922,9 +939,10 @@ def reference_step_phase(device, cfg, params, loras) -> dict:
 
 
 def single_card_phases(device) -> tuple:
-    """Phases 4, 5, 7, 8, 9, 10, 11 and 12; the weights are freed on
+    """Phases 4, 5, 7, 8, 9, 10, 11, 12 and 14; the weights are freed on
     return. Returns (phase 5's launches, phase 5's result, phase 7's
-    record, phase 8's, phase 9's, phase 10's, phase 11's, phase 12's)."""
+    record, phase 8's, phase 9's, phase 10's, phase 11's, phase 12's,
+    phase 14's)."""
     with torch.inference_mode():
         log("== weights")
         cfg, params, loras = weights(device)
@@ -960,7 +978,11 @@ def single_card_phases(device) -> tuple:
         approx["phase5"] = _run_record(launches, res, peak, None,
                                        phase5_memory)
         cond["reference_step"] = ref_step
-        return launches, res, masks, cond, ckpt, serve, pre, approx
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== API surface")
+        api = api_phase(device, cfg, params, loras)
+        return launches, res, masks, cond, ckpt, serve, pre, approx, api
 
 
 # --------------------------------------------------------------- phase 7
@@ -2666,6 +2688,286 @@ def approximate_phase(device, cfg, params, loras) -> dict:
     return rec
 
 
+# --------------------------------------------------------------- phase 14
+
+# (a) text_to_image at 1024², 50 Euler steps: the UNet at b = 2 (one CFG
+# pair) every step, 10 self-attentions at level 1 and 60 at level 2
+T2I_SHAPES = {"2,10,4096,64": STEPS * 10, "2,20,1024,64": STEPS * 60}
+T2I_LAUNCHES = STEPS * LAUNCHES_PER_FORWARD
+T2I_PROMPT = "photo of the man and the woman at the beach"
+# (d) cli.serve --mesh 2: make_latency_mesh(2) is (data, model) = (2, 1),
+# the layout and request shape of 13 (f) at its 6 steps: per rank (K1b,
+# K1) = (0, stage 1's 6 x 70 at b = 1 + stage 2's 3 x 70 at b = 4)
+SERVE_MESH_STEPS = MESH_COND_STEPS
+SERVE_MESH_LAUNCHES = (0, MESH_CLI_LAUNCHES)
+SERVE_MESH_TIMEOUT_S = 600
+
+
+def _peak_run(fn, *args, **kwargs) -> tuple:
+    """(fn's result, seconds, peak bytes over the bytes live at the start)
+    of one call ending in a synchronize."""
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - start)
+
+
+def text_to_image_run(device, cfg, params) -> tuple:
+    """(a) ``sdxl.text_to_image`` (BASELINE config #1), counts zeroed just
+    before and read just after: 3500 K1 launches, 500 at [2,10,4096,64]
+    and 3000 at [2,20,1024,64]. Returns (record, image, latents)."""
+    tok = ToyTokenizer(cfg.text_encoder.vocab_size)
+    ids = {f"ids{i}_{side}": torch.as_tensor(tok([text]), dtype=torch.long)
+           for i in (1, 2) for side, text in (("pos", T2I_PROMPT),
+                                              ("neg", "ugly"))}
+    ms: dict = {}
+    kept: dict = {}
+    decode = sdxl.decode_latents
+
+    def keep(cfg_, vae_, latents, **kw):
+        kept["latents"] = latents
+        return decode(cfg_, vae_, latents, **kw)
+    by_shape: dict = {}
+    sdxl.decode_latents = keep
+    try:
+        fa.LAUNCHES = 0
+        with launch_shapes(by_shape), timed(sdxl, "denoise", ms, "denoise"), \
+                timed(sdxl, "decode_latents", ms, "decode"):
+            img, seconds, peak = _peak_run(
+                sdxl.text_to_image, cfg, params,
+                generator=torch.Generator().manual_seed(SEED), height=HEIGHT,
+                width=WIDTH, steps=STEPS, guidance_scale=7.5, **ids)
+        launches = fa.LAUNCHES
+    finally:
+        sdxl.decode_latents = decode
+    lat = kept["latents"]
+    if tuple(img.shape) != (1, HEIGHT, WIDTH, 3) or \
+            not torch.isfinite(img).all() or not torch.isfinite(lat).all():
+        raise AssertionError(f"text_to_image: image {tuple(img.shape)} or "
+                             "latents not finite")
+    if launches != T2I_LAUNCHES or by_shape != T2I_SHAPES:
+        raise AssertionError(f"text_to_image: K1 launches {launches} "
+                             f"{by_shape}, want {T2I_LAUNCHES} {T2I_SHAPES}")
+    rec = {"launches": launches, "launches_by_shape": by_shape,
+           "seconds": seconds, "denoise_s": ms["denoise"] / 1e3,
+           "decode_s": ms["decode"] / 1e3, "peak_over_start_gib":
+           peak / 2**30, "image_mean": img.mean().item()}
+    log(f"api (a): text_to_image {HEIGHT}x{WIDTH}, {STEPS} Euler steps: "
+        f"{seconds:.3f} s (denoise {rec['denoise_s']:.3f} s, fp32 decode "
+        f"{rec['decode_s']:.3f} s), {peak / 2**30:.3f} GiB peak over the "
+        f"start; K1 launches {launches} {by_shape}")
+    return rec, img, lat
+
+
+def decode_runs(cfg, params, latents) -> dict:
+    """(b) ``decode_latents`` of (a)'s latents in fp32, then bf16 twice
+    (the first call makes the bf16 copy of the decoder): seconds, peak
+    over the start, and the uint8 images' largest difference."""
+    rec: dict = {}
+    imgs = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16_first", torch.bfloat16),
+                        ("bf16", torch.bfloat16)):
+        img, s, peak = _peak_run(sdxl.decode_latents, cfg, params.vae,
+                                 latents, dtype=dtype)
+        if not torch.isfinite(img).all():
+            raise AssertionError(f"api (b): {name} decode not finite")
+        imgs[name] = (img * 255).to(torch.uint8).int()
+        rec[name] = {"seconds": s, "peak_over_start_gib": peak / 2**30}
+    rec["max_uint8_diff"] = int((imgs["bf16"] - imgs["fp32"]).abs().max())
+    rec["mean_uint8_diff"] = float((imgs["bf16"] - imgs["fp32"]).abs()
+                                   .float().mean())
+    copy = params.vae.decoder_copy(torch.bfloat16)
+    rec["bf16_copy_gib"] = sum(p.numel() * p.element_size()
+                               for p in copy.parameters()) / 2**30
+    log(f"api (b): decode fp32 {rec['fp32']['seconds']:.3f} s, "
+        f"{rec['fp32']['peak_over_start_gib']:.3f} GiB over the start; bf16 "
+        f"{rec['bf16']['seconds']:.3f} s ({rec['bf16_first']['seconds']:.3f} s"
+        f" with the cast), {rec['bf16']['peak_over_start_gib']:.3f} GiB; the "
+        f"bf16 copy {rec['bf16_copy_gib']:.4f} GiB; uint8 max |diff| "
+        f"{rec['max_uint8_diff']}, mean {rec['mean_uint8_diff']:.3f}")
+    return rec
+
+
+def encode_run(device, cfg, params, image) -> dict:
+    """(c) ``AutoencoderKL.encode`` of (a)'s image at 1024² (fp32, TF32
+    off) on the card, seconds and peak, against the CPU within
+    CARD_CPU_REL."""
+    x = image * 2.0 - 1.0
+    lat, s, peak = _peak_run(params.vae.encode, x)
+    lat2, s2, _ = _peak_run(params.vae.encode, x)
+    if tuple(lat.shape) != (1, HEIGHT // 8, WIDTH // 8, 4) or \
+            not torch.equal(lat, lat2):
+        raise AssertionError(f"api (c): encode {tuple(lat.shape)}, or two "
+                             "calls differ")
+    cpu = vae_lib.AutoencoderKL(cfg.vae, "cpu")
+    cpu.load_state_dict(params.vae.state_dict())
+    t0 = time.perf_counter()
+    rel = card_vs_cpu(f"encode at {HEIGHT}x{WIDTH}", device,
+                      params.vae.encode,
+                      cpu.encode, (x.cpu(),), who="api (c)")
+    rec = {"seconds": s, "seconds_second_call": s2,
+           "peak_over_start_gib": peak / 2**30, "card_vs_cpu": rel,
+           "check_s": time.perf_counter() - t0}
+    log(f"api (c): encode {HEIGHT}x{WIDTH} {s:.3f} s ({s2:.3f} s again), "
+        f"{peak / 2**30:.3f} GiB over the start; card vs CPU took "
+        f"{rec['check_s']:.1f} s")
+    return rec
+
+
+def _proc_state(pid: int):
+    """The state letter of a live process (Z: a zombie), else None."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+    except OSError:
+        return None
+    return fields[0]
+
+
+def _children(pid: int) -> list:
+    out = []
+    for entry in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                if int(f.read().rsplit(")", 1)[1].split()[1]) == pid:
+                    out.append(int(entry))
+        except (OSError, ValueError, IndexError):
+            pass
+    return out
+
+
+def _read_lines(proc, lines: list) -> None:
+    for line in proc.stdout:
+        lines.append(line)
+        log("serve --mesh 2 |", line.rstrip()[:300])
+
+
+def serve_mesh_run(device, params, loras) -> dict:
+    """(d) ``python -m omg_tpu_torch.cli.serve --mesh 2 --port 0`` on
+    phase 9's checkpoint files (written again, the VAE with its encoder
+    half) and a registry of phase 5's LoRAs as kohya files, in a
+    subprocess whose 2 ranks share this card through gloo: one POST of
+    config #2's two characters at SERVE_MESH_STEPS steps (HTTP 200, a
+    1024x1024x3 PNG, stage 2 run); each rank's K1b and K1 launches for it
+    SERVE_MESH_LAUNCHES; rank 1's images identical to rank 0's; then
+    SIGTERM, every process gone."""
+    import signal
+    import urllib.request
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix=".phase14-", dir=here)
+    rec: dict = {}
+    proc = None
+    try:
+        t0 = time.perf_counter()
+        write_sdxl_dir(os.path.join(tmp, "sdxl"), params, {})
+        kohya_registry(tmp, loras)
+        write_xl1(os.path.join(tmp, "xl1.pt"), device)
+        rec["write_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "omg_tpu_torch.cli.serve", "--mesh", "2",
+             "--port", "0", "--pretrained_sdxl_model",
+             os.path.join(tmp, "sdxl"), "--efficientViT_checkpoint",
+             os.path.join(tmp, "xl1.pt"), "--registry",
+             os.path.join(tmp, "registry.json"), "--num_steps",
+             str(SERVE_MESH_STEPS), "--device", device.type],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        lines: list = []
+        reader = threading.Thread(target=_read_lines, args=(proc, lines),
+                                  daemon=True)
+        reader.start()
+        url = None
+        deadline = time.monotonic() + SERVE_MESH_TIMEOUT_S
+        while url is None:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError("serve --mesh 2 did not bind")
+            m = next((re.search(r"serving on (http://\S+)", x) for x in lines
+                      if "serving on" in x), None)
+            url = m.group(1) if m else None
+            time.sleep(0.2)
+        rec["bind_s"] = time.perf_counter() - t0
+        kids = _children(proc.pid)
+        t1 = time.perf_counter()
+        req = urllib.request.Request(
+            url + "/generate", json.dumps({
+                "prompt": CLI_PROMPT, "character1": "char0",
+                "character2": "char1", "seed": SEED, "height": HEIGHT,
+                "width": WIDTH, "guidance_scale": 7.5}).encode(),
+            {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=SERVE_MESH_TIMEOUT_S) as r:
+            code, out = r.status, json.loads(r.read())
+        rec["request_s"] = time.perf_counter() - t1
+        png = image_io.decode_png(base64.b64decode(out["image"]))
+        if code != 200 or png.shape != (HEIGHT, WIDTH, 3) or \
+                not out["stage2_ran"]:
+            raise AssertionError(f"serve --mesh 2: HTTP {code}, image "
+                                 f"{png.shape}, stage 2 {out['stage2_ran']}")
+        recs = []
+        while len(recs) < 2 and time.monotonic() < deadline:
+            recs = [json.loads(x) for x in list(lines)
+                    if x.startswith('{"serve_mesh_job"')]
+            time.sleep(0.2)
+        recs.sort(key=lambda r: r["rank"])
+        if [r["rank"] for r in recs] != [0, 1]:
+            raise AssertionError(f"serve --mesh 2: job records {recs}")
+        for r in recs:
+            got = (r["launches"][1], r["launches"][0])
+            if r["error"] is not None or got != SERVE_MESH_LAUNCHES:
+                raise AssertionError(
+                    f"serve --mesh 2: rank {r['rank']} error {r['error']}, "
+                    f"K1b/K1 {got}, want {SERVE_MESH_LAUNCHES}")
+        if recs[1]["images"] != recs[0]["images"]:
+            raise AssertionError("serve --mesh 2: rank 1's images differ "
+                                 "from rank 0's")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        reader.join(30)
+        time.sleep(1.0)
+        alive = [k for k in kids if _proc_state(k) not in (None, "Z")]
+        if rc != 0 or len(kids) < 2 or alive:
+            raise AssertionError(f"serve --mesh 2: exit {rc} after SIGTERM, "
+                                 f"children {kids}, still alive {alive}")
+        rec.update(launches_by_rank=[r["launches"][0] for r in recs],
+                   seq_launches_by_rank=[r["launches"][1] for r in recs],
+                   rank_seconds=[r["seconds"] for r in recs],
+                   exit_code=rc, children=len(kids))
+        log(f"api (d): serve --mesh 2: files {rec['write_s']:.1f} s, bound "
+            f"{rec['bind_s']:.1f} s after the start, the request "
+            f"{rec['request_s']:.3f} s (ranks {rec['rank_seconds']}); K1 "
+            f"{rec['launches_by_rank']}, K1b {rec['seq_launches_by_rank']} "
+            f"a rank; both ranks' images identical; SIGTERM: exit {rc}, "
+            f"{len(kids)} children gone")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
+def api_phase(device, cfg, params, loras) -> dict:
+    """Phase 14 on phase 5's live weights."""
+    t0 = time.perf_counter()
+    rec, img, lat = text_to_image_run(device, cfg, params)
+    out = {"text_to_image": rec}
+    out["decode"] = decode_runs(cfg, params, lat)
+    out["encode"] = encode_run(device, cfg, params, img)
+    del img, lat
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve_mesh"] = serve_mesh_run(device, params, loras)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"api: phase 14 took {out['phase_s']:.1f} s")
+    return out
+
+
 def _profile_forward(name: str, forward) -> None:
     from torch.profiler import ProfilerActivity, profile
     forward()
@@ -3335,7 +3637,7 @@ def main() -> int:
     torch.cuda.empty_cache()     # the plain version's scores at B = 28
     log("== K1b vs plain")
     sstats = seq_kernel_phase(device)
-    launches, single, masks, cond, ckpt, serve, pre, approx = \
+    launches, single, masks, cond, ckpt, serve, pre, approx, api = \
         single_card_phases(device)
     cond["k1_by_shape"] = {key: by_shape[key] for key in (
         "1,10,4096,64", "3,10,4096,64", "4,10,4096,64", "1,20,1024,64",
@@ -3366,6 +3668,8 @@ def main() -> int:
         "launches": launches,
         **{key: kstats[key] for key in timed},
         "timed_at": "q/k/v [%d,%d,%d,%d] bf16" % TIMED_SHAPE,
+        "text_to_image_launches": api["text_to_image"]["launches"],
+        "serve_mesh_launches_by_rank": api["serve_mesh"]["launches_by_rank"],
         "masks_path_launches": masks["launches"],
         "conditioned_path_launches": {
             name: cond[name]["launches"]
@@ -3401,6 +3705,8 @@ def main() -> int:
         "replaces": "omg_tpu/ops/flash_attention.py:108-126 via :249",
         "launches": mstats["seq_launches"][0],
         "launches_by_rank": mstats["seq_launches"],
+        "serve_mesh_launches_by_rank":
+            api["serve_mesh"]["seq_launches_by_rank"],
         "mesh_conditioned_launches_by_rank": {
             "controlnet_forward": mcond["cn_forward"]["launches"],
             "config3": [r["seq_launches"] for r in mcond["config3"]],
@@ -3418,6 +3724,7 @@ def main() -> int:
     log(json.dumps({"preprocessors": pre}))
     log(json.dumps({"approximate": approx}))
     log(json.dumps({"mesh_conditioned": mcond}))
+    log(json.dumps({"api_surface": api}))
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

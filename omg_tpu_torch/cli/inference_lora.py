@@ -157,22 +157,12 @@ def latency_mesh(args, device):
 def spawn_mesh(args):
     """Start ``--mesh`` ranks on ``--device`` and return rank 0's
     result."""
-    import torch
-
     from omg_tpu_torch.parallel import launch
-    n = args.mesh
-    if args.device == "cpu":
-        devices, backend = ["cpu"] * n, "gloo"
-    else:
-        count = torch.cuda.device_count()
-        if count == 0:
-            raise RuntimeError("inference_lora: no CUDA device for the ranks; "
-                               "pass --device cpu for CPU ranks")
-        devices = [f"cuda:{r % count}" for r in range(n)]
-        # NCCL refuses two ranks on one card
-        backend = "nccl" if count >= n else "gloo"
-    return launch.spawn(_mesh_rank, n, backend=backend, devices=devices,
-                        args=(vars(args),), timeout=MESH_TIMEOUT_S)[0]
+    devices, backend = launch.mesh_devices(args.mesh, args.device,
+                                           "inference_lora")
+    return launch.spawn(_mesh_rank, args.mesh, backend=backend,
+                        devices=devices, args=(vars(args),),
+                        timeout=MESH_TIMEOUT_S)[0]
 
 
 # A mesh run's limit, the whole run and any one collective (loading a

@@ -15,14 +15,25 @@ preprocessors that turn a photo into a pose or depth map
 The approximate modes: ``--quantize int8`` (W8A8 on the UNet's
 transformer linears), ``--concept_crop`` (stage 2's concept lanes on
 strips) and DeepCache (``--cache_interval``, ``--cache_schedule``; also
-per request). ``--mesh`` is not ported to the server yet and raises
-``NotImplementedError`` before any weight loads (ROADMAP §1 item 10: rank
-0 serves and hands each job to the follower ranks).
+per request).
+
+``--mesh N`` serves over the multi-device latency mode: N rank processes
+(``launch.spawn``: NCCL when the host has N cards, gloo when ranks share
+one or run on the CPU), each loading every model and building the same
+server over ``OMG(mesh=make_latency_mesh(N))``. Rank 0 binds HTTP and
+hands each job group it runs to the others (``serving/mesh.py``), which
+run it in step. SIGTERM or SIGINT stops every rank. Run inside a world
+already started (``torch.distributed`` initialized), this process is
+one rank of it, and a world of fewer than N ranks is ``SystemExit``.
 """
 
 from __future__ import annotations
 
 import argparse
+
+# too few ranks for --mesh is a SystemExit carrying make_latency_mesh's
+# message, as in the LoRA CLI
+from omg_tpu_torch.cli.inference_lora import latency_mesh
 
 
 def parse_args(argv=None):
@@ -71,26 +82,24 @@ def parse_args(argv=None):
                    help="DeepCache full-step placement; also a per-request "
                         "job field")
     p.add_argument("--mesh", default=0, type=int, metavar="N",
-                   help="multi-device latency mode; not ported to the "
-                        "server (0 = one device)")
+                   help="multi-device latency mode over N ranks: stage 1 "
+                        "split over (CFG lanes x latent rows), stage 2 "
+                        "over lanes; rank 0 serves (0 = one device)")
     p.add_argument("--device", default="cuda",
                    help="device of the models: cuda (default) or cpu")
     return p.parse_args(argv)
 
 
-def check_not_ported(args) -> None:
-    """Raise for the options the port does not have yet, before loading."""
-    if args.mesh:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: a server over a mesh is not ported yet "
-            "(ROADMAP §1 item 10: rank 0 serves and hands each job to the "
-            "follower ranks)")
+# A mesh server's limit for any one collective (loading every model on
+# each rank included); the run itself has none.
+MESH_TIMEOUT_S = 3600.0
 
 
-def build_server(args):
+def build_server(args, mesh=None):
     """The ``OMGServer`` of the parsed ``args``, models loaded and the
-    warmup run when asked for; does not serve."""
-    check_not_ported(args)
+    warmup run when asked for; does not serve. ``mesh``: this rank's
+    latency mesh (the models load on its device, and the server gets the
+    rank's job handover)."""
     # imported after parsing, so --help needs neither torch nor a card
     from omg_tpu_torch import convert, loader
     from omg_tpu_torch.nn import layers
@@ -99,7 +108,8 @@ def build_server(args):
     from omg_tpu_torch.serving.registry import Registry, default_registry
     from omg_tpu_torch.serving.server import OMGServer
 
-    device = layers.target_device(args.device, "serve")
+    device = layers.target_device(
+        mesh.device if mesh is not None else args.device, "serve")
     cfg, params, tok1, tok2 = loader.load_sdxl(args.pretrained_sdxl_model,
                                                device=device)
     provider = build_mask_provider(
@@ -111,7 +121,7 @@ def build_server(args):
                          quantize=args.quantize,
                          concept_crop=args.concept_crop,
                          cache_interval=args.cache_interval,
-                         cache_schedule=args.cache_schedule)
+                         cache_schedule=args.cache_schedule, mesh=mesh)
     registry = (Registry.from_json(args.registry) if args.registry
                 else default_registry())
 
@@ -158,11 +168,19 @@ def build_server(args):
         depth_provider = dpt.load_depth_model(args.dpt_checkpoint,
                                               device=device)
 
+    handover = None
+    if mesh is not None:
+        from omg_tpu_torch.serving.mesh import Handover
+        handover = Handover(mesh.rank, mesh.size)
     server = OMGServer(engine, registry, instantid=iid,
                        controlnets=controlnets, pose_provider=pose_provider,
-                       depth_provider=depth_provider)
+                       depth_provider=depth_provider, handover=handover)
     if args.warmup:
         from omg_tpu_torch.serving.warmup import default_serving_warmup
+        if mesh is not None and mesh.rank == 0:
+            print("warmup note: the warmup runs the one-device programs on "
+                  "every rank; the mesh layout's first request at each "
+                  "(resolution, concept count) is its first run", flush=True)
         sample = next(iter(server.loras.values()), None)
         default_serving_warmup(
             cfg, unet_params=engine.params.unet, steps=args.num_steps,
@@ -179,7 +197,47 @@ def build_server(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    build_server(args).serve(args.host, args.port)
+    if not args.mesh:
+        build_server(args).serve(args.host, args.port)
+        return
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return serve_rank(args, latency_mesh(args, args.device))
+    return spawn_mesh(args)
+
+
+def spawn_mesh(args) -> None:
+    """Start ``--mesh`` ranks on ``--device`` and serve until stopped:
+    SIGTERM or SIGINT of this process stops every rank."""
+    import signal
+
+    from omg_tpu_torch.parallel import launch
+
+    def interrupt(*_):
+        raise KeyboardInterrupt
+    signal.signal(signal.SIGTERM, interrupt)
+    devices, backend = launch.mesh_devices(args.mesh, args.device, "serve")
+    try:
+        launch.spawn(_mesh_rank, args.mesh, backend=backend, devices=devices,
+                     args=(vars(args),), timeout=MESH_TIMEOUT_S,
+                     limit_run=False)
+    except KeyboardInterrupt:
+        pass        # spawn stopped the ranks on its way out
+
+
+def _mesh_rank(rank: int, device, args: dict) -> None:
+    """One rank of ``--mesh`` (``launch.spawn`` runs it in its own
+    process)."""
+    args = argparse.Namespace(**args)
+    serve_rank(args, latency_mesh(args, device))
+
+
+def serve_rank(args, mesh) -> None:
+    """This rank's server over ``mesh``: rank 0 serves, the others
+    follow."""
+    from omg_tpu_torch.serving import mesh as mesh_serving
+    mesh_serving.serve(build_server(args, mesh), args.host, args.port)
+
 
 
 if __name__ == "__main__":

@@ -103,6 +103,25 @@ def clip_vit_b32_text() -> CLIPTextConfig:
                           dtype=torch.float32)
 
 
+def clip_vit_l14_text() -> CLIPTextConfig:
+    """openai/clip-vit-large-patch14 text tower with its projection (a
+    768-d space; SDXL's text_encoder drops text_projection), fp32."""
+    return CLIPTextConfig(projection_dim=768, dtype=torch.float32)
+
+
+def clip_vit_l14_vision() -> CLIPVisionConfig:
+    """openai/clip-vit-large-patch14 image tower."""
+    return CLIPVisionConfig(
+        patch_size=14, hidden_size=1024, intermediate_size=4096,
+        num_layers=24, num_heads=16, projection_dim=768)
+
+
+def tiny_clip_vision() -> CLIPVisionConfig:
+    return CLIPVisionConfig(
+        image_size=32, patch_size=8, hidden_size=32, intermediate_size=64,
+        num_layers=2, num_heads=4, projection_dim=16)
+
+
 @dataclasses.dataclass(frozen=True)
 class ControlNetConfig:
     """ControlNet-SDXL geometry: the UNet's encoder half, a conditioning

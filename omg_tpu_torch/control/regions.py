@@ -22,6 +22,13 @@ FUSION_START_STEP = 15
 REPLACE_RATIO = 1.0
 
 
+def masks_to_latent(masks: torch.Tensor, latent_hw: tuple) -> torch.Tensor:
+    """[K, H, W] pixel-space masks -> [K, h, w] at latent resolution,
+    nearest-neighbour with torch ``F.interpolate(mode='nearest')``'s index
+    rule (``layers.nearest_resize``)."""
+    return layers.nearest_resize(masks[..., None], latent_hw)[..., 0]
+
+
 def union_mask(masks: torch.Tensor) -> torch.Tensor:
     """[K, h, w] -> [h, w] union of masks."""
     return ((masks == 1).sum(dim=0) > 0).to(masks.dtype)

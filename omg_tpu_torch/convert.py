@@ -60,8 +60,6 @@ CLIP_SKIP = (r"position_ids", r"logit_scale", r"embeddings\.class_embedding",
              r"^vision_model\.", r"^visual_projection\.")
 CLIP_VISION_SKIP = (r"position_ids", r"logit_scale", r"^text_model\.",
                     r"^text_projection\.")
-# The port decodes only.
-VAE_SKIP = (r"^encoder\.", r"^quant_conv\.")
 # Depth estimation does not read the backbone's final norm (the JAX
 # converter ignores it too).
 DPT_SKIP = (r"^dpt\.layernorm\.",)
@@ -240,9 +238,9 @@ def convert_unet(sd_or_path, cfg: UNetConfig, *,
 
 def convert_vae(sd_or_path, cfg: VAEConfig, *,
                 device="cuda") -> vae.AutoencoderKL:
-    """diffusers AutoencoderKL -> the port's decoder half (``encoder.*``
-    and ``quant_conv.*`` dropped) in ``cfg.dtype``, fp32 for SDXL."""
-    return _convert(vae.AutoencoderKL, cfg, sd_or_path, VAE_SKIP, device,
+    """diffusers AutoencoderKL -> the port's VAE, both halves, in
+    ``cfg.dtype`` (fp32 for SDXL)."""
+    return _convert(vae.AutoencoderKL, cfg, sd_or_path, (), device,
                     "convert_vae")
 
 

@@ -1,12 +1,35 @@
-"""Classifier-free guidance (port of ``omg_tpu/diffusion/sampling.py``).
+"""Denoise loop and classifier-free guidance (port of
+``omg_tpu/diffusion/sampling.py``).
 
-The JAX ``denoise_loop`` is a ``fori_loop``; here the loops are plain
-Python in the pipelines that own them.
+The JAX ``denoise_loop`` is a ``fori_loop`` inside one XLA program; here
+it is a plain Python loop over the same body. The multi-concept
+pipelines run their own loops (``pipelines/multiconcept.py``).
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+
+from omg_tpu_torch.diffusion import schedulers
+
+# model_fn(latents, timestep, step_index) -> epsilon prediction, same shape.
+ModelFn = Callable[[torch.Tensor, int, int], torch.Tensor]
+
+
+def denoise_loop(sched: schedulers.Schedule, model_fn: ModelFn,
+                 latents: torch.Tensor) -> torch.Tensor:
+    """Run the full denoise; ``model_fn`` owns CFG and conditioning. Each
+    step scales the input, predicts and takes one scheduler step. LCM
+    re-noises from seed 0, one draw per row (``schedulers.step_noise``),
+    as the JAX loop does from its state's default key."""
+    x, state = latents, schedulers.init_state(0)
+    for i in range(sched.num_steps):
+        x_in = schedulers.scale_model_input(sched, x, i)
+        eps = model_fn(x_in, int(sched.timesteps[i]), i)
+        x, state = schedulers.step(sched, state, eps, i, x)
+    return x
 
 
 def cfg_combine(noise_pred: torch.Tensor,

@@ -115,14 +115,12 @@ def _load_state(model: nn.Module, sd: dict) -> nn.Module:
 def sdxl_from_jax(params, cfg: sdxl.SDXLConfig, *,
                   device="cuda") -> sdxl.SDXLParams:
     """JAX ``SDXLParams`` (numpy leaves) -> the port's four modules on
-    ``device``. The VAE's encoder half is dropped (the port decodes
-    only)."""
+    ``device``, the VAE with both halves."""
     device = layers.target_device(device, "from_jax")
     return sdxl.SDXLParams(
         unet=load_into(unet.UNet2DConditionModel(cfg.unet, device),
                        params.unet),
-        vae=load_into(vae.AutoencoderKL(cfg.vae, device), params.vae,
-                      skip=("encoder", "quant_conv")),
+        vae=load_into(vae.AutoencoderKL(cfg.vae, device), params.vae),
         text_encoder=load_into(clip.CLIPTextModel(cfg.text_encoder, device),
                                params.text_encoder),
         text_encoder_2=load_into(clip.CLIPTextModel(cfg.text_encoder_2,

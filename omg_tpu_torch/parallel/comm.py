@@ -14,6 +14,11 @@ explicit calls on a ``Group`` of ranks:
   * ``halo_rows(x, group, n)`` — the n rows above and below a rank's block
     of an H-split NCHW tensor, zeros at the global edges.
 
+``COLLECTIVES`` counts the collectives this process has entered (the mesh
+server reads it to tell a job that failed before its ranks communicated
+from one that may have left them out of step); ``store()`` is the
+rendezvous store ``init`` opened (the mesh server hands jobs through it).
+
 Backends. The caller names the backend when the world starts (``init``);
 nothing here switches it. ``nccl`` runs every collective on the device
 tensors, one rank per card. ``gloo`` is the backend for ranks that share
@@ -32,6 +37,10 @@ from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+# Collectives entered by this process (the multi-rank ones only).
+COLLECTIVES = 0
+_STORE: Optional[dist.Store] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,15 +62,32 @@ def init(store_path: str, rank: int, world_size: int, backend: str,
     """Join the world: rendezvous through a ``FileStore`` at ``store_path``
     (no TCP port, so concurrent worlds on one host cannot collide), with a
     finite timeout on every collective."""
-    store = dist.FileStore(store_path, world_size)
-    dist.init_process_group(backend, store=store, rank=rank,
+    global _STORE
+    _STORE = dist.FileStore(store_path, world_size)
+    dist.init_process_group(backend, store=_STORE, rank=rank,
                             world_size=world_size,
                             timeout=datetime.timedelta(seconds=timeout_s))
 
 
 def shutdown() -> None:
+    global _STORE
     if dist.is_initialized():
         dist.destroy_process_group()
+    _STORE = None
+
+
+def store() -> dist.Store:
+    """The rendezvous store of the world ``init`` joined: a key-value store
+    every rank reads and writes without a collective."""
+    if _STORE is None:
+        raise RuntimeError("no rendezvous store: the world was not joined "
+                           "through comm.init (launch.spawn)")
+    return _STORE
+
+
+def _entered() -> None:
+    global COLLECTIVES
+    COLLECTIVES += 1
 
 
 def world() -> tuple:
@@ -122,6 +148,7 @@ def all_gather(x: torch.Tensor, dim: int, group: Group,
         x = torch.cat([x, x.new_zeros(pad)], dim=dim)
     src = _host(x, group)
     outs = [torch.empty_like(src) for _ in range(group.size)]
+    _entered()
     dist.all_gather(outs, src, group=group.pg)
     out = torch.cat([o.narrow(dim, 0, s) for o, s in zip(outs, sizes)],
                     dim=dim)
@@ -133,6 +160,7 @@ def _all_reduce(x: torch.Tensor, group: Group, op) -> torch.Tensor:
         return x
     y = _host(x, group)
     y = y.clone() if y.data_ptr() == x.data_ptr() else y
+    _entered()
     dist.all_reduce(y, op=op, group=group.pg)
     return _back(y, x)
 
@@ -155,6 +183,7 @@ def broadcast_rows(x: torch.Tensor, src: int, group: Group) -> torch.Tensor:
         return x
     y = _host(x, group)
     y = y.clone() if y.data_ptr() == x.data_ptr() else y
+    _entered()
     dist.broadcast(y, src=group.ranks[src], group=group.pg)
     return _back(y, x)
 

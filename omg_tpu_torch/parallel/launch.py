@@ -13,12 +13,15 @@ and ``args`` plain data (numpy arrays rather than JAX arrays).
     side by side on one host (test workers) never share a port.
   * Every collective has a finite timeout, and the parent raises as soon
     as any rank fails (its traceback in the message) or dies, and then
-    stops the other ranks: no rank is left waiting on a dead peer.
+    stops the other ranks: no rank is left waiting on a dead peer. The
+    whole run has the same limit unless ``limit_run=False`` (a server,
+    which runs until it is stopped).
   * CPU ranks run one intra-op thread each, so a world of several ranks
     does not oversubscribe the host.
 
 ``backend``: ``"gloo"`` for CPU ranks and for ranks that share one card,
-``"nccl"`` for one rank per card (``comm.py``).
+``"nccl"`` for one rank per card (``comm.py``); ``mesh_devices`` picks
+the devices and the backend of an entry point's ``--mesh N``.
 """
 
 from __future__ import annotations
@@ -65,12 +68,28 @@ def _stop(procs, grace: float) -> None:
             p.join(5.0)
 
 
+def mesh_devices(n: int, device: str, who: str) -> tuple:
+    """(devices, backend) of ``n`` ranks on ``device`` ("cpu" or "cuda"):
+    CPU ranks over gloo; on the cards, rank r on card r mod count, NCCL
+    when every rank has a card of its own and gloo when ranks share one
+    (NCCL refuses two ranks on one device)."""
+    if device == "cpu":
+        return ["cpu"] * n, "gloo"
+    count = torch.cuda.device_count()
+    if count == 0:
+        raise RuntimeError(f"{who}: no CUDA device for the ranks; pass "
+                           "--device cpu for CPU ranks")
+    return ([f"cuda:{r % count}" for r in range(n)],
+            "nccl" if count >= n else "gloo")
+
+
 def spawn(fn: Callable, world_size: int, *, backend: str,
           devices: Optional[Sequence] = None, args: tuple = (),
-          timeout: float = 300.0) -> list:
+          timeout: float = 300.0, limit_run: bool = True) -> list:
     """Run ``fn(rank, device, *args)`` on ``world_size`` ranks; returns the
     results in rank order. ``devices``: one per rank (all CPU when None).
-    ``timeout``: seconds for the whole run and for any one collective."""
+    ``timeout``: seconds for any one collective, and for the whole run
+    unless ``limit_run`` is False."""
     devices = ["cpu"] * world_size if devices is None else list(devices)
     if len(devices) != world_size:
         raise ValueError(f"{len(devices)} devices for {world_size} ranks")
@@ -96,7 +115,7 @@ def spawn(fn: Callable, world_size: int, *, backend: str,
                     if dead:
                         raise RuntimeError(f"rank {dead[0][0]} died with "
                                            f"exit code {dead[0][1]}")
-                    if time.monotonic() > deadline:
+                    if limit_run and time.monotonic() > deadline:
                         raise TimeoutError(
                             f"ranks {sorted(set(range(world_size)) - set(done))}"
                             f" still running after {timeout:.0f} s")

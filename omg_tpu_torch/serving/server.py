@@ -28,6 +28,11 @@ abandon a queued job before it costs device time, 400 for malformed jobs
 and 500 for failures in the worker; preprocessing (face analysis,
 condition rendering) runs in the submitter's thread.
 
+Over a mesh (``cli/serve.py --mesh N``) every rank builds the same
+server; rank 0 serves and, through its ``handover`` (``serving/mesh.py``),
+hands each job group it runs to the follower ranks, which make the same
+calls in the same order.
+
 What differs from the JAX server on a host without PIL: uploads are PNG
 or JPEG (``utils/image.decode_image``, sequential or progressive, CMYK
 too; an arithmetic-coded JPEG is answered 400 and the message names it),
@@ -220,7 +225,8 @@ class OMGServer:
                  face_provider=None, controlnets: Optional[dict] = None,
                  pose_provider=None, depth_provider=None,
                  max_queue: int = 32,
-                 request_timeout: Optional[float] = None):
+                 request_timeout: Optional[float] = None,
+                 handover=None):
         """``engine``: an ``OMG`` (or anything with its ``generate`` and
         ``generate_batch``). ``instantid``: ``InstantIDModels``, enabling
         face requests: per-concept ``face_embeddings`` with optional
@@ -233,7 +239,9 @@ class OMGServer:
         as a precomputed map). ``max_batch``: the queue drain's width.
         ``max_queue``: the bound past which submits get ``ServerBusy``
         (429). ``request_timeout``: the default deadline in seconds (None:
-        wait forever). Registry LoRAs load onto the engine's device."""
+        wait forever). Registry LoRAs load onto the engine's device.
+        ``handover``: rank 0's ``serving.mesh.Handover`` over a mesh
+        engine (None on one device)."""
         self.engine = engine
         self.instantid = instantid
         self.controlnets = controlnets or {}
@@ -246,7 +254,9 @@ class OMGServer:
         self.max_queue = max(1, int(max_queue))
         self.request_timeout = request_timeout
         self.face_provider = face_provider
+        self.handover = handover
         self.httpd: Optional[ThreadingHTTPServer] = None
+        self._running = threading.Lock()    # held while a group runs
         self._bound = threading.Event()
         self._work: "queue.Queue" = queue.Queue(maxsize=self.max_queue)
         self._worker = threading.Thread(target=self._run_worker, daemon=True)
@@ -324,7 +334,8 @@ class OMGServer:
                                 # incompatible: run it next, in order
                                 pending.append(nxt)
                                 break
-                self._run_group(group)
+                with self._running:
+                    self._run_group(group)
             except Exception:
                 # never let the single worker die: _run_group resolves
                 # every done-event itself; anything escaping here is a
@@ -358,13 +369,13 @@ class OMGServer:
             if len(batch) == 1:
                 job, done = batch[0]
                 try:
-                    done["result"] = self._generate(job)
+                    done["result"] = self._call([job])
                 except Exception as e:  # surfaced to the client as 500
                     done["error"] = str(e)
                 done["event"].set()
                 continue
             try:
-                results = self._generate_batch([j for j, _ in batch])
+                results = self._call([j for j, _ in batch])
                 for (_, done), res in zip(batch, results):
                     done["result"] = res
                     done["event"].set()
@@ -372,6 +383,14 @@ class OMGServer:
                 for _, done in batch:
                     done["error"] = str(e)
                     done["event"].set()
+
+    def _call(self, jobs: list):
+        """``_generate`` of one job, ``_generate_batch`` of several; under a
+        mesh, handed to the follower ranks first."""
+        if self.handover is not None:
+            return self.handover.lead(self, jobs)
+        return (self._generate(jobs[0]) if len(jobs) == 1
+                else self._generate_batch(jobs))
 
     @staticmethod
     def _clean(job: dict) -> dict:
@@ -795,7 +814,10 @@ class OMGServer:
         return self.address
 
     def shutdown(self) -> None:
-        """Stop ``serve`` and close its socket."""
+        """Stop ``serve`` and close its socket; over a mesh, hand the
+        follower ranks a stop."""
         if self.httpd is not None:
             self.httpd.shutdown()
             self.httpd.server_close()
+        if self.handover is not None:
+            self.handover.stop()

@@ -2,8 +2,10 @@
 lacks (PIL, cv2, transformers, tokenizers, safetensors, regex, ftfy); its
 CLIs answer --help and refuse to run without a card unless asked for the
 CPU, and its chip smoke refuses to run on a machine without a CUDA
-device."""
+device. Every public name of the JAX package has a counterpart in the
+same file of the port, or is on an allowlist that names the port's way."""
 
+import ast
 import importlib.util
 import os
 import pathlib
@@ -44,6 +46,7 @@ def test_port_never_imports_jax():
             "import omg_tpu_torch.serving.registry\n"
             "import omg_tpu_torch.serving.server\n"
             "import omg_tpu_torch.serving.warmup\n"
+            "import omg_tpu_torch.serving.mesh\n"
             "import omg_tpu_torch.utils.profiling\n"
             "import omg_tpu_torch.cli.serve\n"
             "import omg_tpu_torch.utils.jpeg, omg_tpu_torch.utils.cv\n"
@@ -59,6 +62,104 @@ def test_port_never_imports_jax():
             "assert not bad, bad\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
+
+
+# Public names of omg_tpu/ that the port does another way or needs not:
+# {file: {name: the port's counterpart or the reason}}. Every file's
+# "Array" (jax.Array) and "Params" (dict trees) are torch.Tensor and
+# nn.Module in the port; the functional ``apply`` / ``init_*`` forms are
+# modules' ``forward`` and ``layers.init_params``.
+ANOTHER_WAY = {
+    "checkpoint.py": {"save_pytree": "save_module / save_sdxl",
+                      "load_pytree": "load_module / load_sdxl"},
+    "convert.py": {"state_dict_to_tree": "copy_into (state dicts fill the "
+                                         "modules directly)"},
+    "diffusion/schedulers.py": {k: "KINDS, string Schedule.kind" for k in
+                                ("EULER", "DDIM", "DPMPP_2M", "LCM")},
+    "models/unet.py": {"AttnControl": "control.p2p.P2PControl.at_step",
+                       "apply_shallow": "UNet2DConditionModel.apply_shallow",
+                       "pack_params": "not ported: an XLA compile-time "
+                                      "workaround (ROADMAP header)"},
+    "models/vae.py": {"encode": "AutoencoderKL.encode",
+                      "decode": "AutoencoderKL.decode"},
+    "nn/attention.py": {"ProbsTransform": "the P2P control of Attention",
+                        "init_ip_kv": "IPKV", "init_mha": "Attention",
+                        "mha": "Attention.forward",
+                        "sdpa_with_probs": "Attention.forward (P2P lanes)"},
+    "nn/layers.py": {"avg_pool_2x": "called nowhere in omg_tpu",
+                     "conv2d": "Conv2d", "group_norm": "GroupNorm",
+                     "layer_norm": "LayerNorm", "linear": "Linear",
+                     "silu": "torch.nn.functional.silu",
+                     **{k: "init_params" for k in (
+                         "init_conv2d", "init_embedding", "init_linear",
+                         "init_norm")}},
+    "ops/flash_attention.py": {
+        "DEFAULT_BQ": "launch_plan's tiles", "DEFAULT_BK": "launch_plan's "
+        "tiles", "TRACE_STATS": "not ported: a GSPMD bypass guard "
+                                "(ROADMAP header)",
+        **{k: "explicit rank groups: flash_attention_seq_sharded(group=), "
+              "nn.attention.seq_sharded_sdpa, parallel.mesh" for k in (
+                  "flash_attention_sharded", "lane_context", "lane_sharded",
+                  "seq_context", "seq_sharded")}},
+    "ops/quant.py": {"quantize_linear": "nn.layers.QuantLinear",
+                     "quantize_unet_params": "quantize_unet"},
+    "segment/efficientvit.py": {k: "Backbone / SamNeck / "
+                                   "EfficientViTSamImageEncoder.forward"
+                                for k in ("backbone_apply", "encoder_apply",
+                                          "neck_apply")},
+    "segment/evit_ops.py": {
+        "batch_norm": "BatchNorm", "conv2d_raw": "Conv",
+        "conv_layer": "ConvLayer", "evit_block": "EfficientViTBlock",
+        "fused_mbconv": "FusedMBConv", "layer_norm_2d": "LayerNorm2d",
+        "lite_mla": "LiteMLA", "mbconv": "MBConv", "res_block": "ResBlock"},
+    "segment/sam_decoder.py": {"two_way_transformer": "TwoWayTransformer"},
+    "segment/vit_sam.py": {"encoder_apply": "the image encoder's forward"},
+    "utils/profiling.py": {
+        "start_server": "not ported: the XLA profiler server (ROADMAP "
+                        "header)",
+        "compiled_peak_bytes": "not ported: torch.cuda.max_memory_allocated "
+                               "(ROADMAP header)"},
+}
+EVERY_FILE = {"Array": "torch.Tensor", "Params": "nn.Module",
+              "apply": "the module's forward"}
+
+
+def _public_names(path: pathlib.Path, imports: bool = False) -> set:
+    """Top-level defs, classes and assigned names of a file (and, with
+    ``imports``, the names it imports), without the private ones."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            names |= {n.id for t in targets for n in ast.walk(t)
+                      if isinstance(n, ast.Name)}
+        elif imports and isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_public_name_has_a_counterpart():
+    """Read both packages with ``ast`` (nothing imported): each public
+    top-level name of ``omg_tpu/**/*.py`` is defined or imported in the
+    same file of ``omg_tpu_torch/``, or is on the allowlist above; and
+    the allowlist names nothing that is not missing."""
+    missing, stale = {}, {}
+    for path in sorted((ROOT / "omg_tpu").rglob("*.py")):
+        rel = path.relative_to(ROOT / "omg_tpu").as_posix()
+        twin = ROOT / "omg_tpu_torch" / rel
+        assert twin.exists(), f"no omg_tpu_torch/{rel}"
+        gap = _public_names(path) - _public_names(twin, imports=True)
+        allowed = ANOTHER_WAY.get(rel, {})
+        if gap - set(allowed) - set(EVERY_FILE):
+            missing[rel] = sorted(gap - set(allowed) - set(EVERY_FILE))
+        if set(allowed) - gap:
+            stale[rel] = sorted(set(allowed) - gap)
+    assert not missing, missing
+    assert not stale, stale
 
 
 def test_cli_help_and_no_card():

@@ -25,6 +25,7 @@ from omg_tpu.serving import registry as jreg
 from omg_tpu.serving.server import OMGServer as JServer
 from omg_tpu_torch import from_jax
 from omg_tpu_torch.cli import serve as cli_serve
+from omg_tpu_torch.parallel import launch
 from omg_tpu_torch.pipelines import omg, sdxl
 from omg_tpu_torch.serving import conditions, registry, server as srv_lib
 from omg_tpu_torch.serving import warmup as warmup_lib
@@ -33,6 +34,7 @@ from omg_tpu_torch.text.tokenizer import ToyTokenizer
 from omg_tpu_torch.utils import image as image_lib
 from omg_tpu_torch.utils import profiling
 
+import torch_mesh_workers as workers
 from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_helpers import (left_right_masks, mid_block_lora,
                                 tiny_sdxl_numpy, write_tiny_checkpoint)
@@ -549,13 +551,12 @@ def _tiny_preprocessor_files(root):
 
 
 def test_serve_cli_from_a_tiny_checkout(tmp_path):
-    """``--mesh`` fails before loading; the server from files on the
-    CPU, with both condition preprocessors, answers a request; the
-    approximate modes' flags (refused before they were ported) reach the
-    engine and the warmup."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli_serve.build_server(cli_serve.parse_args(
-            ["--pretrained_sdxl_model", "no/such/dir", "--mesh", "2"]))
+    """``--mesh 2`` (refused before the mesh server was ported) reaches
+    ``build_server`` on two gloo CPU ranks, each with its rank's handover
+    and a latency-mesh engine; the server from files on the CPU, with
+    both condition preprocessors, answers a request; the approximate
+    modes' flags (refused before they were ported) reach the engine and
+    the warmup."""
     from omg_tpu_torch.models import dpt, openpose
     body, depth = _tiny_preprocessor_files(tmp_path)
     from omg_tpu_torch.segment import sam_provider, vit_sam
@@ -569,6 +570,12 @@ def test_serve_cli_from_a_tiny_checkout(tmp_path):
     reg.write_text(json.dumps({"man": [{
         "name": "A", "prompt": "photo of the man", "negative_prompt": "n",
         "path": "/nonexistent"}]}))
+    built = launch.spawn(workers.serve_build_rank, 2, backend="gloo", args=(
+        ["--pretrained_sdxl_model", ckpt, "--efficientViT_checkpoint", sam,
+         "--registry", str(reg), "--num_steps", "2", "--device", "cpu",
+         "--mesh", "2"],))
+    assert built == [dict(rank=r, size=2, mesh=(2, 1), steps=2)
+                     for r in (0, 1)]
     srv = cli_serve.build_server(cli_serve.parse_args([
         "--pretrained_sdxl_model", ckpt, "--efficientViT_checkpoint", sam,
         "--registry", str(reg), "--num_steps", "2", "--device", "cpu",

@@ -49,7 +49,7 @@ def tiny_unet(tree) -> unet.UNet2DConditionModel:
 
 def tiny_vae(tree) -> vae.AutoencoderKL:
     return from_jax.load_into(vae.AutoencoderKL(sdxl.tiny_config().vae),
-                              tree, skip=("encoder", "quant_conv"))
+                              tree)
 
 
 # --------------------------------------------------------------------------
@@ -460,3 +460,99 @@ def tp_rank(rank: int, device, case: dict) -> dict:
                 res["q_rows"] = blk.attn1.to_q.weight_q.shape[0]
         out[key] = res
     return out
+
+
+# --------------------------------------------------------------------------
+# the mesh server (cli/serve.py --mesh)
+# --------------------------------------------------------------------------
+
+def _http(url: str, body: dict) -> tuple:
+    import json
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url + "/generate", json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_mesh_rank(rank: int, device, case: dict) -> dict:
+    """``cli.serve.main(case['argv'])`` inside this world (so ``--mesh``
+    serves over it). The models load in fp32 (the CLI loads bf16), the
+    masks are the left/right halves, and the initial noise of each seed is
+    ``case['noise'][seed]`` (JAX's draw), so the images compare with the
+    JAX server's. Rank 0 POSTs ``case['posts']`` once bound, then shuts
+    the server down. Every rank returns its ``OMG.generate`` calls in
+    order, and, after the server stopped, its bf16 decode of
+    ``case['latents']`` split over the ranks (H) and whole."""
+    import functools
+    import threading
+
+    from omg_tpu_torch import loader, segment
+    from omg_tpu_torch.cli import serve as cli_serve
+    from omg_tpu_torch.serving import mesh as mesh_serving
+
+    loader.load_sdxl = functools.partial(loader.load_sdxl,
+                                         dtype=torch.float32)
+    segment.build_mask_provider = lambda *a, **k: left_right_masks
+
+    def prepare(generator, batch, height, width, sched, dtype=torch.float32,
+                device=None):
+        noise = case["noise"][generator.initial_seed()]
+        assert noise.shape == (batch, height // 8, width // 8, 4)
+        return schedulers.scale_initial_noise(sched, t(noise)).to(
+            device=device, dtype=dtype)
+    sdxl.prepare_latents = prepare
+    calls = []
+    generate = omg.OMG.generate
+
+    @functools.wraps(generate)      # generate_batch reads its signature
+    def recorded(self, prompt, **kw):
+        calls.append((prompt, kw["seed"]))
+        return generate(self, prompt, **kw)
+    omg.OMG.generate = recorded
+    out = {"calls": calls}
+    serve = mesh_serving.serve
+
+    def serve_and_post(server, host, port):
+        out["engine"] = server.engine
+        if rank == 0:
+            def client():
+                url = "http://" + server.wait_bound()
+                try:
+                    out["responses"] = [_http(url, b) for b in case["posts"]]
+                finally:
+                    server.shutdown()
+            threading.Thread(target=client, daemon=True).start()
+        serve(server, host, port)
+    mesh_serving.serve = serve_and_post
+    with torch.no_grad():
+        cli_serve.main(case["argv"])
+        engine = out.pop("engine")
+        lat = t(case["latents"])
+        out["decode_bf16"] = {
+            "split": sdxl.decode_latents(engine.cfg, engine.params.vae, lat,
+                                         dtype=torch.bfloat16,
+                                         spatial=engine.mesh.flat).numpy(),
+            "whole": sdxl.decode_latents(engine.cfg, engine.params.vae, lat,
+                                         dtype=torch.bfloat16).numpy()}
+    return out
+
+
+def serve_build_rank(rank: int, device, argv: list) -> dict:
+    """``cli.serve.main(argv)`` inside this world up to the server it
+    builds (``serving.mesh.serve`` replaced, so nothing binds)."""
+    from omg_tpu_torch.cli import serve as cli_serve
+    from omg_tpu_torch.serving import mesh as mesh_serving
+    built = {}
+
+    def keep(server, host, port):
+        built.update(rank=server.handover.rank, size=server.handover.world_size,
+                     mesh=(server.engine.mesh.data, server.engine.mesh.model),
+                     steps=server.engine.num_steps)
+    mesh_serving.serve = keep
+    cli_serve.main(argv)
+    return built
