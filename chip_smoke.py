@@ -154,6 +154,22 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      each rank's K1b / K1 launches for it 0 / 630 (the layout of 13 (f)),
      rank 1's images identical to rank 0's (their job records), then
      SIGTERM with every process gone.
+  15. serving tools — run after phase 14 while phase 5's SDXL weights are
+     live, at 1024x1024: (a) ``tools.serve_bench.main`` at 20 Euler steps,
+     two concepts, R = 2 in one chunk, one rep: the engine ceiling
+     (``generate_batch`` of the pair, timed between synchronizes), the
+     single request, the POST of two prompts and two concurrent POSTs, K1
+     launches by q shape of the single request, the pair and the ceiling
+     call (``serve_shapes``), every response with stage 2 and both HTTP
+     rates within 5% of the ceiling; (b) ``tools.soak_bench.main`` at 20
+     steps, one storm of two Euler jobs, a DeepCache-3 "front" job and a
+     gate miss: stage-2 status, distinct images, each storm image and
+     each image of the POSTed Euler pair within SOAK_MEAN_BOUND mean uint8
+     levels of its serial baseline (batching drift, far below a mix-up of
+     two jobs' images); (c)
+     ``tools.fidelity_harness.run_self_check`` at 1024x1024 and 4 steps:
+     two runs bit-equal, crop and DeepCache drift reported; (d)
+     ``examples/torch_quickstart_random_weights.py`` on the card.
   6. mesh    — the multi-device latency mode, ``OMG(mesh=...)``, on 2 ranks
      that share this card through ``gloo`` (mesh data=1, model=2): the
      same seeded weights on both (checked), one H-split stage-1 UNet
@@ -183,9 +199,9 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      (``sample_stage``, stage 1 and 2 at 6 steps: 1050 K1 launches at
      b = 4) against ``two_stage_latents`` (630 at b = 2 and 7) from the
      same noise, latents within MODEL_REL_BOUND.
-The last ten lines are JSON records of the mask stage, of phases 8, 9,
-10, 11, 12, 13 and 14 and of the kernels, and ``{"ok": true, "device":
-{...}}``.
+The last eleven lines are JSON records of the mask stage, of phases 8,
+9, 10, 11, 12, 13, 14 and 15 and of the kernels, and ``{"ok": true,
+"device": {...}}``.
 
     python3 chip_smoke.py --profile
 
@@ -204,6 +220,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import importlib.util
 import json
 import os
 import re
@@ -213,6 +230,7 @@ import sys
 import tempfile
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -238,6 +256,8 @@ from omg_tpu_torch.serving import conditions, registry as registry_lib
 from omg_tpu_torch.serving import warmup as warmup_lib
 from omg_tpu_torch.serving.server import OMGServer
 from omg_tpu_torch.text.tokenizer import ToyTokenizer
+from omg_tpu_torch.tools import (fidelity_harness, serve_bench,
+                                 soak_bench)
 from omg_tpu_torch.utils import image as image_io
 
 HEIGHT = WIDTH = 1024
@@ -742,21 +762,10 @@ def generate(engine, loras, **overrides):
 
 @contextlib.contextmanager
 def launch_shapes(store: dict):
-    """Tally K1's launches by q shape (beside ``fa.LAUNCHES``)."""
-    launch = fa._launch
-
-    def tally(q, k, v, *, seq_local):
-        out = launch(q, k, v, seq_local=seq_local)
-        if not seq_local:
-            key = ",".join(map(str, q.shape))
-            store[key] = store.get(key, 0) + 1
-        return out
-
-    fa._launch = tally
-    try:
+    """Tally K1's launches by q shape into ``store`` (beside
+    ``fa.LAUNCHES``)."""
+    with serve_bench.k1_launches({"by_shape": store}):
         yield
-    finally:
-        fa._launch = launch
 
 
 def check_result(res, latents: dict) -> None:
@@ -939,10 +948,10 @@ def reference_step_phase(device, cfg, params, loras) -> dict:
 
 
 def single_card_phases(device) -> tuple:
-    """Phases 4, 5, 7, 8, 9, 10, 11, 12 and 14; the weights are freed on
-    return. Returns (phase 5's launches, phase 5's result, phase 7's
+    """Phases 4, 5, 7, 8, 9, 10, 11, 12, 14 and 15; the weights are freed
+    on return. Returns (phase 5's launches, phase 5's result, phase 7's
     record, phase 8's, phase 9's, phase 10's, phase 11's, phase 12's,
-    phase 14's)."""
+    phase 14's, phase 15's)."""
     with torch.inference_mode():
         log("== weights")
         cfg, params, loras = weights(device)
@@ -982,7 +991,12 @@ def single_card_phases(device) -> tuple:
         torch.cuda.empty_cache()
         log("== API surface")
         api = api_phase(device, cfg, params, loras)
-        return launches, res, masks, cond, ckpt, serve, pre, approx, api
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== serving tools")
+        tools = serving_tools_phase(device, cfg, params)
+        return (launches, res, masks, cond, ckpt, serve, pre, approx, api,
+                tools)
 
 
 # --------------------------------------------------------------- phase 7
@@ -2968,6 +2982,150 @@ def api_phase(device, cfg, params, loras) -> dict:
     return out
 
 
+# -------------------------------------------------------------- phase 15
+
+# The tools' geometry ("sdxl": 1024x1024 on the live weights). (a)
+# serve_bench at phase 10 (d)'s depth (cut from 50 steps, which took the
+# script to 899 s of its 1200) with R = 2 in one chunk and one rep: the
+# single request runs 2 lanes, then 7; the pair and the ceiling call 4,
+# then 14. Every request that runs stage 2 asks the strip provider once a
+# class: the warm-up single and pair, then per rep the ceiling pair, the
+# single request, the POSTed pair and the two concurrent POSTs.
+TOOLS_SIZE = "sdxl"
+TOOLS_R = 2
+TOOLS_REPS = 1
+TOOLS_STEPS = CONFIG5_STEPS
+TOOLS_SINGLE_SHAPES = serve_shapes(TOOLS_STEPS, 2, 7)
+TOOLS_PAIR_SHAPES = serve_shapes(TOOLS_STEPS, 2 * TOOLS_R, 7 * TOOLS_R)
+TOOLS_MASK_CALLS = 2 * (1 + TOOLS_R + TOOLS_REPS * (3 * TOOLS_R + 1))
+# (b) the soak at phase 10 (d)'s depth. A request batched with another
+# drifts from its serial run in bf16 (other GEMM shapes, other rounding);
+# a seed, mask or face mix-up gives another job's image, tens of levels
+# away on average. The mean uint8 difference of a storm image, and of
+# each image of the POSTed Euler pair (always one batch), from its serial
+# baseline must stay within SOAK_MEAN_BOUND, and the least mean
+# difference between two jobs' baselines must exceed it 4 times over.
+SOAK_STEPS = CONFIG5_STEPS
+SOAK_MEAN_BOUND = 8.0
+SOAK_SEPARATION = 4.0
+
+
+def environ(**values):
+    """``os.environ`` with ``values`` set inside the block."""
+    return mock.patch.dict(os.environ,
+                           {k: str(v) for k, v in values.items()})
+
+
+def serve_bench_run(device, cfg, params) -> dict:
+    """(a) ``serve_bench.main`` on the live weights."""
+    fa.LAUNCHES = 0
+    with environ(OMG_SERVE_SIZE=TOOLS_SIZE, OMG_SERVE_R=TOOLS_R,
+                 OMG_SERVE_CHUNK=TOOLS_R, OMG_SERVE_REPS=TOOLS_REPS,
+                 OMG_SERVE_STEPS=TOOLS_STEPS):
+        rec = serve_bench.main(["--device", str(device)],
+                               weights=(cfg, params))
+    launches = fa.LAUNCHES
+    want = {"single": TOOLS_SINGLE_SHAPES, "multi": TOOLS_PAIR_SHAPES,
+            "ceiling": TOOLS_PAIR_SHAPES}
+    for part, shapes in want.items():
+        got = rec["k1"][part]
+        if got["by_shape"] != shapes or \
+                got["launches"] != sum(shapes.values()):
+            raise AssertionError(f"serving tools (a): {part}: K1 launches "
+                                 f"{got}, want {shapes}")
+    if rec["mask_provider_calls"] != TOOLS_MASK_CALLS:
+        raise AssertionError(f"serving tools (a): mask provider calls "
+                             f"{rec['mask_provider_calls']}, want "
+                             f"{TOOLS_MASK_CALLS}")
+    if rec["ceiling_checked"] is not True:
+        raise AssertionError("serving tools (a): the ceiling was not checked")
+    for key in ("multi_prompt_img_per_min_chip",
+                "concurrent_img_per_min_chip"):
+        if rec[key] > serve_bench.CEILING_SLACK * \
+                rec["bare_compute_ceiling_ipm"]:
+            raise AssertionError(f"serving tools (a): {key} {rec[key]} over "
+                                 f"{rec['bare_compute_ceiling_ipm']}")
+    rec["launches"] = launches
+    log(f"serving tools (a): engine {rec['engine_s']:.3f} s for {TOOLS_R} "
+        f"-> ceiling {rec['bare_compute_ceiling_ipm']:.3f} img/min; HTTP "
+        f"pair {rec['multi_prompt_wall_s']:.3f} s "
+        f"({rec['multi_prompt_img_per_min_chip']:.3f} img/min, "
+        f"{rec['http_over_engine']:.4f}x the engine), concurrent "
+        f"{rec['concurrent_img_per_min_chip']:.3f} img/min, single "
+        f"{rec['single_request_latency_s']:.3f} s; {launches} K1 launches")
+    return rec
+
+
+def soak_run(device, cfg, params) -> dict:
+    """(b) ``soak_bench.main`` on the live weights."""
+    fa.LAUNCHES = 0
+    with environ(OMG_SOAK_SIZE=TOOLS_SIZE, OMG_SOAK_REPS=1,
+                 OMG_SOAK_STEPS=SOAK_STEPS):
+        rec = soak_bench.main(["--device", str(device)],
+                              weights=(cfg, params))
+    rec["launches"] = fa.LAUNCHES
+    log(f"serving tools (b): storm vs serial by class "
+        f"{rec['storm_vs_serial']}, the batched pair vs serial "
+        f"{rec['pair_vs_serial']}, two jobs {rec['mixup_mean_diff']:.3f} "
+        f"levels apart; latency {rec['per_class_latency_s']}; "
+        f"{rec['launches']} K1 launches")
+    worst = max(d["mean"] for d in [rec["pair_vs_serial"],
+                                    *rec["storm_vs_serial"].values()])
+    if worst > SOAK_MEAN_BOUND or \
+            rec["mixup_mean_diff"] < SOAK_SEPARATION * SOAK_MEAN_BOUND:
+        raise AssertionError(
+            f"serving tools (b): storm vs serial {rec['storm_vs_serial']}, "
+            f"pair vs serial {rec['pair_vs_serial']} (bound "
+            f"{SOAK_MEAN_BOUND} mean levels), two jobs' baselines "
+            f"{rec['mixup_mean_diff']:.3f} apart")
+    return rec
+
+
+def serving_tools_phase(device, cfg, params) -> dict:
+    """Phase 15 on phase 5's live weights."""
+    t0 = time.perf_counter()
+    out = {"serve_bench": serve_bench_run(device, cfg, params)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["soak"] = soak_run(device, cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    fa.LAUNCHES = 0
+    report = fidelity_harness.run_self_check(device=device, size=TOOLS_SIZE,
+                                             weights=(cfg, params))
+    if report["self_exact_equal"] is not True or report["lpips"] is not None:
+        raise AssertionError(f"serving tools (c): {report}")
+    out["self_check"] = dict(report, seconds=time.perf_counter() - t1,
+                             launches=fa.LAUNCHES)
+    log(f"serving tools (c): self_exact_equal {report['self_exact_equal']}, "
+        f"crop PSNR {report.get('crop_psnr')}, DeepCache PSNR "
+        f"{report['deepcache_psnr']}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix=".phase15-", dir=here)
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "torch_quickstart", os.path.join(
+                here, "examples", "torch_quickstart_random_weights.py"))
+        quick = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(quick)
+        t1 = time.perf_counter()
+        res = quick.main(["--device", str(device),
+                          "--out", os.path.join(tmp, "quickstart.png")])
+        written = image_io.read_png(os.path.join(tmp, "quickstart.png"))
+    finally:
+        shutil.rmtree(tmp)
+    if res.image.shape != (32, 32, 3) or res.stage2 is None or \
+            not np.array_equal(written, res.image):
+        raise AssertionError(f"serving tools (d): {res.image.shape}")
+    out["quickstart"] = {"seconds": time.perf_counter() - t1,
+                         "timings": res.timings}
+    out["phase_s"] = time.perf_counter() - t0
+    out["card"] = power_line()
+    log(f"serving tools: phase 15 took {out['phase_s']:.1f} s")
+    return out
+
+
 def _profile_forward(name: str, forward) -> None:
     from torch.profiler import ProfilerActivity, profile
     forward()
@@ -3637,7 +3795,7 @@ def main() -> int:
     torch.cuda.empty_cache()     # the plain version's scores at B = 28
     log("== K1b vs plain")
     sstats = seq_kernel_phase(device)
-    launches, single, masks, cond, ckpt, serve, pre, approx, api = \
+    launches, single, masks, cond, ckpt, serve, pre, approx, api, tools = \
         single_card_phases(device)
     cond["k1_by_shape"] = {key: by_shape[key] for key in (
         "1,10,4096,64", "3,10,4096,64", "4,10,4096,64", "1,20,1024,64",
@@ -3690,6 +3848,13 @@ def main() -> int:
             name: serve[name]["launches"]
             for name in ("throughput", "config5", "guess_mode", "http")},
         "preprocessors_path_launches": pre["http"]["launches"],
+        "serving_tools_path_launches": {
+            "serve_bench": tools["serve_bench"]["launches"],
+            "serve_bench_by_part": {
+                part: rec["launches"]
+                for part, rec in tools["serve_bench"]["k1"].items()},
+            "soak": tools["soak"]["launches"],
+            "self_check": tools["self_check"]["launches"]},
         "approximate_path_launches": {
             "deepcache_uniform": approx["deepcache"]["uniform"]["launches"],
             "deepcache_front": approx["deepcache"]["front"]["launches"],
@@ -3725,6 +3890,7 @@ def main() -> int:
     log(json.dumps({"approximate": approx}))
     log(json.dumps({"mesh_conditioned": mcond}))
     log(json.dumps({"api_surface": api}))
+    log(json.dumps({"serving_tools": tools}))
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,7 @@ import hashlib
 import json
 import pickle
 import signal
+import sys
 import threading
 import time
 from typing import Optional
@@ -145,7 +146,11 @@ def run_job(server, n: int, rank: int, jobs: list):
     finally:
         rec["seconds"] = time.perf_counter() - t0
         rec["launches"] = [fa.LAUNCHES - k0, fa.SEQ_LAUNCHES - s0]
-        print(json.dumps(rec), flush=True)
+        # one write of the whole line: the ranks share one output pipe,
+        # and print's separate write of the newline (unbuffered output,
+        # PYTHONUNBUFFERED) lets another rank's line land inside this one
+        sys.stdout.write(json.dumps(rec) + "\n")
+        sys.stdout.flush()
 
 
 def follow(server, handover: Handover, stop: threading.Event) -> int:

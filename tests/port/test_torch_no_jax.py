@@ -12,6 +12,8 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 
 
@@ -55,6 +57,9 @@ def test_port_never_imports_jax():
             "import omg_tpu_torch.ops.quant\n"
             "import omg_tpu_torch.parallel.sharding\n"
             "import omg_tpu_torch.parallel.dryrun\n"
+            "import omg_tpu_torch.tools.serve_bench\n"
+            "import omg_tpu_torch.tools.soak_bench\n"
+            "import omg_tpu_torch.tools.fidelity_harness\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'omg_tpu', 'PIL', 'cv2',\n"
             "              'transformers', 'safetensors', 'regex', 'ftfy',\n"
@@ -188,6 +193,38 @@ def test_serve_cli_help_and_no_card():
     assert "no/such/dir" not in proc.stderr
 
 
+def test_examples_never_import_jax():
+    """The port's examples (``examples/torch_*.py``), imported as modules
+    (their ``main`` not run), load neither jax nor the JAX package."""
+    names = sorted(p.stem for p in (ROOT / "examples").glob("torch_*.py"))
+    assert names == ["torch_full_pipeline", "torch_multichip_latency",
+                     "torch_quickstart_random_weights"]
+    code = ("import importlib, sys\n"
+            f"sys.path.insert(0, {str(ROOT / 'examples')!r})\n"
+            f"for name in {names!r}:\n"
+            "    assert callable(importlib.import_module(name).main)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'omg_tpu', 'PIL'))\n"
+            "assert not bad, bad\n")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("tool", ["serve_bench", "soak_bench",
+                                  "fidelity_harness"])
+def test_tool_help_and_no_card(tool):
+    """Each tool's ``--help`` parses without a card; a run that asks for
+    none fails at once for want of one."""
+    module = f"omg_tpu_torch.tools.{tool}"
+    proc = _run(["-m", module, "--help"])
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout and "--out" in proc.stdout
+    argv = ["--self_check"] if tool == "fidelity_harness" else []
+    proc = _run(["-m", module, *argv])
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+
+
 def test_chip_smoke_fails_without_a_card():
     proc = _run([str(ROOT / "chip_smoke.py")])
     assert proc.returncode != 0
@@ -302,3 +339,30 @@ def test_chip_smoke_mesh_conditioned_counts():
     for table in (mod.TP_SHAPES, stage2, cli, ref):
         assert set(table) <= checked
     assert {(2, 10, 2048, 4096), (2, 20, 512, 1024)} <= set(mod.SEQ_SHAPES)
+
+
+def test_chip_smoke_serving_tools_counts():
+    """Phase 15 (a) expects K1 at the shapes the single request (2 lanes,
+    then 7) and the pair and the ceiling call (4, then 14) give it at 20
+    steps, all of them shapes phase 3 checks, and the strip provider's
+    calls of every request that runs stage 2; (b) runs at phase 10 (d)'s
+    depth with a bound well inside the mix-up margin."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_tools",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    checked = {",".join(map(str, shape)) for shape in mod.KERNEL_SHAPES}
+    assert mod.TOOLS_SINGLE_SHAPES == {
+        "2,10,4096,64": 200, "2,20,1024,64": 1200,
+        "7,10,4096,64": 130, "7,20,1024,64": 780}
+    assert mod.TOOLS_PAIR_SHAPES == {
+        "4,10,4096,64": 200, "4,20,1024,64": 1200,
+        "14,10,4096,64": 130, "14,20,1024,64": 780}
+    for table in (mod.TOOLS_SINGLE_SHAPES, mod.TOOLS_PAIR_SHAPES):
+        assert set(table) <= checked
+        # phase 10 (d)'s requests at the same depth: 2310 each
+        assert sum(table.values()) == sum(mod.HTTP_SHAPES.values()) == 2310
+    assert (mod.TOOLS_SIZE, mod.TOOLS_R, mod.TOOLS_STEPS) == ("sdxl", 2, 20)
+    assert mod.TOOLS_MASK_CALLS == 2 * (1 + 2 + 2 + 1 + 2 + 2) == 20
+    assert mod.SOAK_STEPS == mod.CONFIG5_STEPS == 20
+    assert mod.SOAK_SEPARATION * mod.SOAK_MEAN_BOUND <= 32

@@ -319,3 +319,35 @@ def test_abandoned_jobs_are_never_handed_over():
     assert seen == [["kept", "also"]]
     assert [d.get("result") for _, d in pairs[1:]] == [
         {"prompt": "kept"}, {"prompt": "also"}]
+
+
+def test_job_record_is_one_write(monkeypatch):
+    """A rank's record line leaves in one write, newline included, so the
+    lines of ranks that share an unbuffered output pipe cannot interleave
+    (the subprocess test's parse of both ranks' lines once failed on one
+    rank's record with the other's inside it)."""
+    from omg_tpu_torch.serving import mesh as mesh_serving
+    writes = []
+
+    class Out:
+        def write(self, text):
+            writes.append(text)
+
+        def flush(self):
+            pass
+
+    class Server:
+        def _generate(self, job):
+            if job.get("fail"):
+                raise ValueError("refused")
+            return {"image": "aW1n", "stage1": "czE="}
+
+    monkeypatch.setattr(sys, "stdout", Out())
+    assert mesh_serving.run_job(Server(), 3, 1, [{}])["image"] == "aW1n"
+    with pytest.raises(ValueError, match="refused"):
+        mesh_serving.run_job(Server(), 4, 1, [{"fail": True}])
+    assert len(writes) == 2 and all(w.endswith("}\n") for w in writes)
+    recs = [json.loads(w) for w in writes]
+    assert [(r["serve_mesh_job"], r["rank"], r["error"]) for r in recs] == [
+        (3, 1, None), (4, 1, "refused")]
+    assert len(recs[0]["images"]) == 2 and recs[1]["images"] == []
