@@ -12,8 +12,9 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      spills.
   3. kernel  — K1 vs its plain PyTorch version on seeded bf16 inputs
      at the UNet's and the ControlNets' self-attention shapes (batch 1,
-     2, 3, 4 and 7, and 8 and 28 for four requests in one batch); for
-     every shape the error
+     2, 3, 4 and 7, and 8 and 28 for four requests in one batch), and
+     the non-square serving buckets' (3952/988, 4032/1008 and 3840/960
+     tokens at batch 2 and 7); for every shape the error
      bound, kernel / plain / SDPA (the library yardstick, never called by
      the port) ms per call, the bound (the larger of FLOPs over the bf16
      peak and bytes over the memory rate) and the kernel's share of it;
@@ -170,6 +171,19 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      ``tools.fidelity_harness.run_self_check`` at 1024x1024 and 4 steps:
      two runs bit-equal, crop and DeepCache drift reported; (d)
      ``examples/torch_quickstart_random_weights.py`` on the card.
+  16. bench — run after phase 15 while phase 5's SDXL weights are live:
+     ``python -m omg_tpu_torch.bench``'s ``main`` in-process at 10 steps,
+     one rep: (a) latency at 1024² with the crop drift measured live;
+     (b) latency at the 1216x832 bucket (3952 and 988 tokens, padded keys
+     masked in K1), and one 7-lane UNet forward there through K1 and the
+     plain attention, eps within MODEL_REL_BOUND; (c) throughput, two
+     requests in one chunk (4, then 14 lanes). Each prints exactly one
+     JSON line, its value positive, its latents finite, K1 by q shape in
+     the timed call as ``serve_shapes`` reckons it and no K1b; (d)
+     ``tools.validate_detector.validate_image`` on phase 7's SAM x CLIP
+     detector (XL1, CLIP B/32) and its seeded 1216x832 image, the sweep's
+     threshold restored, then the tool's ``main`` without files: SKIP and
+     rc 0.
   6. mesh    — the multi-device latency mode, ``OMG(mesh=...)``, on 2 ranks
      that share this card through ``gloo`` (mesh data=1, model=2): the
      same seeded weights on both (checked), one H-split stage-1 UNet
@@ -199,8 +213,8 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      (``sample_stage``, stage 1 and 2 at 6 steps: 1050 K1 launches at
      b = 4) against ``two_stage_latents`` (630 at b = 2 and 7) from the
      same noise, latents within MODEL_REL_BOUND.
-The last eleven lines are JSON records of the mask stage, of phases 8,
-9, 10, 11, 12, 13, 14 and 15 and of the kernels, and ``{"ok": true,
+The last twelve lines are JSON records of the mask stage, of phases 8,
+9, 10, 11, 12, 13, 14, 15 and 16 and of the kernels, and ``{"ok": true,
 "device": {...}}``.
 
     python3 chip_smoke.py --profile
@@ -221,7 +235,9 @@ import copy
 import dataclasses
 import gc
 import importlib.util
+import io
 import json
+import math
 import os
 import re
 import shutil
@@ -235,7 +251,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from omg_tpu_torch import (config, convert, instantid, loader,
+from omg_tpu_torch import (bench, config, convert, instantid, loader,
                            lora as lora_lib, segment)
 from omg_tpu_torch.cli import inference_instantid as cli_iid
 from omg_tpu_torch.cli import inference_lora as cli_lora
@@ -257,7 +273,7 @@ from omg_tpu_torch.serving import warmup as warmup_lib
 from omg_tpu_torch.serving.server import OMGServer
 from omg_tpu_torch.text.tokenizer import ToyTokenizer
 from omg_tpu_torch.tools import (fidelity_harness, serve_bench,
-                                 soak_bench)
+                                 soak_bench, validate_detector)
 from omg_tpu_torch.utils import image as image_io
 
 HEIGHT = WIDTH = 1024
@@ -326,15 +342,16 @@ SCHEDULER_RUNS = (("ddim", 25), ("dpmpp_2m", 25), ("lcm", 4))
 
 
 def serve_shapes(steps: int, lanes1: int, lanes2: int, cn1: tuple = (),
-                 cn2: tuple = ()) -> dict:
-    """K1 launches by q shape "B,H,N,D" of one two-stage run at HEIGHT x
-    WIDTH: the UNet (10 self-attentions at level 1, 60 at level 2) on
+                 cn2: tuple = (), height: int = HEIGHT,
+                 width: int = WIDTH) -> dict:
+    """K1 launches by q shape "B,H,N,D" of one two-stage run at ``height``
+    x ``width``: the UNet (10 self-attentions at level 1, 60 at level 2) on
     ``lanes1`` lanes every stage-1 step and on ``lanes2`` every stage-2
     step after fusion_start, and a ControlNet (4 and 30) at each lane
     count of ``cn1`` in stage 1 and ``cn2`` in stage 2."""
     n2 = steps - round(steps * 15 / 50) - 1
-    tokens = ((10, (HEIGHT // 16) * (WIDTH // 16)),
-              (20, (HEIGHT // 32) * (WIDTH // 32)))
+    tokens = ((10, (height // 16) * (width // 16)),
+              (20, (height // 32) * (width // 32)))
     out: dict = {}
     for b, n, per in ([(lanes1, steps, (10, 60)), (lanes2, n2, (10, 60))]
                       + [(c, steps, (4, 30)) for c in cn1]
@@ -407,7 +424,13 @@ KERNEL_SHAPES = [  # (B, H, N, D): main-path, bucket, D=128, ragged tiles
     # the plain attention, as the gate sends them in JAX)
     (4, 10, 2048, 64),
     # tensor parallelism (phase 13 (d)): a rank's heads of a b = 4 forward
-    (4, 5, 4096, 64), (4, 10, 1024, 64)]
+    (4, 5, 4096, 64), (4, 10, 1024, 64),
+    # the non-square serving buckets' stage 2 (phase 16 and the bench):
+    # 1216x832 and 832x1216; 1152x896, 1344x768 and their transposes;
+    # 1536x640 and 640x1536 (stage 1's b = 2 rows are above)
+    (7, 10, 3952, 64), (7, 20, 988, 64), (2, 10, 4032, 64),
+    (7, 10, 4032, 64), (7, 20, 1008, 64), (7, 10, 3840, 64),
+    (7, 20, 960, 64)]
 TIMED_SHAPE = (7, 10, 4096, 64)
 SEQ_SHAPES = [  # (B, H, Nq local, Nk): q rows of a shard against all K/V
     (2, 10, 2048, 4096), (2, 20, 512, 1024),     # 2-way seq at 1024^2
@@ -603,54 +626,27 @@ def seq_kernel_phase(device) -> dict:
 
 
 def mid_block_lora(device, seed: int, cfg, rank: int = 32) -> dict:
-    """Rank-32 LoRA on every attention projection of the mid block's
-    transformer (the bench's character-LoRA cost), bf16, scale 0.8."""
+    """The bench's character LoRA (``bench.mid_block_lora``: rank 32 on
+    every attention projection of the mid block, scale 0.8) from numpy
+    seed ``seed``, its factors in the UNet's dtype on ``device``."""
+    return bench.lora_tensors(bench.mid_block_lora(cfg, seed, rank), device,
+                              cfg.unet.dtype)
+
+
+def unet_inputs(device, cfg, b: int, seed: int, height: int = HEIGHT,
+                width: int = WIDTH) -> tuple:
+    """Seeded UNet inputs at height x width: (sample, ehs, pooled, time
+    ids)."""
     g = torch.Generator(device).manual_seed(seed)
     ucfg = cfg.unet
-    dim, ctx = ucfg.block_out_channels[-1], ucfg.cross_attention_dim
-
-    def leaf(d_in, d_out):
-        def r(*shape):
-            return (torch.randn(shape, generator=g, device=device) *
-                    0.01).to(ucfg.dtype)
-        return {"down": r(d_in, rank), "up": r(rank, d_out),
-                "scale": torch.tensor(0.8, device=device)}
-
-    out = {}
-    for i in range(ucfg.transformer_layers_per_block[-1]):
-        pre = f"mid_block.attentions.0.transformer_blocks.{i}."
-        for proj in ("to_q", "to_k", "to_v", "to_out.0"):
-            out[pre + "attn1." + proj] = leaf(dim, dim)
-        for proj, d_in in (("to_q", dim), ("to_k", ctx), ("to_v", ctx),
-                           ("to_out.0", dim)):
-            out[pre + "attn2." + proj] = leaf(d_in, dim)
-    return out
-
-
-@contextlib.contextmanager
-def plain_attention():
-    """Route every attention to the plain PyTorch version (comparison
-    only)."""
-    gate = fa.use_flash
-    fa.use_flash = lambda *args, **kwargs: False
-    try:
-        yield
-    finally:
-        fa.use_flash = gate
-
-
-def unet_inputs(device, cfg, b: int, seed: int) -> tuple:
-    """Seeded UNet inputs at 1024x1024: (sample, ehs, pooled, time ids)."""
-    g = torch.Generator(device).manual_seed(seed)
-    ucfg = cfg.unet
-    h, w = HEIGHT // 8, WIDTH // 8
+    h, w = height // 8, width // 8
 
     def r(*shape):
         return torch.randn(shape, generator=g, device=device).to(ucfg.dtype)
 
     sample, ehs, pooled = r(b, h, w, 4), r(b, 77, ucfg.cross_attention_dim), \
         r(b, cfg.text_encoder_2.projection_dim)
-    tids = sdxl.add_time_ids((HEIGHT, WIDTH), (0, 0), (HEIGHT, WIDTH),
+    tids = sdxl.add_time_ids((height, width), (0, 0), (height, width),
                              device=device).expand(b, 6)
     return sample, ehs, pooled, tids
 
@@ -669,13 +665,17 @@ def compare_eps(name: str, eps, eps_ref) -> float:
     return err
 
 
-def model_phase(device, cfg, params, loras) -> None:
-    sample, ehs, pooled, tids = unet_inputs(device, cfg, 7, seed=1)
+def model_phase(device, cfg, params, loras, height: int = HEIGHT,
+                width: int = WIDTH, name: str = "model") -> float:
+    """One 7-lane stage-2 UNet forward at height x width through K1 (70
+    launches) and through the plain attention: eps within
+    MODEL_REL_BOUND; returns max |diff|."""
+    sample, ehs, pooled, tids = unet_inputs(device, cfg, 7, 1, height, width)
     lane_lora = lora_lib.stack_loras(
         [None] * 3 + [loras[0]] * 2 + [loras[1]] * 2)
     ctl = p2p.P2PControl.build(["a photo", "a photo"], STEPS,
-                               self_replace_steps=0.4, width=WIDTH // 32,
-                               height=HEIGHT // 32, device=device)
+                               self_replace_steps=0.4, width=width // 32,
+                               height=height // 32, device=device)
     step = P2P_STEP
     t = int(schedulers.make_schedule("euler", STEPS).timesteps[step])
 
@@ -688,14 +688,14 @@ def model_phase(device, cfg, params, loras) -> None:
     eps = forward()
     torch.cuda.synchronize()
     launches = fa.LAUNCHES
-    with plain_attention():
+    with bench.plain_attention():
         eps_plain = forward()
     torch.cuda.synchronize()
     if launches != LAUNCHES_PER_FORWARD or fa.LAUNCHES != launches:
         raise AssertionError(f"kernel launches per forward: {launches}, "
                              f"want {LAUNCHES_PER_FORWARD}")
-    log(f"model: 7-lane UNet, {launches} launches")
-    compare_eps("model: kernel vs plain", eps, eps_plain)
+    log(f"{name}: 7-lane UNet at {height}x{width}, {launches} launches")
+    return compare_eps(f"{name}: kernel vs plain", eps, eps_plain)
 
 
 @contextlib.contextmanager
@@ -739,14 +739,9 @@ def record_latents(store: dict, batch: bool = False, peaks: dict = None):
 
 
 def left_right_masks(image, cls):
-    """'man' owns the left half of the image, anyone else the right."""
-    m = np.zeros(image.shape[:2], np.float32)
-    half = image.shape[1] // 2
-    if cls == "man":
-        m[:, :half] = 1.0
-    else:
-        m[:, half:] = 1.0
-    return m
+    """'man' owns the left half of the image, anyone else the right (the
+    bench's masks, ``bench.left_right_masks``)."""
+    return bench.left_right_masks(*image.shape[:2])[0 if cls == "man" else 1]
 
 
 def generate(engine, loras, **overrides):
@@ -948,10 +943,10 @@ def reference_step_phase(device, cfg, params, loras) -> dict:
 
 
 def single_card_phases(device) -> tuple:
-    """Phases 4, 5, 7, 8, 9, 10, 11, 12, 14 and 15; the weights are freed
-    on return. Returns (phase 5's launches, phase 5's result, phase 7's
-    record, phase 8's, phase 9's, phase 10's, phase 11's, phase 12's,
-    phase 14's, phase 15's)."""
+    """Phases 4, 5, 7, 8, 9, 10, 11, 12, 14, 15 and 16; the weights are
+    freed on return. Returns (phase 5's launches, phase 5's result, phase
+    7's record, phase 8's, phase 9's, phase 10's, phase 11's, phase 12's,
+    phase 14's, phase 15's, phase 16's)."""
     with torch.inference_mode():
         log("== weights")
         cfg, params, loras = weights(device)
@@ -995,8 +990,12 @@ def single_card_phases(device) -> tuple:
         torch.cuda.empty_cache()
         log("== serving tools")
         tools = serving_tools_phase(device, cfg, params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== bench")
+        bench_rec = bench_phase(device, cfg, params, loras)
         return (launches, res, masks, cond, ckpt, serve, pre, approx, api,
-                tools)
+                tools, bench_rec)
 
 
 # --------------------------------------------------------------- phase 7
@@ -1061,13 +1060,15 @@ def n_params(*modules) -> int:
     return sum(p.numel() for m in modules for p in m.parameters())
 
 
-def mask_models(device) -> dict:
+def mask_models(device, sams: tuple = ("vit_h", "xl1")) -> dict:
     """SAM ViT-H, EfficientViT-SAM-XL1 (each with its prompt encoder and
-    mask decoder) and the CLIP ViT-B/32 pair, random weights from seeds
-    20-23, on the card."""
+    mask decoder; those named in ``sams``) and the CLIP ViT-B/32 pair,
+    random weights from seeds 20-23, on the card."""
     out = {}
     for name, cfg, seed in (("vit_h", vit_sam.vit_h_config(), 20),
                             ("xl1", efficientvit.xl1_config(), 21)):
+        if name not in sams:
+            continue
         t0 = time.perf_counter()
         out[name] = sam_provider.init_sam(
             torch.Generator(device).manual_seed(seed), cfg, device)
@@ -1309,7 +1310,7 @@ def controlnet_forward_phase(device, cfg, cn) -> dict:
     down, mid = forward()
     torch.cuda.synchronize()
     launches = fa.LAUNCHES
-    with plain_attention():
+    with bench.plain_attention():
         down_p, mid_p = forward()
     torch.cuda.synchronize()
     if launches != CN_LAUNCHES or fa.LAUNCHES != launches:
@@ -3126,6 +3127,138 @@ def serving_tools_phase(device, cfg, params) -> dict:
     return out
 
 
+# -------------------------------------------------------------- phase 16
+
+# ``python -m omg_tpu_torch.bench`` in-process on the live weights, cut
+# from its 50 steps and 3 reps to BENCH_STEPS and one rep. A timed call
+# of the latency mode runs every stage-1 step at b = 2 and the steps after
+# fusion_start = round(10 * 15 / 50) = 3 at b = 7: path_launches(10, 70,
+# 70) = 1120 K1; at the 1216x832 bucket the same counts at 3952 and 988
+# tokens; the throughput pair in one chunk at 4, then 14.
+BENCH_STEPS = 10
+BENCH_BUCKET = (1216, 832)
+BENCH_R = 2
+BENCH_SHAPES = serve_shapes(BENCH_STEPS, 2, 7)
+BENCH_BUCKET_SHAPES = serve_shapes(BENCH_STEPS, 2, 7, height=BENCH_BUCKET[0],
+                                   width=BENCH_BUCKET[1])
+BENCH_PAIR_SHAPES = serve_shapes(BENCH_STEPS, 2 * BENCH_R, 7 * BENCH_R)
+DETECTOR_CLASSES = ["man", "woman"]
+DETECTOR_SWEEP = [0.12, 0.15, 0.18, 0.22, 0.26, 0.30]
+
+
+def bench_run(name: str, device, cfg, params, shapes: dict,
+              latents_shape: tuple, **env) -> dict:
+    """``bench.main`` on the live weights with OMG_BENCH_* = ``env`` (SDXL
+    size, BENCH_STEPS, one rep), counts zeroed just before and read just
+    after: exactly one JSON line on stdout, the record's value positive,
+    its stage-2 latents finite of ``latents_shape``, K1 by q shape in the
+    timed call ``shapes`` and K1b none."""
+    out = io.StringIO()
+    fa.LAUNCHES = fa.SEQ_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with environ(OMG_BENCH_SIZE="sdxl", OMG_BENCH_STEPS=BENCH_STEPS,
+                 OMG_BENCH_REPS=1, **env), contextlib.redirect_stdout(out):
+        rec, lat = bench.main(["--device", str(device)],
+                              weights=(cfg, params))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, seq = fa.LAUNCHES, fa.SEQ_LAUNCHES
+    lines = [line for line in out.getvalue().splitlines() if line.strip()]
+    if len(lines) != 1 or json.loads(lines[0])["metric"] != rec["metric"]:
+        raise AssertionError(f"bench {name}: stdout must be one JSON line, "
+                             f"got {lines}")
+    ex = rec["extra"]
+    if not rec["value"] > 0 or tuple(lat.shape) != latents_shape or \
+            not torch.isfinite(lat).all():
+        raise AssertionError(f"bench {name}: value {rec['value']}, latents "
+                             f"{tuple(lat.shape)} (want {latents_shape}), "
+                             f"finite {bool(torch.isfinite(lat).all())}")
+    if ex["k1_by_shape"] != shapes or \
+            ex["k1_launches"] != sum(shapes.values()) or ex["k1b_launches"]:
+        raise AssertionError(f"bench {name}: K1 {ex['k1_launches']} by "
+                             f"shape {ex['k1_by_shape']}, K1b "
+                             f"{ex['k1b_launches']}; want {shapes}, no K1b")
+    log(f"bench {name}: {rec['metric']} = {rec['value']:.4f} {rec['unit']} "
+        f"({seconds:.1f} s with the warm-up); K1 {ex['k1_launches']} in the "
+        f"timed call, {launches} in the run, K1b {seq}; peak "
+        f"{ex['peak_gib']} GiB, {ex['peak_over_start_gib']} over the start")
+    return dict(rec, seconds=seconds, launches=launches, seq_launches=seq)
+
+
+def detector_validation(device) -> dict:
+    """(d) ``validate_detector.validate_image`` on the SAM x CLIP detector
+    of phase 7 (XL1 and CLIP B/32 from seeds 21-23, a ToyTokenizer) and
+    phase 7's seeded 1216x832 image; then the tool's ``main`` on a missing
+    checkpoint: SKIP, rc 0."""
+    models = mask_models(device, sams=("xl1",))
+    provider = segment.build_mask_provider(
+        "sam", sam=models["xl1"], clip_vision=models["clip_vision"],
+        clip_text=models["clip_text"], tokenizer=ToyTokenizer(49408),
+        device=device)
+    det_ = provider.box_provider
+    tall = np.random.default_rng(26).integers(0, 256, (1216, 832, 3),
+                                              dtype=np.uint8)
+    t0 = time.perf_counter()
+    rec = validate_detector.validate_image(det_, tall, DETECTOR_CLASSES,
+                                           DETECTOR_SWEEP)
+    seconds = time.perf_counter() - t0
+    if rec["size"] != [1216, 832] or \
+            set(rec["per_class"]) != set(DETECTOR_CLASSES) or \
+            set(rec["sim_thresh_sweep"]) != {str(t) for t in DETECTOR_SWEEP} \
+            or rec["n_proposals"] != len(rec["proposal_scores"]) or \
+            det_.sim_thresh != 0.18 or det_._assigned:
+        raise AssertionError(f"bench (d): validate_image record {rec}, "
+                             f"sim_thresh {det_.sim_thresh}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = validate_detector.main(["--sam_checkpoint",
+                                     os.path.join(tempfile.gettempdir(),
+                                                  "no-such-xl1.pt")])
+    if rc != 0 or not out.getvalue().startswith("SKIP"):
+        raise AssertionError(f"bench (d): main without files: rc {rc}, "
+                             f"{out.getvalue()!r}")
+    log(f"bench (d): validate_image {seconds:.2f} s: {rec['n_proposals']} "
+        f"proposals, per class {rec['per_class']}, sweep "
+        f"{rec['sim_thresh_sweep']}; main without files: "
+        f"{out.getvalue().strip()!r}, rc {rc}")
+    return {"record": rec, "seconds": seconds, "skip_rc": rc}
+
+
+def bench_phase(device, cfg, params, loras) -> dict:
+    """Phase 16 on phase 5's live weights."""
+    t0 = time.perf_counter()
+    h, w = BENCH_BUCKET
+    out = {"latency": bench_run(
+        "(a)", device, cfg, params, BENCH_SHAPES,
+        (2, HEIGHT // 8, WIDTH // 8, 4), OMG_BENCH_MODE="latency",
+        OMG_BENCH_DRIFT="crop", OMG_BENCH_H=HEIGHT, OMG_BENCH_W=WIDTH)}
+    crop = out["latency"]["extra"]["crop_drift"]
+    if not crop or crop["measured"] != "live" or \
+            not math.isfinite(crop["pixel_psnr_db"]):
+        raise AssertionError(f"bench (a): crop drift {crop}")
+    out["bucket"] = bench_run(
+        "(b)", device, cfg, params, BENCH_BUCKET_SHAPES,
+        (2, h // 8, w // 8, 4),
+        OMG_BENCH_MODE="latency", OMG_BENCH_DRIFT="none", OMG_BENCH_H=h,
+        OMG_BENCH_W=w)
+    out["bucket_forward_err"] = model_phase(device, cfg, params, loras, h, w,
+                                            name="bench (b)")
+    out["throughput"] = bench_run(
+        "(c)", device, cfg, params, BENCH_PAIR_SHAPES,
+        (BENCH_R, 2, HEIGHT // 8, WIDTH // 8, 4),
+        OMG_BENCH_MODE="throughput", OMG_BENCH_REQUESTS=BENCH_R,
+        OMG_BENCH_CHUNK=BENCH_R, OMG_BENCH_H=HEIGHT, OMG_BENCH_W=WIDTH)
+    if out["throughput"]["extra"]["requests"] != BENCH_R:
+        raise AssertionError(f"bench (c): {out['throughput']['extra']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["detector"] = detector_validation(device)
+    out["phase_s"] = time.perf_counter() - t0
+    out["card"] = power_line()
+    log(f"bench: phase 16 took {out['phase_s']:.1f} s")
+    return out
+
+
 def _profile_forward(name: str, forward) -> None:
     from torch.profiler import ProfilerActivity, profile
     forward()
@@ -3513,7 +3646,7 @@ def mesh_tp_forward(mesh, cfg, params, loras) -> dict:
     f32 = unet_lib.UNet2DConditionModel(
         dataclasses.replace(cfg.unet, dtype=torch.float32), mesh.device)
     f32.load_state_dict(params.unet.state_dict())
-    with plain_attention():
+    with bench.plain_attention():
         tp = split(f32)
         eps = forward(tp, torch.float32)
         del tp
@@ -3795,8 +3928,8 @@ def main() -> int:
     torch.cuda.empty_cache()     # the plain version's scores at B = 28
     log("== K1b vs plain")
     sstats = seq_kernel_phase(device)
-    launches, single, masks, cond, ckpt, serve, pre, approx, api, tools = \
-        single_card_phases(device)
+    (launches, single, masks, cond, ckpt, serve, pre, approx, api, tools,
+     bench_rec) = single_card_phases(device)
     cond["k1_by_shape"] = {key: by_shape[key] for key in (
         "1,10,4096,64", "3,10,4096,64", "4,10,4096,64", "1,20,1024,64",
         "3,20,1024,64", "4,20,1024,64")}
@@ -3804,6 +3937,10 @@ def main() -> int:
         "8,10,4096,64", "8,20,1024,64", "28,10,4096,64", "28,20,1024,64",
         "6,10,4096,64", "6,20,1024,64", "14,10,4096,64", "14,20,1024,64")}
     approx["k1_by_shape"] = {"4,10,2048,64": by_shape["4,10,2048,64"]}
+    bench_rec["k1_by_shape"] = {key: by_shape[key] for key in (
+        *BENCH_BUCKET_SHAPES, "2,10,4032,64", "7,10,4032,64", "2,20,1008,64",
+        "7,20,1008,64", "2,10,3840,64", "7,10,3840,64", "2,20,960,64",
+        "7,20,960,64")}
     gc.collect()
     torch.cuda.empty_cache()
     log("== mesh")
@@ -3855,6 +3992,10 @@ def main() -> int:
                 for part, rec in tools["serve_bench"]["k1"].items()},
             "soak": tools["soak"]["launches"],
             "self_check": tools["self_check"]["launches"]},
+        "bench_path_launches": {
+            name: {"run": bench_rec[name]["launches"],
+                   "timed_call": bench_rec[name]["extra"]["k1_launches"]}
+            for name in ("latency", "bucket", "throughput")},
         "approximate_path_launches": {
             "deepcache_uniform": approx["deepcache"]["uniform"]["launches"],
             "deepcache_front": approx["deepcache"]["front"]["launches"],
@@ -3891,6 +4032,7 @@ def main() -> int:
     log(json.dumps({"mesh_conditioned": mcond}))
     log(json.dumps({"api_surface": api}))
     log(json.dumps({"serving_tools": tools}))
+    log(json.dumps({"bench": bench_rec}))
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

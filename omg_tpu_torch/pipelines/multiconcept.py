@@ -1206,7 +1206,8 @@ def sample_stage1_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                         fusion_start: int = regions.FUSION_START_STEP,
                         base_cn_params=None,
                         base_cn_conds_r: Optional[tuple] = None,
-                        cache_interval: int = 0) -> tuple:
+                        cache_interval: int = 0,
+                        initial_noise: Optional[Sequence] = None) -> tuple:
     """Batched stage 1: per-request seeds and ``BaseInputs`` ->
     (latents [R, 2, h, w, 4], one ``StageCache`` per request, its
     trajectory recorded).
@@ -1219,12 +1220,18 @@ def sample_stage1_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     [R, 1, H, W, C], scale [R], guidance_start [R], guidance_end [R]);
     requests without a condition ride along with scale 0.
     ``cache_interval``: DeepCache over the 2R lanes, phased from each
-    range's start."""
+    range's start. ``initial_noise``: per request, [1, h, w, 4] unit noise
+    in place of the seed's draw (the seed still seeds LCM's re-noise)."""
     R = len(seeds)
     device = base_inputs_r[0].prompt_embeds.device
-    xs = [sdxl.prepare_latents(torch.Generator("cpu").manual_seed(int(s)),
-                               1, height, width, sched, cfg.unet.dtype,
-                               device) for s in seeds]
+    if initial_noise is not None:
+        xs = [schedulers.scale_initial_noise(sched, torch.tensor(
+            np.asarray(n, np.float32), device=device).to(cfg.unet.dtype))
+            for n in initial_noise]
+    else:
+        xs = [sdxl.prepare_latents(
+            torch.Generator("cpu").manual_seed(int(s)), 1, height, width,
+            sched, cfg.unet.dtype, device) for s in seeds]
     states = [schedulers.init_state(int(s)) for s in seeds]
     embeds = torch.cat([b.prompt_embeds[[0, 2]] for b in base_inputs_r])
     tembeds = torch.cat([b.text_embeds[[0, 2]] for b in base_inputs_r])

@@ -60,6 +60,8 @@ def test_port_never_imports_jax():
             "import omg_tpu_torch.tools.serve_bench\n"
             "import omg_tpu_torch.tools.soak_bench\n"
             "import omg_tpu_torch.tools.fidelity_harness\n"
+            "import omg_tpu_torch.tools.validate_detector\n"
+            "import omg_tpu_torch.bench\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'omg_tpu', 'PIL', 'cv2',\n"
             "              'transformers', 'safetensors', 'regex', 'ftfy',\n"
@@ -210,17 +212,28 @@ def test_examples_never_import_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+# Arguments of a run that reaches the models: the validator skips unless
+# its files exist (any existing paths do: it asks for the card first).
+NO_CARD_ARGV = {
+    "fidelity_harness": ["--self_check"],
+    "validate_detector": ["--sam_checkpoint", "chip_smoke.py",
+                          "--clip_checkpoint", "chip_smoke.py",
+                          "--tokenizer_dir", "tests", "--images",
+                          "README.md"]}
+
+
 @pytest.mark.parametrize("tool", ["serve_bench", "soak_bench",
-                                  "fidelity_harness"])
+                                  "fidelity_harness", "validate_detector",
+                                  "bench"])
 def test_tool_help_and_no_card(tool):
     """Each tool's ``--help`` parses without a card; a run that asks for
     none fails at once for want of one."""
-    module = f"omg_tpu_torch.tools.{tool}"
+    module = ("omg_tpu_torch.bench" if tool == "bench"
+              else f"omg_tpu_torch.tools.{tool}")
     proc = _run(["-m", module, "--help"])
     assert proc.returncode == 0, proc.stderr
     assert "--device" in proc.stdout and "--out" in proc.stdout
-    argv = ["--self_check"] if tool == "fidelity_harness" else []
-    proc = _run(["-m", module, *argv])
+    proc = _run(["-m", module, *NO_CARD_ARGV.get(tool, [])])
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
 
@@ -366,3 +379,37 @@ def test_chip_smoke_serving_tools_counts():
     assert mod.TOOLS_MASK_CALLS == 2 * (1 + 2 + 2 + 1 + 2 + 2) == 20
     assert mod.SOAK_STEPS == mod.CONFIG5_STEPS == 20
     assert mod.SOAK_SEPARATION * mod.SOAK_MEAN_BOUND <= 32
+
+
+def test_chip_smoke_bench_counts():
+    """Phase 16 expects K1 in each bench run's timed call at the shapes
+    a generation at 10 steps gives it (``path_launches(10, 70, 70)`` by
+    shape): 2 lanes, then 7, at 1024² and at the 1216x832 bucket (3952
+    and 988 tokens), and 4, then 14 for the throughput pair; phase 3
+    checks every one of those shapes and the other buckets' stage-2 ones.
+    """
+    spec = importlib.util.spec_from_file_location("chip_smoke_bench",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    checked = {",".join(map(str, shape)) for shape in mod.KERNEL_SHAPES}
+    per_call = mod.path_launches(mod.BENCH_STEPS, 70, 70)
+    assert (mod.BENCH_STEPS, mod.BENCH_BUCKET, mod.BENCH_R, per_call) == \
+        (10, (1216, 832), 2, 1120)
+    assert mod.BENCH_SHAPES == mod.serve_shapes(10, 2, 7) == {
+        "2,10,4096,64": 100, "2,20,1024,64": 600,
+        "7,10,4096,64": 60, "7,20,1024,64": 360}
+    assert mod.BENCH_BUCKET_SHAPES == {
+        "2,10,3952,64": 100, "2,20,988,64": 600,
+        "7,10,3952,64": 60, "7,20,988,64": 360}
+    assert mod.BENCH_PAIR_SHAPES == {
+        "4,10,4096,64": 100, "4,20,1024,64": 600,
+        "14,10,4096,64": 60, "14,20,1024,64": 360}
+    for table in (mod.BENCH_SHAPES, mod.BENCH_BUCKET_SHAPES,
+                  mod.BENCH_PAIR_SHAPES):
+        assert sum(table.values()) == per_call
+        assert set(table) <= checked
+    # every non-square bucket's stage-1 and stage-2 shapes
+    for h, w in mod.conditions.RESOLUTIONS[1:]:
+        assert set(mod.serve_shapes(10, 2, 7, height=h, width=w)) <= checked
+    assert mod.DETECTOR_SWEEP == [0.12, 0.15, 0.18, 0.22, 0.26, 0.30]
