@@ -12,9 +12,11 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      spills.
   3. kernel  — K1 vs its plain PyTorch version on seeded bf16 inputs
      at the UNet's and the ControlNets' self-attention shapes (batch 1,
-     2, 3, 4 and 7, and 8 and 28 for four requests in one batch), and
-     the non-square serving buckets' (3952/988, 4032/1008 and 3840/960
-     tokens at batch 2 and 7); for every shape the error
+     2, 3, 4 and 7, and 8 and 28 for four requests in one batch), the
+     crop strips' (2048 tokens at batch 4, 8 and 16; the base lanes of
+     four requests at batch 12), and the non-square serving buckets'
+     (3952/988, 4032/1008 and 3840/960 tokens at batch 2 and 7); for
+     every shape the error
      bound, kernel / plain / SDPA (the library yardstick, never called by
      the port) ms per call, the bound (the larger of FLOPs over the bf16
      peak and bytes over the memory rate) and the kernel's share of it;
@@ -183,7 +185,12 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      ``tools.validate_detector.validate_image`` on phase 7's SAM x CLIP
      detector (XL1, CLIP B/32) and its seeded 1216x832 image, the sweep's
      threshold restored, then the tool's ``main`` without files: SKIP and
-     rc 0.
+     rc 0; (e) throughput with OMG_BENCH_CROP=strips, two requests in one
+     chunk (``sample_stage2_batch(concept_crop=True)``: 4 lanes, then 6
+     base lanes and 8 strip lanes, K1 as BENCH_CROP_SHAPES), each
+     request's decoded copy B within SOAK_MEAN_BOUND mean uint8 levels of
+     the same request run alone through ``sample_stage2_resumed(
+     concept_crop=True)``, the two requests' images far further apart.
   6. mesh    — the multi-device latency mode, ``OMG(mesh=...)``, on 2 ranks
      that share this card through ``gloo`` (mesh data=1, model=2): the
      same seeded weights on both (checked), one H-split stage-1 UNet
@@ -423,6 +430,10 @@ KERNEL_SHAPES = [  # (B, H, N, D): main-path, bucket, D=128, ragged tiles
     # 128 x 64 latent strips, level 1 (2048 tokens; level 2's 512 take
     # the plain attention, as the gate sends them in JAX)
     (4, 10, 2048, 64),
+    # the strips batched (phase 16 (e), the bench's throughput crop): the
+    # 2KR strip lanes of R = 2 and 4, and the 3R base lanes of R = 4
+    (8, 10, 2048, 64), (12, 10, 4096, 64), (12, 20, 1024, 64),
+    (16, 10, 2048, 64),
     # tensor parallelism (phase 13 (d)): a rank's heads of a b = 4 forward
     (4, 5, 4096, 64), (4, 10, 1024, 64),
     # the non-square serving buckets' stage 2 (phase 16 and the bench):
@@ -3134,7 +3145,11 @@ def serving_tools_phase(device, cfg, params) -> dict:
 # of the latency mode runs every stage-1 step at b = 2 and the steps after
 # fusion_start = round(10 * 15 / 50) = 3 at b = 7: path_launches(10, 70,
 # 70) = 1120 K1; at the 1216x832 bucket the same counts at 3952 and 988
-# tokens; the throughput pair in one chunk at 4, then 14.
+# tokens; the throughput pair in one chunk at 4, then 14. The pair with
+# the crop strips: 4 lanes in stage 1, then per stage-2 step the 3R = 6
+# base lanes full-frame and the 2KR = 8 strip lanes at level 1 (128 x 64
+# latent strips: 2048 tokens; level 2's 512 take the plain attention),
+# 1180 in all.
 BENCH_STEPS = 10
 BENCH_BUCKET = (1216, 832)
 BENCH_R = 2
@@ -3142,17 +3157,20 @@ BENCH_SHAPES = serve_shapes(BENCH_STEPS, 2, 7)
 BENCH_BUCKET_SHAPES = serve_shapes(BENCH_STEPS, 2, 7, height=BENCH_BUCKET[0],
                                    width=BENCH_BUCKET[1])
 BENCH_PAIR_SHAPES = serve_shapes(BENCH_STEPS, 2 * BENCH_R, 7 * BENCH_R)
+BENCH_CROP_SHAPES = {"4,10,4096,64": 100, "4,20,1024,64": 600,
+                     "6,10,4096,64": 60, "6,20,1024,64": 360,
+                     "8,10,2048,64": 60}
 DETECTOR_CLASSES = ["man", "woman"]
 DETECTOR_SWEEP = [0.12, 0.15, 0.18, 0.22, 0.26, 0.30]
 
 
 def bench_run(name: str, device, cfg, params, shapes: dict,
-              latents_shape: tuple, **env) -> dict:
+              latents_shape: tuple, **env) -> tuple:
     """``bench.main`` on the live weights with OMG_BENCH_* = ``env`` (SDXL
     size, BENCH_STEPS, one rep), counts zeroed just before and read just
     after: exactly one JSON line on stdout, the record's value positive,
     its stage-2 latents finite of ``latents_shape``, K1 by q shape in the
-    timed call ``shapes`` and K1b none."""
+    timed call ``shapes`` and K1b none -> (record, stage-2 latents)."""
     out = io.StringIO()
     fa.LAUNCHES = fa.SEQ_LAUNCHES = 0
     t0 = time.perf_counter()
@@ -3182,7 +3200,59 @@ def bench_run(name: str, device, cfg, params, shapes: dict,
         f"({seconds:.1f} s with the warm-up); K1 {ex['k1_launches']} in the "
         f"timed call, {launches} in the run, K1b {seq}; peak "
         f"{ex['peak_gib']} GiB, {ex['peak_over_start_gib']} over the start")
-    return dict(rec, seconds=seconds, launches=launches, seq_launches=seq)
+    return dict(rec, seconds=seconds, launches=launches,
+                seq_launches=seq), lat
+
+
+def crop_against_serial(device, cfg, params, lat: torch.Tensor) -> dict:
+    """(e) each request's batched copy B, decoded, against the same
+    request run alone on the card (``sample_stage1_cached`` then
+    ``sample_stage2_resumed(concept_crop=True)`` from its noise row and
+    LCM seed): the mean uint8 difference within SOAK_MEAN_BOUND, and the
+    two requests' serial images SOAK_SEPARATION times that apart."""
+    work = bench.build_workload(cfg, HEIGHT, WIDTH, BENCH_STEPS,
+                                requests=BENCH_R)
+    cond = bench.conditioning(cfg, work, HEIGHT, WIDTH, BENCH_STEPS, device)
+    sched = schedulers.make_schedule("euler", BENCH_STEPS)
+    fusion_start = work["fusion_start"]
+
+    def image(x):
+        return bench.to_uint8(sdxl.decode_latents(
+            cfg, params.vae, x, dtype=torch.float32)).astype(np.int16)
+
+    batched, serial = [], []
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for r in range(BENCH_R):
+            _, cache = multiconcept.sample_stage1_cached(
+                cfg, sched, params.unet, generator=None, height=HEIGHT,
+                width=WIDTH, base_inputs=cond.base, fusion_start=fusion_start,
+                initial_noise=work["noise"][r:r + 1],
+                noise_seed=bench.NOISE_SEED + r)
+            alone = multiconcept.sample_stage2_resumed(
+                cfg, sched, params.unet, cache, base_inputs=cond.base,
+                controller=cond.controller,
+                concept_inputs=[cond.concept, cond.concept],
+                concept_loras=cond.loras, masks=cond.masks,
+                fusion_start=fusion_start, concept_crop=True)
+            serial.append(image(alone[1:2]))
+            batched.append(image(lat[r, 1:2]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    diffs = [float(np.abs(b - s).mean()) for b, s in zip(batched, serial)]
+    maxes = [int(np.abs(b - s).max()) for b, s in zip(batched, serial)]
+    mixup = float(np.abs(serial[0] - serial[1]).mean())
+    log(f"bench (e): batched copy B vs the serial crop run, mean uint8 "
+        f"{diffs} (max {maxes}; bound {SOAK_MEAN_BOUND}), the two requests "
+        f"{mixup:.3f} apart; serial runs and decodes {seconds:.1f} s")
+    if max(diffs) > SOAK_MEAN_BOUND or \
+            mixup < SOAK_SEPARATION * SOAK_MEAN_BOUND:
+        raise AssertionError(f"bench (e): batched vs serial mean {diffs} "
+                             f"(bound {SOAK_MEAN_BOUND}), requests {mixup} "
+                             f"apart (want >= "
+                             f"{SOAK_SEPARATION * SOAK_MEAN_BOUND})")
+    return {"mean_uint8_diff": diffs, "max_uint8_diff": maxes,
+            "requests_mean_diff": mixup, "serial_s": seconds}
 
 
 def detector_validation(device) -> dict:
@@ -3231,7 +3301,7 @@ def bench_phase(device, cfg, params, loras) -> dict:
     out = {"latency": bench_run(
         "(a)", device, cfg, params, BENCH_SHAPES,
         (2, HEIGHT // 8, WIDTH // 8, 4), OMG_BENCH_MODE="latency",
-        OMG_BENCH_DRIFT="crop", OMG_BENCH_H=HEIGHT, OMG_BENCH_W=WIDTH)}
+        OMG_BENCH_DRIFT="crop", OMG_BENCH_H=HEIGHT, OMG_BENCH_W=WIDTH)[0]}
     crop = out["latency"]["extra"]["crop_drift"]
     if not crop or crop["measured"] != "live" or \
             not math.isfinite(crop["pixel_psnr_db"]):
@@ -3240,19 +3310,33 @@ def bench_phase(device, cfg, params, loras) -> dict:
         "(b)", device, cfg, params, BENCH_BUCKET_SHAPES,
         (2, h // 8, w // 8, 4),
         OMG_BENCH_MODE="latency", OMG_BENCH_DRIFT="none", OMG_BENCH_H=h,
-        OMG_BENCH_W=w)
+        OMG_BENCH_W=w)[0]
     out["bucket_forward_err"] = model_phase(device, cfg, params, loras, h, w,
                                             name="bench (b)")
     out["throughput"] = bench_run(
         "(c)", device, cfg, params, BENCH_PAIR_SHAPES,
         (BENCH_R, 2, HEIGHT // 8, WIDTH // 8, 4),
         OMG_BENCH_MODE="throughput", OMG_BENCH_REQUESTS=BENCH_R,
-        OMG_BENCH_CHUNK=BENCH_R, OMG_BENCH_H=HEIGHT, OMG_BENCH_W=WIDTH)
+        OMG_BENCH_CHUNK=BENCH_R, OMG_BENCH_H=HEIGHT, OMG_BENCH_W=WIDTH)[0]
     if out["throughput"]["extra"]["requests"] != BENCH_R:
         raise AssertionError(f"bench (c): {out['throughput']['extra']}")
     gc.collect()
     torch.cuda.empty_cache()
     out["detector"] = detector_validation(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["crop_throughput"], lat = bench_run(
+        "(e)", device, cfg, params, BENCH_CROP_SHAPES,
+        (BENCH_R, 2, HEIGHT // 8, WIDTH // 8, 4),
+        OMG_BENCH_MODE="throughput", OMG_BENCH_CROP="strips",
+        OMG_BENCH_REQUESTS=BENCH_R, OMG_BENCH_CHUNK=BENCH_R,
+        OMG_BENCH_H=HEIGHT, OMG_BENCH_W=WIDTH)
+    ex = out["crop_throughput"]["extra"]
+    if (ex["concept_crop"], ex["requests"]) != ("strips", BENCH_R):
+        raise AssertionError(f"bench (e): {ex}")
+    out["crop_throughput"]["vs_serial"] = crop_against_serial(
+        device, cfg, params, lat)
+    del lat
     out["phase_s"] = time.perf_counter() - t0
     out["card"] = power_line()
     log(f"bench: phase 16 took {out['phase_s']:.1f} s")
@@ -3940,7 +4024,8 @@ def main() -> int:
     bench_rec["k1_by_shape"] = {key: by_shape[key] for key in (
         *BENCH_BUCKET_SHAPES, "2,10,4032,64", "7,10,4032,64", "2,20,1008,64",
         "7,20,1008,64", "2,10,3840,64", "7,10,3840,64", "2,20,960,64",
-        "7,20,960,64")}
+        "7,20,960,64", "8,10,2048,64", "12,10,4096,64", "12,20,1024,64",
+        "16,10,2048,64")}
     gc.collect()
     torch.cuda.empty_cache()
     log("== mesh")
@@ -3995,7 +4080,8 @@ def main() -> int:
         "bench_path_launches": {
             name: {"run": bench_rec[name]["launches"],
                    "timed_call": bench_rec[name]["extra"]["k1_launches"]}
-            for name in ("latency", "bucket", "throughput")},
+            for name in ("latency", "bucket", "throughput",
+                         "crop_throughput")},
         "approximate_path_launches": {
             "deepcache_uniform": approx["deepcache"]["uniform"]["launches"],
             "deepcache_front": approx["deepcache"]["front"]["launches"],

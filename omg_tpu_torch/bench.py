@@ -16,8 +16,10 @@ Prints ONE JSON line on stdout, {"metric", "value", "unit",
     vs_baseline = 5 s / median (above 1 beats the north-star target);
   * throughput: OMG_BENCH_REQUESTS requests, each with its own noise, run
     OMG_BENCH_CHUNK at a time as one batched program (2·chunk lanes in
-    stage 1, 7·chunk in stage 2), copy B of each decoded one request at
-    a time; images per minute, vs_baseline = ipm / 12.
+    stage 1, 7·chunk in stage 2; with OMG_BENCH_CROP=strips 3·chunk
+    full-frame lanes and 4·chunk strip lanes, two forwards a step), copy
+    B of each decoded one request at a time; images per minute,
+    vs_baseline = ipm / 12.
 
     python -m omg_tpu_torch.bench [--device cpu] [--out PATH]
 
@@ -483,11 +485,6 @@ def throughput(cfg, params, work: dict, knobs: Knobs, device, height: int,
     """The throughput mode on ``params`` -> (record, stage-2 latents
     [R, 2, h, w, 4] of the last timed pass); ``work`` holds R noise rows
     (R rounded up to a multiple of the chunk)."""
-    if knobs.crop:
-        raise ValueError(
-            "OMG_BENCH_CROP=strips in throughput mode: the port's batched "
-            "stage 2 (multiconcept.sample_stage2_batch) has no concept-crop "
-            "program; run the strips in latency mode")
     noise = work["noise"]
     R = noise.shape[0]
     chunk = max(1, min(R, knobs.chunk))
@@ -500,6 +497,9 @@ def throughput(cfg, params, work: dict, knobs: Knobs, device, height: int,
                          fusion_start)
     vae_dtype = torch.bfloat16 if knobs.vae == "bf16" else torch.float32
     masks = cond.masks.expand((chunk,) + tuple(cond.masks.shape))
+    if knobs.crop:
+        # what stage 2 would refuse, refused before stage 1 runs
+        multiconcept.check_crop_batch(cfg, masks, 2, dc_spec)
 
     def run() -> torch.Tensor:
         out = []
@@ -514,7 +514,7 @@ def throughput(cfg, params, work: dict, knobs: Knobs, device, height: int,
                 cfg, sched, unet, caches, [cond.base] * chunk,
                 cond.controller, [[cond.concept, cond.concept]] * chunk,
                 [cond.loras] * chunk, masks, fusion_start=fusion_start,
-                cache_interval=dc_spec)
+                cache_interval=dc_spec, concept_crop=knobs.crop)
             # copy B, one request at a time: a batched fp32 decode holds
             # every request's upsampling activations at once
             for r in range(chunk):
@@ -556,7 +556,7 @@ def throughput(cfg, params, work: dict, knobs: Knobs, device, height: int,
             "vae_dtype": knobs.vae,
             "quant": knobs.quant or "none",
             "scheduler": knobs.sched,
-            "concept_crop": None,
+            "concept_crop": "strips" if knobs.crop else None,
             "deepcache_interval": knobs.deepcache if knobs.deepcache > 1
             else None,
             "deepcache_kind": knobs.deepcache_kind if knobs.deepcache > 1

@@ -939,47 +939,89 @@ def _denoise_mc_range_traj_cropped(
     back into a full-frame region prediction. A concept's self-attention
     and convs no longer see the other strips. ``masks`` must already be
     clipped to the strips (``check_crop_strips``). latent_b: [1, h, w, 4]
-    -> copy B's final."""
-    K = len(concept_inputs)
+    -> copy B's final. One request of ``_denoise_cropped_batch``."""
+    return _denoise_cropped_batch(
+        sched, unet, [latent_b], [state], [a_traj], [base_inputs],
+        controller, [tuple(concept_inputs)], [tuple(concept_loras)], [masks],
+        i0=i0, fusion_start=fusion_start,
+        concept_ip_adapters=concept_ip_adapters, ip_scale=ip_scale,
+        base_controlnets=tuple(base_controlnets), cond_rows=(0, 2))[0]
+
+
+def _denoise_cropped_batch(
+        sched: schedulers.Schedule, unet, xs: list, states: list,
+        trajs: Sequence[torch.Tensor], base_inputs_r: Sequence[BaseInputs],
+        controller, concept_inputs_r, concept_loras_r,
+        masks_r: Sequence[torch.Tensor], *, i0: int, fusion_start: int,
+        concept_ip_adapters: Sequence = (), ip_scale: float = 1.0,
+        base_controlnets: Sequence = (), cond_rows: tuple = ()) -> list:
+    """The strip suffix of R requests (the JAX ``vmap`` of
+    ``_denoise_mc_range_traj_cropped``) -> each request's copy-B final.
+
+    Per step, two UNet forwards for the whole batch: the 3R base lanes
+    [cond_A, uncond_B, cond_B] of every request full-frame (P2P editing
+    each request's pair (3r, 3r + 2), ``base_controlnets`` on these lanes
+    with ``cond_rows`` conditional), and the 2KR strip lanes, request r's
+    concept k on lanes 2(rK + k), 2(rK + k) + 1 with its LoRA and IP
+    tokens. Then per request: the strips written back into a full-frame
+    region prediction, fusion with its ``masks_r`` (clipped to the
+    strips), CFG and its own scheduler step. ``xs``/``states``: copy B's
+    latents [1, h, w, 4] and scheduler states at step ``i0``, per request
+    (updated in place); ``trajs``: copy A's recorded inputs from ``i0``."""
+    R, K = len(xs), len(concept_inputs_r[0])
     bidx = [2, 1, 3]    # [cond_A, uncond_B, cond_B] of the 4-row layout
-    b_embeds = base_inputs.prompt_embeds[bidx]
-    b_tembeds = base_inputs.text_embeds[bidx]
-    b_tids = base_inputs.time_ids[bidx]
+    b_embeds, b_tembeds, b_tids = (
+        torch.cat([getattr(b, f)[bidx] for b in base_inputs_r])
+        for f in ("prompt_embeds", "text_embeds", "time_ids"))
     c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx = \
-        _concept_lane_conditioning(concept_inputs, concept_loras, 0)
+        _concept_lane_conditioning(
+            [ci for cl in concept_inputs_r for ci in cl],
+            [lo for ll in concept_loras_r for lo in ll], 0)
     ipk = concept_ip_adapters[0] if concept_ip_adapters else None
-    ws = latent_b.shape[2] // K
-    masks = masks.to(latent_b.dtype)
-    x, st = latent_b, state
+    frame = tuple(xs[0].shape[1:])
+    ws = frame[1] // K
+    masks_r = [m.to(xs[0].dtype) for m in masks_r]
+    pairs = [(3 * r, 3 * r + 2) for r in range(R)]
     for i in range(i0, sched.num_steps):
         t = int(sched.timesteps[i])
-        lin_a = schedulers.scale_model_input(sched, a_traj[i - i0], i)
-        lin_b = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
-        lanes_b = torch.cat([lin_a, lin_b])
-        ctrl = (controller.at_step(i, src_lane=0, dst_lane=2)
+        lin_b = [schedulers.scale_model_input(sched, torch.cat([x, x]), i)
+                 for x in xs]
+        lanes_b = torch.cat([torch.cat([schedulers.scale_model_input(
+            sched, trajs[r][i - i0], i), lin_b[r]]) for r in range(R)])
+        ctrl = (controller.at_step(i, pairs=pairs)
                 if controller is not None else None)
         down, mid = _controlnet_residuals(
             base_controlnets, lanes_b, t, b_embeds, b_tembeds, b_tids,
-            step_i=i, num_steps=sched.num_steps, cond_rows=(0, 2))
+            step_i=i, num_steps=sched.num_steps, cond_rows=cond_rows)
         eps_base = unet(lanes_b, t, b_embeds, text_embeds=b_tembeds,
                         time_ids=b_tids, control=ctrl,
                         down_block_residuals=down, mid_block_residual=mid)
         lanes_c = torch.cat([
-            lin_b[1:2, :, k * ws:(k + 1) * ws].expand(
-                (2, lin_b.shape[1], ws, lin_b.shape[3]))
-            for k in range(K)])
+            lb[1:2, :, k * ws:(k + 1) * ws].expand((2, frame[0], ws,
+                                                     frame[2]))
+            for lb in lin_b for k in range(K)])
         eps_c = unet(lanes_c, t, c_embeds, text_embeds=c_tembeds,
                      time_ids=c_tids, lora=lane_lora, ip_adapter=ipk,
                      ip_context=ip_ctx, ip_scale=ip_scale)
-        region_preds = eps_c.new_zeros((K, 2) + tuple(lin_b.shape[1:]))
-        for k in range(K):
-            region_preds[k, :, :, k * ws:(k + 1) * ws] = eps_c[2 * k:2 * k + 2]
-        fused = regions.fuse_region_edit(eps_base[1:3], region_preds, masks,
-                                         active=i > fusion_start)
-        guided = sampling.cfg_combine(fused, base_inputs.guidance_scale)
-        x, st = schedulers.step(sched, st, guided, i, x,
-                                shared_batch_noise=True)
-    return x
+        for r in range(R):
+            region_preds = eps_c.new_zeros((K, 2) + frame)
+            for k in range(K):
+                lane = 2 * (r * K + k)
+                region_preds[k, :, :, k * ws:(k + 1) * ws] = \
+                    eps_c[lane:lane + 2]
+            fused = regions.fuse_region_edit(
+                eps_base[3 * r + 1:3 * r + 3], region_preds, masks_r[r],
+                active=i > fusion_start)
+            guided = sampling.cfg_combine(fused,
+                                          base_inputs_r[r].guidance_scale)
+            xs[r], states[r] = schedulers.step(sched, states[r], guided, i,
+                                               xs[r], shared_batch_noise=True)
+    return xs
+
+
+_CROP_NEEDS = ("concept_crop requires the trajectory cache, >=1 concept, no "
+              "per-concept ControlNets, and no lane_sharding (base-row "
+              "spatial ControlNets compose: the base rows run full-frame)")
 
 
 def crop_strips_ok(cfg: sdxl.SDXLConfig, latent_w: int, k: int) -> bool:
@@ -999,6 +1041,19 @@ def check_crop_strips(cfg: sdxl.SDXLConfig, masks: torch.Tensor,
             f"latent width {masks.shape[-1]} not divisible into "
             f"{k} UNet-compatible strips")
     return clip_masks_to_strips(masks, k)
+
+
+def check_crop_batch(cfg: sdxl.SDXLConfig, masks_r: torch.Tensor, k: int,
+                     cache_interval=0, concept_cn_params=None) -> list:
+    """Refuse what the batched strip program cannot run (DeepCache, an
+    IdentityNet on the concept lanes, no concept, a strip geometry the
+    UNet does not round-trip) and return each request's masks [K, h, w]
+    clipped to the strips."""
+    if dc_on(cache_interval):
+        raise ValueError("cache_interval and concept_crop are exclusive")
+    if k == 0 or concept_cn_params is not None:
+        raise ValueError(_CROP_NEEDS)
+    return [check_crop_strips(cfg, m, k) for m in masks_r]
 
 
 def clip_masks_to_strips(masks: torch.Tensor, n_strips: int) -> torch.Tensor:
@@ -1104,11 +1159,7 @@ def sample_stage2_resumed(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
         K = len(concept_inputs)
         if (cache.a_traj is None or K == 0 or lane_sharding is not None
                 or any(c is not None for c in concept_controlnets)):
-            raise ValueError(
-                "concept_crop requires the trajectory cache, >=1 "
-                "concept, no per-concept ControlNets, and no "
-                "lane_sharding (base-row spatial ControlNets compose: "
-                "the base rows run full-frame)")
+            raise ValueError(_CROP_NEEDS)
         lat_b = _denoise_mc_range_traj_cropped(
             cfg, sched, unet, cache.latents, cache.sched_state, cache.a_traj,
             base_inputs, controller, tuple(concept_inputs),
@@ -1282,9 +1333,13 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                         concept_cn_conds_r: Optional[tuple] = None,
                         base_cn_params=None,
                         base_cn_conds_r: Optional[tuple] = None,
-                        cache_interval: int = 0) -> torch.Tensor:
+                        cache_interval: int = 0,
+                        concept_crop: bool = False) -> torch.Tensor:
     """Batched stage 2 -> [R, 2, h, w, 4]: the 3+2K trajectory program of
-    every request in one forward per step over R(3+2K) lanes.
+    every request in one forward per step over R(3+2K) lanes, or with
+    ``concept_crop`` the strip program (``_denoise_cropped_batch``: the 3R
+    base lanes and the 2KR strip lanes as two forwards per step; each
+    request's masks clipped to the strips here).
 
     ``concept_inputs_r``/``concept_loras_r``: [request][concept], every
     request with the same K (pad with neutral concepts and zero masks);
@@ -1299,11 +1354,27 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     ``base_cn_conds_r``: the spatial ControlNet on the 3 base lanes, as in
     ``sample_stage1_batch``. With an empty suffix (``fusion_start + 1 >=
     steps``) every request returns stage 1's copy A twice.
-    ``cache_interval``: DeepCache over the R(3+2K) lanes."""
+    ``cache_interval``: DeepCache over the R(3+2K) lanes; not with
+    ``concept_crop``, which takes no IdentityNet either and needs K >= 1.
+    """
+    R, K = len(cache_r), len(concept_inputs_r[0])
+    if concept_crop:
+        masks_r = check_crop_batch(cfg, masks_r, K, cache_interval,
+                                   concept_cn_params)
     boundary = min(fusion_start + 1, sched.num_steps)
     if boundary >= sched.num_steps:
         return torch.stack([duplicate_latents(c.a_final) for c in cache_r])
-    R, K = len(cache_r), len(concept_inputs_r[0])
+    if concept_crop:
+        xs = _denoise_cropped_batch(
+            sched, unet, [c.latents for c in cache_r],
+            [c.sched_state for c in cache_r], [c.a_traj for c in cache_r],
+            base_inputs_r, controller, concept_inputs_r, concept_loras_r,
+            masks_r, i0=boundary, fusion_start=fusion_start,
+            concept_ip_adapters=concept_ip_adapters, ip_scale=ip_scale,
+            base_controlnets=_base_cn_lanes(base_cn_params, base_cn_conds_r,
+                                            3))
+        return torch.stack([torch.cat([c.a_final, x])
+                            for c, x in zip(cache_r, xs)])
     L = 3 + 2 * K
     bidx = [2, 1, 3]    # [cond_A, uncond_B, cond_B] of the 4-row layout
 

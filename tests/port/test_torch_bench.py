@@ -4,7 +4,8 @@ CPU at the tiny size: the contract of ``tests/test_bench_smoke.py`` case
 for case (one JSON line per mode); latency and throughput latents against
 JAX's stage functions on the same ``build_workload`` arrays (5e-4 on
 latents, 1/255 on images, fp32, as ``tests/test_golden.py``), square and
-non-square; live drift only, ``tools/drift_measured.json`` untouched; the
+non-square; the throughput crop strips against the port's serial crop
+run; live drift only, ``tools/drift_measured.json`` untouched; the
 refusals; and the validator's skip path, ``validate_image`` against the
 JAX tool's on the stub detector, and ``main`` on tiny seeded files."""
 
@@ -27,8 +28,9 @@ from omg_tpu.pipelines import sdxl as jsdxl
 from omg_tpu.segment.detector import OpenVocabDetector as JDetector
 from omg_tpu.segment.detector import Proposal as JProposal
 from omg_tpu_torch import bench, config, convert
+from omg_tpu_torch.diffusion import schedulers
 from omg_tpu_torch.models import clip, clip_vision
-from omg_tpu_torch.pipelines import sdxl
+from omg_tpu_torch.pipelines import multiconcept, sdxl
 from omg_tpu_torch.segment import sam_provider, vit_sam
 from omg_tpu_torch.segment.detector import OpenVocabDetector, Proposal
 from omg_tpu_torch.tools import validate_detector
@@ -46,21 +48,23 @@ STEPS = 4
 RECORD_KEYS = {"metric", "value", "unit", "vs_baseline"}
 
 
-def _run_bench(monkeypatch, capsys, env: dict) -> dict:
+def _run_bench(monkeypatch, capsys, env: dict, weights=None,
+               latents: bool = False):
     """``bench.main`` at the tiny size, 4 steps, one rep, on the CPU:
-    exactly one JSON line on stdout with the contract fields."""
+    exactly one JSON line on stdout with the contract fields -> the record
+    (and the stage-2 latents with ``latents``)."""
     values = {"OMG_BENCH_SIZE": "tiny", "OMG_BENCH_STEPS": str(STEPS),
               "OMG_BENCH_REPS": "1"}
     for key, value in dict(values, **env).items():
         monkeypatch.setenv(key, value)
-    rec, _ = bench.main(["--device", "cpu"])
+    rec, lat2 = bench.main(["--device", "cpu"], weights=weights)
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
     assert len(lines) == 1, lines
     printed = json.loads(lines[0])
     assert RECORD_KEYS <= set(printed)
     assert printed == json.loads(json.dumps(rec))
     assert rec["value"] > 0
-    return rec
+    return (rec, lat2) if latents else rec
 
 
 # ---------------------------------------------------------------- (a)
@@ -193,6 +197,37 @@ def test_throughput_matches_jax_per_request(weights):
     assert float((lat2[0] - lat2[1]).abs().max()) > 1e-2
 
 
+def test_throughput_crop(weights, monkeypatch, capsys):
+    """OMG_BENCH_CROP=strips in throughput mode (the batched strip
+    program): one JSON record saying so, and each request's stage-2
+    latents equal to the port's serial ``two_stage_latents(concept_crop=
+    True)`` on its noise row and LCM seed."""
+    _, params = weights
+    cfg = sdxl.tiny_config()
+    rec, lat2 = _run_bench(monkeypatch, capsys, {
+        "OMG_BENCH_MODE": "throughput", "OMG_BENCH_CROP": "strips",
+        "OMG_BENCH_REQUESTS": "2", "OMG_BENCH_CHUNK": "2"},
+        weights=(cfg, params), latents=True)
+    ex = rec["extra"]
+    assert (ex["concept_crop"], ex["requests"], ex["chunk"]) == \
+        ("strips", 2, 2)
+    assert rec["unit"] == "images/min/chip"
+    work = bench.build_workload(cfg, 32, 32, STEPS, requests=2)
+    cond = bench.conditioning(cfg, work, 32, 32, STEPS, "cpu")
+    sched = schedulers.make_schedule("euler", STEPS)
+    with torch.inference_mode():
+        for r in range(2):
+            _, want = multiconcept.two_stage_latents(
+                cfg, sched, params.unet, schedulers.scale_initial_noise(
+                    sched, torch.as_tensor(work["noise"][r:r + 1])),
+                cond.base, cond.controller, [cond.concept] * 2, cond.loras,
+                cond.masks, fusion_start=work["fusion_start"],
+                noise_seed=bench.NOISE_SEED + r, concept_crop=True)
+            np.testing.assert_allclose(lat2[r].numpy(), want.numpy(),
+                                       atol=LATENT_ATOL)
+    assert float((lat2[0] - lat2[1]).abs().max()) > 1e-2
+
+
 def test_workload_is_the_benchs():
     """bench.py's workload: [1, 77, 2048] and [1, 1280] embeddings, rank-32
     LoRAs on the mid block's 10 transformer blocks (8 projections each,
@@ -287,10 +322,15 @@ def test_refusals(monkeypatch):
             m.setenv(key, value)
             with pytest.raises(ValueError, match=key):
                 bench.main(["--device", "cpu"])
-    # the strips have no batched program: named, not looped per request
+    # the strips with DeepCache, as JAX's vmapped program refuses them:
+    # before stage 1 runs
     monkeypatch.setenv("OMG_BENCH_MODE", "throughput")
     monkeypatch.setenv("OMG_BENCH_CROP", "strips")
-    with pytest.raises(ValueError, match="sample_stage2_batch"):
+    monkeypatch.setenv("OMG_BENCH_DEEPCACHE", "2")
+    monkeypatch.setattr(multiconcept, "sample_stage1_batch", None)
+    with pytest.raises(ValueError,
+                       match="^cache_interval and concept_crop are "
+                             "exclusive$"):
         bench.main(["--device", "cpu"])
 
 

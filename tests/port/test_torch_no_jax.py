@@ -385,8 +385,10 @@ def test_chip_smoke_bench_counts():
     """Phase 16 expects K1 in each bench run's timed call at the shapes
     a generation at 10 steps gives it (``path_launches(10, 70, 70)`` by
     shape): 2 lanes, then 7, at 1024² and at the 1216x832 bucket (3952
-    and 988 tokens), and 4, then 14 for the throughput pair; phase 3
-    checks every one of those shapes and the other buckets' stage-2 ones.
+    and 988 tokens), and 4, then 14 for the throughput pair, and 4, then
+    6 and 8 strip lanes for the pair with the crop strips; phase 3 checks
+    every one of those shapes, the other buckets' stage-2 ones and the
+    crop strips' at four requests a chunk.
     """
     spec = importlib.util.spec_from_file_location("chip_smoke_bench",
                                                   ROOT / "chip_smoke.py")
@@ -409,6 +411,16 @@ def test_chip_smoke_bench_counts():
                   mod.BENCH_PAIR_SHAPES):
         assert sum(table.values()) == per_call
         assert set(table) <= checked
+    # (e) the pair with the crop strips: 2R = 4 lanes in stage 1, then
+    # per stage-2 step 3R = 6 base lanes and 2KR = 8 strip lanes whose
+    # level 1 holds 2048 tokens (level 2's 512 stay off K1)
+    assert mod.BENCH_CROP_SHAPES == {
+        "4,10,4096,64": 100, "4,20,1024,64": 600,
+        "6,10,4096,64": 60, "6,20,1024,64": 360, "8,10,2048,64": 60}
+    assert sum(mod.BENCH_CROP_SHAPES.values()) == 1180
+    assert set(mod.BENCH_CROP_SHAPES) <= checked
+    # and the bench's crop rows at CHUNK=4: 12 base lanes, 16 strip lanes
+    assert {"12,10,4096,64", "12,20,1024,64", "16,10,2048,64"} <= checked
     # every non-square bucket's stage-1 and stage-2 shapes
     for h, w in mod.conditions.RESOLUTIONS[1:]:
         assert set(mod.serve_shapes(10, 2, 7, height=h, width=w)) <= checked

@@ -11,9 +11,11 @@ batches compatible ones. Checks:
     as a large difference;
   * distinct seeds give distinct images;
   * the stage-2 status of each class (the gate miss runs stage 1 only);
-  * the queue drains, the drain batched some of the storm, and
-    ``/metrics`` rises by 2 ``stage2_skipped`` and 18 ``images_generated``
-    (two passes of nine jobs);
+  * a POST of two prompts (the first two Euler jobs) is one queue item,
+    so it always runs as one batch: ``batched_requests`` rises by 2 on
+    it, and each image is its job's serial baseline within 1 uint8 level;
+  * the queue drains, and ``/metrics`` rises by 2 ``stage2_skipped`` and
+    20 ``images_generated`` (two passes of nine jobs and the pair);
   * each serial baseline equals JAX's ``OMG.generate`` of the same job
     (JAX's server turns the job into its arguments) within 1/255, with
     the weights carried over by ``from_jax``, both engines on the port's
@@ -109,6 +111,13 @@ def soak():
         try:
             before = client.counters()
             serial = [client.post(dict(job)) for _, job, _ in jobs]
+            # the two first Euler jobs (seeds 11, 12) as one POST of two
+            # prompts: one queue item, so always one batch
+            pair_job = {k: v for k, v in jobs[0][1].items() if k != "prompt"}
+            pair_job["prompts"] = [jobs[0][1]["prompt"], jobs[1][1]["prompt"]]
+            before_pair = client.counters()
+            pair = client.post(pair_job)["results"]
+            after_pair = client.counters()
             storm = serve_bench.concurrent(
                 lambda i: client.post(dict(jobs[i][1])), len(jobs))
             health = client.get("/healthz")
@@ -119,9 +128,11 @@ def soak():
     for _, job, _ in jobs:
         req = jsrv._job_to_request(dict(job))
         want.append(jeng.generate(req.pop("prompt"), **req))
-    return dict(jobs=jobs, serial=serial, storm=storm, want=want,
-                health=health, delta={k: after.get(k, 0) - before.get(k, 0)
-                                      for k in after})
+    def delta(a, b):
+        return {k: b.get(k, 0) - a.get(k, 0) for k in b}
+    return dict(jobs=jobs, serial=serial, storm=storm, pair=pair, want=want,
+                health=health, delta=delta(before, after),
+                pair_delta=delta(before_pair, after_pair))
 
 
 def _ids(jobs):
@@ -159,8 +170,25 @@ def test_queue_drains_and_metrics_count(soak):
     # the gate miss ran twice (its baseline and the storm), nothing else
     # skipped stage 2
     assert soak["delta"]["stage2_skipped"] == 2
-    assert soak["delta"]["images_generated"] == 2 * len(soak["jobs"]) == 18
-    assert soak["delta"]["batched_requests"] >= 2
+    # two passes of nine jobs and the pair
+    assert soak["delta"]["images_generated"] == 2 * len(soak["jobs"]) + 2 \
+        == 20
+    # the pair ran as one batch of two; whether the drain batches part of
+    # the storm depends on when its POSTs arrive, so it is not counted
+    assert soak["pair_delta"]["batched_requests"] == 2
+    assert soak["pair_delta"]["images_generated"] == 2
+
+
+def test_batched_pair_equals_serial_baselines(soak):
+    """The pair's two images, one batch, each within one uint8 level of
+    its job's serial baseline."""
+    assert len(soak["pair"]) == 2
+    for out, base in zip(soak["pair"], soak["serial"][:2]):
+        assert out["stage2_ran"] is True
+        x, y = serve_bench.decode(out["image"]), serve_bench.decode(
+            base["image"])
+        assert x.shape == y.shape == (H, W, 3)
+        assert np.abs(x.astype(int) - y.astype(int)).max() <= 1
 
 
 @pytest.mark.parametrize("i", range(len(_jobs())), ids=_ids(_jobs()))
