@@ -75,7 +75,19 @@ Phases, in order; any failure propagates and the exit code is non-zero:
      face PNGs and their ``.arcface.npy`` sidecars, 20 steps: with no face
      analysis of the stage-1 image the IdentityNet gets no condition, so
      2310 launches (``path_launches(20, 70, 70)``). Each CLI: the wall
-     seconds from ``main``'s start, loading included, and its timings.
+     seconds from ``main``'s start, loading included, and its timings;
+     (e) ``tools.fidelity_harness.main`` in-process on (a)'s files with
+     (c)'s two masks as ``.npy`` sidecars, 1024x1024, 20 Euler steps,
+     seed 14, guidance 7.5: rc 0, the report saying the reference was
+     skipped (no diffusers on the card), 2310 launches by q shape beside
+     ``path_launches``' reckoning, the engine's load and generate
+     seconds and the peak over the start; then once more with a stub
+     reference (an empty ``diffusers`` and an ``inference_lora.py`` on
+     ``sys.path``) whose ``sample_image`` answers with the live engine's
+     images from the noise it draws from the harness's generator: the
+     noise is ``initial_latents``, the report compares stage 2, and the
+     harness's image (weights from the files) is within
+     HARNESS_MEAN_LEVELS mean uint8 levels of the live engine's.
   10. serving — run after phase 9 while phase 5's SDXL weights are live,
      at 1024x1024: (a) one ``OMG.generate_batch`` of R = 4 config #2
      requests (50 Euler steps, seeds 14-17, guidance 7.5/7.5/5.0/7.5,
@@ -278,7 +290,7 @@ from omg_tpu_torch.segment import (detector, efficientvit, sam_decoder,
 from omg_tpu_torch.serving import conditions, registry as registry_lib
 from omg_tpu_torch.serving import warmup as warmup_lib
 from omg_tpu_torch.serving.server import OMGServer
-from omg_tpu_torch.text.tokenizer import ToyTokenizer
+from omg_tpu_torch.text.tokenizer import HFCLIPTokenizer, ToyTokenizer
 from omg_tpu_torch.tools import (fidelity_harness, serve_bench,
                                  soak_bench, validate_detector)
 from omg_tpu_torch.utils import image as image_io
@@ -1693,10 +1705,11 @@ def load_back(device, root: str, cfg, params, loras,
     return {"models": rows, "total_s": total, "peak_gib": peak / 2**30}
 
 
-def run_cli(name: str, cli, argv: list, expect: int) -> dict:
+def run_cli(name: str, cli, argv: list, expect: int,
+            keep: dict = None) -> dict:
     """A CLI's ``main(argv)`` in-process, K1's count zeroed just before
     and read just after; its stage images read back finite and not
-    constant."""
+    constant. ``keep`` gets ``main``'s result ("result")."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = 0
@@ -1718,6 +1731,8 @@ def run_cli(name: str, cli, argv: list, expect: int) -> dict:
             raise AssertionError(f"{name}: {png} is {img.shape}, std "
                                  f"{img.std()}")
         stats[png] = {"mean": float(img.mean()), "std": float(img.std())}
+    if keep is not None:
+        keep["result"] = res
     tm = res.timings
     log(f"{name}: {wall:.2f} s from main's start (loading included); "
         f"generate: " + ", ".join(f"{k} {v:.3f} s" for k, v in tm.items())
@@ -1725,6 +1740,206 @@ def run_cli(name: str, cli, argv: list, expect: int) -> dict:
         f"masks {[m is not None for m in res.masks]}; images {stats}")
     return {"wall_s": wall, "timings": tm, "launches": launches,
             "peak_gib": peak / 2**30, "images": stats}
+
+
+# (e) the fidelity harness on (a)'s files at 20 Euler steps with (c)'s two
+# masks as sidecars: K1 on 2 lanes every stage-1 step and on 7 every
+# stage-2 step after fusion_start
+HARNESS_STEPS = 20
+HARNESS_SHAPES = serve_shapes(HARNESS_STEPS, 2, 7)
+HARNESS_LAUNCHES = path_launches(HARNESS_STEPS, 70, 70)
+# The stub reference answers with the live engine's images from the noise
+# the harness's generator gives it and the same masks, on weights
+# bit-equal to the files' ((b)): the expected difference is none. The
+# bound leaves room for a GEMM that cuBLAS runs by another algorithm in
+# the second engine's run (its choice may follow the workspace it finds),
+# which moves a bf16 activation by an ulp and, over 20 guided steps, a
+# pixel by a level or so; other noise, masks or weights move the image by
+# tens of levels (PERF.md §6, PR 12: two jobs 68 levels apart).
+HARNESS_MEAN_LEVELS = 1.0
+STUB_REFERENCE = '''"""The reference's inference_lora.py entry points, answered by the
+live engine: sample_image draws the noise from the harness's generator as
+diffusers' randn_tensor does (on the generator's device) and returns
+ANSWER(noise, stage)."""
+import torch
+
+ANSWER = None
+NOISE = []
+
+
+class _Controller:
+    def reset(self):
+        pass
+
+
+class _Concepts:
+    def load_lora_weights(self, path, adapter_name):
+        pass
+
+
+def build_model_sd(pretrained, controlnet, device, prompts):
+    return None, _Controller(), _Concepts()
+
+
+def prepare_text(prompt, rewrite):
+    return [prompt] + rewrite.split("|")
+
+
+def sample_image(pipe, generator, stage, height, width, **_):
+    noise = torch.randn((1, 4, height // 8, width // 8),
+                        generator=generator, device=generator.device)
+    NOISE.append(noise.cpu())
+    return ANSWER(noise, stage)
+'''
+
+
+def harness_run(name: str, argv: list, expect: int, shapes: dict) -> tuple:
+    """``fidelity_harness.main(argv)`` in-process (its printed report
+    captured), K1's count zeroed just before and read just after, which
+    must be ``expect`` launches by q shape ``shapes``; the report read
+    back. Returns (record, report, ``run_ours``'s result)."""
+    kept: dict = {}
+    run_ours = fidelity_harness.run_ours
+
+    def timed_run_ours(*args, **kwargs):
+        t0 = time.perf_counter()
+        res = run_ours(*args, **kwargs)
+        torch.cuda.synchronize()
+        kept.update(result=res, s=time.perf_counter() - t0)
+        return res
+    by_shape: dict = {}
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fidelity_harness.run_ours = timed_run_ours
+    fa.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        with launch_shapes(by_shape), contextlib.redirect_stdout(printed):
+            rc = fidelity_harness.main(argv)
+    finally:
+        fidelity_harness.run_ours = run_ours
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0 or launches != expect or by_shape != shapes:
+        raise AssertionError(f"{name}: rc {rc}, K1 launches {launches} "
+                             f"{by_shape}, want {expect} {shapes}")
+    with open(argv[argv.index("--out") + 1]) as f:
+        report = json.load(f)
+    res = kept["result"]
+    if res.stage2 is None or res.image.shape != (HEIGHT, WIDTH, 3):
+        raise AssertionError(f"{name}: stage 2 did not run, or the image "
+                             f"is {res.image.shape}")
+    tm = res.timings
+    generate_s = sum(tm.values())
+    rec = {"wall_s": wall, "load_s": kept["s"] - generate_s,
+           "generate_s": generate_s, "timings": tm, "launches": launches,
+           "by_shape": by_shape, "reckoned": expect,
+           "peak_over_start_gib": (peak - start) / 2**30}
+    log(f"{name}: {wall:.2f} s in main: the engine's load {rec['load_s']:.2f}"
+        f" s (SDXL, the mask provider, the LoRAs), generate "
+        f"{generate_s:.2f} s (" + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in tm.items())
+        + f"); peak {(peak - start) / 2**30:.2f} GiB over the "
+        f"{start / 2**30:.2f} GiB live at the start; K1 launches {launches}"
+        f" by q shape {by_shape} (path_launches reckons {expect}); report "
+        + json.dumps({k: v for k, v in report.items() if k != "config"}))
+    return rec, report, res
+
+
+def harness_phase(device, cfg, params, tmp: str, sdxl_dir: str,
+                  lora_files: list, xl1: str, masks: list) -> dict:
+    """(e) ``fidelity_harness.main`` on the checkpoint files with (c)'s
+    masks as sidecars, first with no reference (the card has no
+    diffusers), then with a stub reference (an empty ``diffusers`` and an
+    ``inference_lora.py``) that answers with the live engine's images:
+    the compare and report code on the card, the stage-2 images of the
+    weights loaded from the files against the live weights'."""
+    if any(m is None for m in masks):
+        raise AssertionError("harness: (c) found no mask for a concept")
+    sidecars = []
+    for i, m in enumerate(masks):
+        sidecars.append(os.path.join(tmp, f"mask{i}.npy"))
+        np.save(sidecars[-1], np.asarray(m, np.float32))
+    argv = ["--pretrained_sdxl_model", sdxl_dir,
+            "--lora_path", "|".join(lora_files),
+            "--efficientViT_checkpoint", xl1, "--prompt", CLI_PROMPT,
+            "--negative_prompt", "ugly", "--prompt_rewrite",
+            "[photo of the man]-*-[ugly]|[photo of the woman]-*-[ugly]",
+            "--seed", str(SEED), "--steps", str(HARNESS_STEPS),
+            "--height", str(HEIGHT), "--width", str(WIDTH),
+            "--guidance_scale", "7.5", "--masks", "|".join(sidecars),
+            "--device", str(device)]
+    rec: dict = {}
+    rec["no_reference"], report, _ = harness_run(
+        "harness (e)", argv + ["--out", os.path.join(tmp, "report.json")],
+        HARNESS_LAUNCHES, HARNESS_SHAPES)
+    if report.get("reference") != "skipped (diffusers/repo unavailable)":
+        raise AssertionError(f"harness (e): report {report}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stub_dir = os.path.join(tmp, "reference")
+    os.makedirs(os.path.join(stub_dir, "diffusers"))
+    open(os.path.join(stub_dir, "diffusers", "__init__.py"), "w").close()
+    with open(os.path.join(stub_dir, "inference_lora.py"), "w") as f:
+        f.write(STUB_REFERENCE)
+    saved_path = list(sys.path)
+    sys.path.insert(0, stub_dir)
+    live: dict = {}
+    try:
+        import inference_lora as stub
+        tok1, tok2 = (HFCLIPTokenizer(os.path.join(sdxl_dir, name))
+                      for name in ("tokenizer", "tokenizer_2"))
+        engine = omg_lib.OMG(cfg=cfg, params=params, tokenizer=tok1,
+                             tokenizer_2=tok2, num_steps=HARNESS_STEPS)
+        file_loras = [lora_lib.load_lora(p, device=device)
+                      for p in lora_files]
+        sidecar_masks = [np.load(p) for p in sidecars]
+
+        def answer(noise, stage):
+            if stage == 1:
+                live["result"] = generate(
+                    engine, file_loras, num_steps=HARNESS_STEPS,
+                    masks=sidecar_masks, initial_noise=noise.permute(
+                        0, 2, 3, 1).contiguous().numpy())
+            return getattr(live["result"], f"stage{stage}")
+        stub.ANSWER = answer
+        rec["stub_reference"], report, res = harness_run(
+            "harness (e) stub reference",
+            argv + ["--reference_repo", stub_dir,
+                    "--out", os.path.join(tmp, "report_stub.json")],
+            2 * HARNESS_LAUNCHES,
+            {k: 2 * v for k, v in HARNESS_SHAPES.items()})
+        want = fidelity_harness.initial_latents(SEED, 1, HEIGHT, WIDTH)
+        for noise in stub.NOISE:
+            if not np.array_equal(noise.permute(0, 2, 3, 1).numpy(), want):
+                raise AssertionError("harness (e): the stub reference's "
+                                     "noise is not initial_latents")
+        if len(stub.NOISE) != 2 or report.get("compared") != "stage2":
+            raise AssertionError(f"harness (e): {len(stub.NOISE)} stub "
+                                 f"calls, report {report}")
+        diff = np.abs(res.image.astype(np.int16)
+                      - live["result"].image.astype(np.int16))
+        rec["stub_reference"].update(
+            psnr=report["psnr"], ssim=report["ssim"],
+            mean_levels=float(diff.mean()), max_levels=int(diff.max()))
+        log(f"harness (e): the harness's stage-2 image (weights from the "
+            f"files) against the live engine's: {diff.mean():.4f} mean, "
+            f"{diff.max()} max uint8 levels (bound {HARNESS_MEAN_LEVELS} "
+            f"mean); PSNR {report['psnr']:.2f} dB, SSIM {report['ssim']:.6f}")
+        if diff.mean() > HARNESS_MEAN_LEVELS:
+            raise AssertionError(f"harness (e): {diff.mean()} mean levels "
+                                 "from the live engine's image")
+    finally:
+        sys.path[:] = saved_path
+        for name in ("inference_lora", "diffusers"):
+            sys.modules.pop(name, None)
+        live.clear()
+    return rec
 
 
 def checkpoint_phase(device, cfg, params, loras) -> dict:
@@ -1750,6 +1965,7 @@ def checkpoint_phase(device, cfg, params, loras) -> dict:
         rec["load"] = load_back(device, sdxl_dir, cfg, params, loras,
                                 lora_files)
         rewrite = "[photo of the man]-*-[ugly]|[photo of the woman]-*-[ugly]"
+        cli_out: dict = {}
         rec["inference_lora"] = run_cli(
             "cli inference_lora", cli_lora,
             ["--pretrained_sdxl_model", sdxl_dir,
@@ -1759,7 +1975,7 @@ def checkpoint_phase(device, cfg, params, loras) -> dict:
              "--num_steps", str(STEPS), "--height", str(HEIGHT),
              "--width", str(WIDTH), "--save_dir", os.path.join(tmp, "lora"),
              "--device", str(device)],
-            MAIN_PATH_LAUNCHES)
+            MAIN_PATH_LAUNCHES, keep=cli_out)
         gc.collect()
         torch.cuda.empty_cache()
         idnet, adapter, faces = write_instantid(tmp, device, cfg,
@@ -1779,6 +1995,11 @@ def checkpoint_phase(device, cfg, params, loras) -> dict:
              "--width", str(WIDTH), "--save_dir", os.path.join(tmp, "iid"),
              "--device", str(device)],
             path_launches(IID_STEPS, 70, 70))
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["harness"] = harness_phase(
+            device, cfg, params, tmp, sdxl_dir, lora_files, xl1,
+            cli_out.pop("result").masks)
         rec["phase_s"] = time.perf_counter() - t0
         log(f"checkpoint: phase 9 took {rec['phase_s']:.1f} s")
     finally:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from omg_tpu_torch.models.resampler import Resampler
+from omg_tpu_torch.nn import layers
 
 # 5-keypoint face skeleton: eyes, nose, mouth corners; every limb ends at
 # the nose (index 2).
@@ -75,9 +76,11 @@ def draw_kps(height: int, width: int,
     return out.astype(np.uint8)
 
 
-def kps_image_to_cond(img: np.ndarray, device="cpu") -> torch.Tensor:
-    """uint8 [H, W, 3] -> [1, H, W, 3] float32 in [0, 1] on ``device``
-    (diffusers' ControlNet conditioning normalization)."""
+def kps_image_to_cond(img: np.ndarray, device="cuda") -> torch.Tensor:
+    """uint8 [H, W, 3] -> [1, H, W, 3] float32 in [0, 1] on ``device``, the
+    card unless the caller asks for the CPU (diffusers' ControlNet
+    conditioning normalization)."""
+    device = layers.target_device(device, "kps_image_to_cond")
     return torch.as_tensor(np.asarray(img, np.float32),
                            device=device)[None] / 255.0
 

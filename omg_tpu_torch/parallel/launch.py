@@ -87,10 +87,17 @@ def spawn(fn: Callable, world_size: int, *, backend: str,
           devices: Optional[Sequence] = None, args: tuple = (),
           timeout: float = 300.0, limit_run: bool = True) -> list:
     """Run ``fn(rank, device, *args)`` on ``world_size`` ranks; returns the
-    results in rank order. ``devices``: one per rank (all CPU when None).
-    ``timeout``: seconds for any one collective, and for the whole run
-    unless ``limit_run`` is False."""
-    devices = ["cpu"] * world_size if devices is None else list(devices)
+    results in rank order. ``devices``: one per rank; by default the
+    cards as ``mesh_devices`` lays them out (a card each where there are
+    enough), ``["cpu"] * world_size`` for CPU ranks. ``timeout``: seconds
+    for any one collective, and for the whole run unless ``limit_run`` is
+    False."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("spawn: no CUDA device for the ranks; pass "
+                               "devices=['cpu'] * world_size for CPU ranks")
+        devices, _ = mesh_devices(world_size, "cuda", "spawn")
+    devices = list(devices)
     if len(devices) != world_size:
         raise ValueError(f"{len(devices)} devices for {world_size} ranks")
     ctx = mp.get_context("spawn")

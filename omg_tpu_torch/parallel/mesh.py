@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from omg_tpu_torch.nn import layers
 from omg_tpu_torch.parallel import comm
 
 DATA_AXIS = "data"
@@ -124,9 +125,11 @@ def make_mesh(n_devices: Optional[int] = None, *,
               device=None) -> Mesh:
     """Build the (data, model) grid over the initialized world; every rank
     calls it with the same arguments. ``device``: this rank's device (the
-    one ``launch.spawn`` handed it; CPU by default). The grid covers the
-    whole world: ``n_devices`` defaults to the world size and must equal
-    it."""
+    one ``launch.spawn`` handed it; the current card by default, "cpu"
+    for CPU ranks). The grid covers the whole world: ``n_devices``
+    defaults to the world size and must equal it."""
+    device = layers.target_device("cuda" if device is None else device,
+                                  "make_mesh")
     rank, world_size = comm.world()
     n = world_size if n_devices is None else n_devices
     if n != world_size:
@@ -137,7 +140,6 @@ def make_mesh(n_devices: Optional[int] = None, *,
     model_group = comm.new_groups(rows)
     data_group = comm.new_groups(cols)
     flat = comm.new_groups([list(range(n))])
-    device = torch.device("cpu" if device is None else device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return Mesh(data, model, rank, device, data_group, model_group, flat)
@@ -145,7 +147,10 @@ def make_mesh(n_devices: Optional[int] = None, *,
 
 def make_latency_mesh(n: int, *, device=None) -> Mesh:
     """The latency layout's grid: (data, model) = (2, n/2) when n is even,
-    (1, n) otherwise. Raises if the world has fewer than n ranks."""
+    (1, n) otherwise, on ``device`` (the current card by default). Raises
+    if the world has fewer than n ranks."""
+    device = layers.target_device("cuda" if device is None else device,
+                                  "make_latency_mesh")
     _, visible = comm.world()
     if visible < n:
         raise ValueError(f"latency mesh needs {n} devices; only "

@@ -9,7 +9,6 @@ world too small for it, a SystemExit before any weight loads), and the
 DeepCache flags reach the engine."""
 
 import contextlib
-import dataclasses
 import hashlib
 import json
 import os
@@ -30,14 +29,14 @@ from omg_tpu_torch.cli import inference_instantid, inference_lora
 from omg_tpu_torch.models import resampler, unet
 from omg_tpu_torch.parallel import comm
 from omg_tpu_torch.pipelines import omg
-from omg_tpu_torch.segment import build_mask_provider, sam_provider, vit_sam
+from omg_tpu_torch.segment import build_mask_provider
 from omg_tpu_torch.utils import image
 
 from tests.test_convert import _emit_torch_sd
 from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
-from torch_port_helpers import (kohya_lora_sd, left_right_masks, normal,
-                                numpy_params, unet_config_json,
-                                write_safetensors, write_tiny_checkpoint)
+from torch_port_helpers import (left_right_masks, normal, numpy_params,
+                                record_decodes, unet_config_json,
+                                write_lora_checkout, write_safetensors)
 
 PROMPT = "photo of the man and the woman at the beach"
 REWRITE = "[photo of the man]-*-[ugly]|[photo of the woman]-*-[blurry]"
@@ -50,19 +49,9 @@ def files(tmp_path_factory):
     (256-wide embedding, the decoder's), an IdentityNet directory, an
     ``ip-adapter.bin`` and two face PNGs with their sidecars."""
     root = tmp_path_factory.mktemp("files")
-    ckpt = write_tiny_checkpoint(root / "sdxl", seed=2)
     rng = np.random.default_rng(3)
-    ucfg = jconfig.tiny_unet()
-    te = jconfig.tiny_text_encoder().hidden_size
-    loras = []
-    for i, alpha in enumerate((None, 2.0)):
-        path = str(root / f"char{i}.safetensors")
-        write_safetensors(path, kohya_lora_sd(rng, ucfg, te, alpha=alpha))
-        loras.append(path)
     g = torch.Generator().manual_seed(4)
-    sam_cfg = dataclasses.replace(vit_sam.tiny_config(), out_chans=256)
-    sam = str(root / "sam_vit_tiny.pth")
-    torch.save(sam_provider.init_sam(g, sam_cfg, "cpu").state_dict(), sam)
+    ckpt, loras, sam = write_lora_checkout(root, rng, g)
     idnet = root / "idnet"
     os.makedirs(idnet)
     ccfg = jconfig.tiny_controlnet()
@@ -90,17 +79,6 @@ def files(tmp_path_factory):
                 idnet=str(idnet), adapter=adapter, faces=faces)
 
 
-def _recording(monkeypatch, cls, store):
-    decode = cls._decode
-
-    def record(self, latents):
-        store.append(np.asarray(latents, np.float32) if not isinstance(
-            latents, torch.Tensor) else latents.float().numpy())
-        return decode(self, latents)
-
-    monkeypatch.setattr(cls, "_decode", record)
-
-
 def test_generate_from_files_matches_jax(files, monkeypatch):
     kw = dict(negative_prompt="ugly", prompt_rewrite=REWRITE, seed=5,
               height=64, width=64, num_steps=3,
@@ -115,8 +93,8 @@ def test_generate_from_files_matches_jax(files, monkeypatch):
     teng = omg.OMG(cfg=cfg, params=params, tokenizer=tok1, tokenizer_2=tok2,
                    mask_provider=left_right_masks, num_steps=3)
     want_lat, got_lat = [], []
-    _recording(monkeypatch, jomg.OMG, want_lat)
-    _recording(monkeypatch, omg.OMG, got_lat)
+    record_decodes(monkeypatch, jomg.OMG, want_lat)
+    record_decodes(monkeypatch, omg.OMG, got_lat)
     want = jeng.generate(PROMPT, concept_loras=[jlora.load_lora(p)
                                                 for p in files["loras"]],
                          **kw)

@@ -196,7 +196,7 @@ def test_draw_kps_byte_equal(seed):
     assert got.dtype == np.uint8 and got.shape == (96, 128, 3)
     np.testing.assert_array_equal(got, want)
     assert got.any()
-    cond = iid.kps_image_to_cond(got)
+    cond = iid.kps_image_to_cond(got, device="cpu")
     np.testing.assert_array_equal(cond.numpy(),
                                   np.asarray(jiid.kps_image_to_cond(want)))
 

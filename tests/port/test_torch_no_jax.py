@@ -1,8 +1,8 @@
-"""The port stands without jax, and without the packages the GPU host
-lacks (PIL, cv2, transformers, tokenizers, safetensors, regex, ftfy); its
-CLIs answer --help and refuse to run without a card unless asked for the
-CPU, and its chip smoke refuses to run on a machine without a CUDA
-device. Every public name of the JAX package has a counterpart in the
+"""The port stands without jax and the repo's JAX tools, and without the
+packages the GPU host lacks (PIL, cv2, transformers, tokenizers,
+safetensors, regex, ftfy); its CLIs answer --help and refuse to run
+without a card unless asked for the CPU, and its chip smoke refuses to
+run on a machine without a CUDA device. Every public name of the JAX package has a counterpart in the
 same file of the port, or is on an allowlist that names the port's way."""
 
 import ast
@@ -63,9 +63,9 @@ def test_port_never_imports_jax():
             "import omg_tpu_torch.tools.validate_detector\n"
             "import omg_tpu_torch.bench\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('jax', 'jaxlib', 'omg_tpu', 'PIL', 'cv2',\n"
-            "              'transformers', 'safetensors', 'regex', 'ftfy',\n"
-            "              'tokenizers', 'insightface'))\n"
+            "             ('jax', 'jaxlib', 'omg_tpu', 'tools', 'PIL',\n"
+            "              'cv2', 'transformers', 'safetensors', 'regex',\n"
+            "              'ftfy', 'tokenizers', 'insightface'))\n"
             "assert not bad, bad\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
@@ -352,6 +352,23 @@ def test_chip_smoke_mesh_conditioned_counts():
     for table in (mod.TP_SHAPES, stage2, cli, ref):
         assert set(table) <= checked
     assert {(2, 10, 2048, 4096), (2, 20, 512, 1024)} <= set(mod.SEQ_SHAPES)
+
+
+def test_chip_smoke_harness_counts():
+    """Phase 9 (e) expects K1 at the shapes one 20-step run gives it (2
+    lanes, then 7), all of them shapes phase 3 checks, and twice that
+    with the stub reference answered by the live engine."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_harness",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    checked = {",".join(map(str, shape)) for shape in mod.KERNEL_SHAPES}
+    assert mod.HARNESS_SHAPES == {
+        "2,10,4096,64": 200, "2,20,1024,64": 1200,
+        "7,10,4096,64": 130, "7,20,1024,64": 780}
+    assert set(mod.HARNESS_SHAPES) <= checked
+    assert sum(mod.HARNESS_SHAPES.values()) == mod.HARNESS_LAUNCHES == \
+        mod.path_launches(20, 70, 70) == 2310
 
 
 def test_chip_smoke_serving_tools_counts():

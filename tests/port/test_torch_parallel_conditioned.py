@@ -102,7 +102,8 @@ def case():
                base=base, stage1=stage1, stage2=stage2, generate=gen,
                cn_forward={"cn": cn_tree, "inputs": cn_in})
     out["ranks"] = launch.spawn(workers.conditioned_rank, 4, backend="gloo",
-                                args=(out,), timeout=300)
+                                devices=["cpu"] * 4, args=(out,),
+                                timeout=300)
     return out
 
 

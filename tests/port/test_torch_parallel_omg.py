@@ -77,8 +77,8 @@ def runs():
     case = {"data": 2, "steps": STEPS, "prompt": PROMPT,
             "params": tuple(tree), "cache_interval": CACHE_INTERVAL,
             "kw": dict(kw, concept_loras=concepts, style_lora=style)}
-    ranks = launch.spawn(workers.omg_rank, 4, backend="gloo", args=(case,),
-                         timeout=240)
+    ranks = launch.spawn(workers.omg_rank, 4, backend="gloo",
+                         devices=["cpu"] * 4, args=(case,), timeout=240)
     return want, single, ranks, want_dc, single_dc
 
 

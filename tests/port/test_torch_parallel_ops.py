@@ -79,7 +79,8 @@ def runs(inputs):
             if case["attention_grids"]:
                 case["attention"] = inputs["attention"]
             cache[n] = launch.spawn(workers.ops_rank, n, backend="gloo",
-                                    args=(case,), timeout=120)
+                                    devices=["cpu"] * n, args=(case,),
+                                    timeout=120)
         return cache[n]
     return get
 

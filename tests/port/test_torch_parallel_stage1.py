@@ -99,10 +99,10 @@ def ranks(reference):
     lane-only), 2 ranks the (1, 2) grid; both decode H-split."""
     return {
         4: launch.spawn(workers.pipeline_rank, 4, backend="gloo",
-                        args=(_case(reference, ["s22", "lanes22", "s22dc"]),),
+                        devices=["cpu"] * 4, args=(_case(reference, ["s22", "lanes22", "s22dc"]),),
                         timeout=150),
         2: launch.spawn(workers.pipeline_rank, 2, backend="gloo",
-                        args=(_case(reference, ["s12"]),), timeout=150)}
+                        devices=["cpu"] * 2, args=(_case(reference, ["s12"]),), timeout=150)}
 
 
 @pytest.mark.parametrize("key,n", [("s22", 4), ("s12", 2), ("lanes22", 4),

@@ -107,7 +107,7 @@ def ranks(cases):
         case = {"stage2": {k: {f: v for f, v in cases[k].items()
                                if f != "want"} for k in keys}}
         return launch.spawn(workers.pipeline_rank, n, backend="gloo",
-                            args=(case,), timeout=150)
+                            devices=["cpu"] * n, args=(case,), timeout=150)
     return {2: spawn(2, ["k2", "k2_dc"]), 3: spawn(3, ["k2", "k2_self"]),
             4: spawn(4, ["k1"])}
 

@@ -1,7 +1,7 @@
 """The port's serving and fidelity tools (``omg_tpu_torch/tools``) at the
 tiny size with ``--device cpu``: serve_bench and soak_bench run to their
 records, the ceiling and stage-2 checks fire when they should, and the
-fidelity harness's noise, metrics, self-check and skip agree with the JAX
+fidelity harness's noise, metrics, self-check and skips agree with the JAX
 harness (``tools/fidelity_harness.py``)."""
 
 import json
@@ -22,6 +22,7 @@ from omg_tpu_torch.tools import fidelity_harness, serve_bench, soak_bench
 from tools import fidelity_harness as jharness
 
 from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_port_helpers import write_tiny_checkpoint
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 # the keys of the JAX tool's printed record, and the port's additions
@@ -179,18 +180,32 @@ def test_harness_skips_cleanly_without_checkpoints(tmp_path):
 def test_harness_skips_without_diffusers_or_the_reference(tmp_path,
                                                           monkeypatch,
                                                           capsys):
-    """A checkpoint directory alone: the compare needs diffusers (not
-    installed here), then the reference's checkout."""
-    args = ["--pretrained_sdxl_model", str(tmp_path), "--prompt", "x"]
+    """A checkpoint directory with no diffusers: the engine runs and the
+    report says the reference was skipped; with an (empty) diffusers but
+    no reference checkout, the same. The prompt and the checkpoint stay
+    required."""
+    ckpt = write_tiny_checkpoint(tmp_path / "sdxl", seed=1)
+    out = tmp_path / "report.json"
+    args = ["--pretrained_sdxl_model", ckpt, "--prompt", "x",
+            "--segment_type", "none", "--steps", "2", "--height", "64",
+            "--width", "64", "--device", "cpu", "--out", str(out)]
     assert fidelity_harness.main(args) == 0
-    assert "SKIP: the reference pipeline needs the diffusers" in \
+    assert "SKIP reference run: No module named 'diffusers'" in \
         capsys.readouterr().out
-    real = fidelity_harness.importlib.util.find_spec
-    monkeypatch.setattr(fidelity_harness.importlib.util, "find_spec",
-                        lambda name: object() if name == "diffusers"
-                        else real(name))
-    assert fidelity_harness.main(args + ["--reference_repo",
-                                         str(tmp_path)]) == 0
-    assert "SKIP: no reference checkout" in capsys.readouterr().out
+    report = json.loads(out.read_text())
+    assert report["reference"] == "skipped (diffusers/repo unavailable)"
+    assert report["config"]["device"] == "cpu"
+    (tmp_path / "diffusers").mkdir()
+    (tmp_path / "diffusers" / "__init__.py").write_text("")
+    monkeypatch.syspath_prepend(str(tmp_path))
+    monkeypatch.delitem(sys.modules, "diffusers", raising=False)
+    try:
+        assert fidelity_harness.main(args + ["--reference_repo",
+                                             str(tmp_path / "none")]) == 0
+    finally:
+        sys.modules.pop("diffusers", None)
+    assert "SKIP reference run (repo not importable)" in \
+        capsys.readouterr().out
+    assert json.loads(out.read_text())["reference"] == report["reference"]
     with pytest.raises(SystemExit, match="required"):
         fidelity_harness.main(["--prompt", "x"])

@@ -570,7 +570,8 @@ def test_serve_cli_from_a_tiny_checkout(tmp_path):
     reg.write_text(json.dumps({"man": [{
         "name": "A", "prompt": "photo of the man", "negative_prompt": "n",
         "path": "/nonexistent"}]}))
-    built = launch.spawn(workers.serve_build_rank, 2, backend="gloo", args=(
+    built = launch.spawn(workers.serve_build_rank, 2, backend="gloo",
+                         devices=["cpu"] * 2, args=(
         ["--pretrained_sdxl_model", ckpt, "--efficientViT_checkpoint", sam,
          "--registry", str(reg), "--num_steps", "2", "--device", "cpu",
          "--mesh", "2"],))

@@ -84,7 +84,7 @@ def served(files):
             "posts": [JOB, BATCH, FAILS, JOB], "noise": noise,
             "latents": normal(np.random.default_rng(15), 1, 8, 8, 4)}
     ranks = launch.spawn(workers.serve_mesh_rank, 2, backend="gloo",
-                         args=(case,))
+                         devices=["cpu"] * 2, args=(case,))
     jcfg, jparams, jtok1, jtok2 = jloader.load_sdxl(
         files["ckpt"], dtype=jnp.float32, pack=False)
     jeng = jomg.OMG(cfg=jcfg, params=jparams, tokenizer=jtok1,

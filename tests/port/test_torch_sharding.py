@@ -100,7 +100,8 @@ def tp_runs():
         case[key] = dict(data=data, unet=kind,
                          **_tp_inputs(workers.tp_unet_config(kind), rng))
     return case, launch.spawn(workers.tp_rank, 4, backend="gloo",
-                              args=(case,), timeout=240)
+                              devices=["cpu"] * 4, args=(case,),
+                              timeout=240)
 
 
 def _reference(run):

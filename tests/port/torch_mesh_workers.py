@@ -62,7 +62,7 @@ def comm_inputs(rank: int) -> torch.Tensor:
 
 
 def _comm_checks(rank: int, n: int) -> dict:
-    m = mesh_lib.make_mesh(n)
+    m = mesh_lib.make_mesh(n, device="cpu")
     x = comm_inputs(rank)
     uneven = mesh_lib.Split(2 * n - 1, m.flat)
     src = n - 1
@@ -82,14 +82,14 @@ def _comm_checks(rank: int, n: int) -> dict:
     out = {k: v.numpy() for k, v in out.items()}
     grids = []
     for data in sorted({1, 2, n} & {d for d in range(1, n + 1) if n % d == 0}):
-        g = mesh_lib.make_mesh(n, data=data)
+        g = mesh_lib.make_mesh(n, data=data, device="cpu")
         grids.append((g.shape, g.coords, g.data_group.ranks,
                       g.model_group.ranks, g.flat.ranks))
     out["grids"] = grids
-    latency = mesh_lib.make_latency_mesh(n)
+    latency = mesh_lib.make_latency_mesh(n, device="cpu")
     out["latency"] = (latency.data, latency.model)
     try:
-        mesh_lib.make_latency_mesh(n + 1)
+        mesh_lib.make_latency_mesh(n + 1, device="cpu")
     except ValueError as e:
         out["latency_error"] = str(e)
     return out
@@ -119,7 +119,7 @@ def _layer_checks(case: dict, group: comm.Group) -> dict:
 
 
 def _attention_checks(case: dict, data: int, model: int) -> dict:
-    m = mesh_lib.make_mesh(data * model, data=data)
+    m = mesh_lib.make_mesh(data * model, data=data, device="cpu")
     lanes = mesh_lib.data_sharded(m, case["q"].shape[0])
     q, k, v = (rows_of(t(a)[lanes.lo:lanes.hi], m.model_group, 2)
                for a in (case["q"], case["k"], case["v"]))
@@ -139,7 +139,8 @@ def ops_rank(rank: int, device, case: dict) -> dict:
     out = {"comm": _comm_checks(rank, n)}
     if "layers" in case:
         out["layers"] = _layer_checks(case["layers"],
-                                      mesh_lib.make_mesh(n, data=1).model_group)
+                                      mesh_lib.make_mesh(
+                                          n, data=1, device="cpu").model_group)
     for data, model in case.get("attention_grids", ()):
         out[f"attention{data}x{model}"] = _attention_checks(
             case["attention"], data, model)
@@ -195,7 +196,7 @@ def pipeline_rank(rank: int, device, case: dict) -> dict:
     cfg = sdxl.tiny_config()
     out = {}
     for key, run in case.get("stage1", {}).items():
-        m = mesh_lib.make_mesh(n, data=run["data"])
+        m = mesh_lib.make_mesh(n, data=run["data"], device="cpu")
         hw = (run["hw"],) * 2
         spatial = mc.Spatial(m, seq=run["seq"])
         plain = attention.SEQ_PLAIN_CALLS
@@ -208,13 +209,14 @@ def pipeline_rank(rank: int, device, case: dict) -> dict:
         out[key] = {"latents": got.numpy(),
                     "seq_calls": attention.SEQ_PLAIN_CALLS - plain}
     if "decode" in case:
-        flat = mesh_lib.make_mesh(n).flat
+        flat = mesh_lib.make_mesh(n, device="cpu").flat
         with torch.no_grad():
             out["decode"] = sdxl.decode_latents(
                 cfg, tiny_vae(case["decode"]["vae"]),
                 t(case["decode"]["latents"]), spatial=flat).numpy()
     for key, run in case.get("stage2", {}).items():
-        out[key] = stage2_resumed(run, mesh_lib.make_mesh(n).flat)
+        out[key] = stage2_resumed(
+            run, mesh_lib.make_mesh(n, device="cpu").flat)
     return out
 
 
@@ -222,7 +224,7 @@ def omg_rank(rank: int, device, case: dict) -> dict:
     """``OMG(mesh=make_mesh(n, data=case['data'])).generate`` on the tiny
     config, with the port's ToyTokenizer and the left/right masks."""
     _, n = comm.world()
-    m = mesh_lib.make_mesh(n, data=case["data"])
+    m = mesh_lib.make_mesh(n, data=case["data"], device="cpu")
     params = from_jax.sdxl_from_jax(sdxl.SDXLParams(*case["params"]),
                                     sdxl.tiny_config(), device=device)
     tok = ToyTokenizer()
@@ -305,10 +307,11 @@ def conditioned_rank(rank: int, device, case: dict) -> dict:
     out = {}
     if "cn_forward" in case:
         out["cn_forward"] = _cn_forward_checks(
-            case["cn_forward"], mesh_lib.make_mesh(n, data=1).model_group)
+            case["cn_forward"],
+            mesh_lib.make_mesh(n, data=1, device="cpu").model_group)
     model = tiny_unet(case["unet"]) if "unet" in case else None
     for key, run in case.get("stage1", {}).items():
-        m = mesh_lib.make_mesh(n, data=run["data"])
+        m = mesh_lib.make_mesh(n, data=run["data"], device="cpu")
         hw = (run["hw"],) * 2
         cns = [mc.ControlNetInputs(_tiny_cn(case["cn"]), t(run["cond"]), 0.9,
                                    **run["cn_kw"])]
@@ -322,7 +325,8 @@ def conditioned_rank(rank: int, device, case: dict) -> dict:
         out[key] = {"latents": got.numpy(),
                     "seq_calls": attention.SEQ_PLAIN_CALLS - plain}
     for key, run in case.get("stage2", {}).items():
-        out[key] = conditioned_stage2(case, run, mesh_lib.make_mesh(n).flat)
+        out[key] = conditioned_stage2(
+            case, run, mesh_lib.make_mesh(n, device="cpu").flat)
     if "generate" in case:
         out["generate"] = _conditioned_generate(case["generate"], n)
     return out
@@ -377,7 +381,7 @@ def _conditioned_generate(case: dict, n: int) -> dict:
     ControlNet, then with InstantID (keypoints from a provider that sees
     the stage-1 image)."""
     from omg_tpu_torch import config
-    m = mesh_lib.make_mesh(n, data=case["data"])
+    m = mesh_lib.make_mesh(n, data=case["data"], device="cpu")
     params = from_jax.sdxl_from_jax(sdxl.SDXLParams(*case["params"]),
                                     sdxl.tiny_config(), device="cpu")
     tok = ToyTokenizer()
@@ -431,7 +435,7 @@ def tp_rank(rank: int, device, case: dict) -> dict:
     _, n = comm.world()
     out = {}
     for key, run in case.items():
-        m = mesh_lib.make_mesh(n, data=run["data"])
+        m = mesh_lib.make_mesh(n, data=run["data"], device="cpu")
         ucfg = tp_unet_config(run["unet"])
         model = unet.init_params(torch.Generator().manual_seed(3), ucfg)
         ip = unet.init_ip_layers(torch.Generator().manual_seed(4), ucfg)

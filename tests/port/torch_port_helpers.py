@@ -340,3 +340,41 @@ def tiny_sdxl(seed=0):
     tree = tiny_sdxl_numpy(seed)
     return to_jax(tree), from_jax.sdxl_from_jax(tree, sdxl.tiny_config(),
                                                 device="cpu")
+
+
+def write_lora_checkout(root, rng, generator):
+    """The CLIs' and the fidelity harness's files under ``root``: the tiny
+    checkout (``write_tiny_checkpoint``, seed 2), two kohya LoRA files
+    from ``rng`` (alpha = rank, and 2.0) and a tiny SAM ViT file from
+    ``generator`` (the decoder's 256-wide embedding). Returns (checkout,
+    [lora paths], SAM path)."""
+    import dataclasses
+
+    from omg_tpu import config as jconfig
+    from omg_tpu_torch.segment import sam_provider, vit_sam
+    ckpt = write_tiny_checkpoint(root / "sdxl", seed=2)
+    ucfg = jconfig.tiny_unet()
+    te = jconfig.tiny_text_encoder().hidden_size
+    loras = []
+    for i, alpha in enumerate((None, 2.0)):
+        path = str(root / f"char{i}.safetensors")
+        write_safetensors(path, kohya_lora_sd(rng, ucfg, te, alpha=alpha))
+        loras.append(path)
+    sam_cfg = dataclasses.replace(vit_sam.tiny_config(), out_chans=256)
+    sam = str(root / "sam_vit_tiny.pth")
+    torch.save(sam_provider.init_sam(generator, sam_cfg, "cpu").state_dict(),
+               sam)
+    return ckpt, loras, sam
+
+
+def record_decodes(monkeypatch, cls, store):
+    """Append the latents of every ``cls._decode`` call (an OMG engine of
+    either package) to ``store`` as float32 numpy."""
+    decode = cls._decode
+
+    def record(self, latents):
+        store.append(latents.float().numpy() if isinstance(
+            latents, torch.Tensor) else np.asarray(latents, np.float32))
+        return decode(self, latents)
+
+    monkeypatch.setattr(cls, "_decode", record)
