@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from omg_tpu_torch.parallel import comm
+from omg_tpu_torch.utils import profiling
 
 MAX_WORDS = 77
 
@@ -161,8 +162,9 @@ class P2PControl:
         if isinstance(self_replace_steps, (int, float)):
             self_replace_steps = (0.0, float(self_replace_steps))
         return cls(
-            mapper=torch.as_tensor(mapper, device=device),
-            cross_alpha=torch.as_tensor(alpha[:, 0], device=device),
+            mapper=profiling.sync(torch.as_tensor, mapper, device=device),
+            cross_alpha=profiling.sync(torch.as_tensor, alpha[:, 0],
+                                       device=device),
             self_start=int(num_steps * self_replace_steps[0]),
             self_end=int(num_steps * self_replace_steps[1]),
             self_seq_limit=width * height)
@@ -220,7 +222,7 @@ class P2PStepControl:
         rows = list(range(q.shape[0]))
         for s, d in self.pairs:
             rows[d] = s
-        idx = torch.as_tensor(rows, device=q.device)
+        idx = profiling.sync(torch.as_tensor, rows, device=q.device)
         return q.index_select(0, idx), k.index_select(0, idx)
 
     def _cross_edit(self, q_s, k_s, q_d, k_d, v_d, sdpa_fn) -> torch.Tensor:
@@ -244,8 +246,10 @@ class P2PStepControl:
         out/q/k/v: [B, H, N(q/k), D]; sdpa_fn(q, k, v) -> attention out."""
         if self.lanes is not None:
             return self.cross_lane_out_sharded(out, q, k, v, sdpa_fn)
-        src = torch.as_tensor([s for s, _ in self.pairs], device=q.device)
-        dst = torch.as_tensor([d for _, d in self.pairs], device=q.device)
+        src = profiling.sync(torch.as_tensor, [s for s, _ in self.pairs],
+                             device=q.device)
+        dst = profiling.sync(torch.as_tensor, [d for _, d in self.pairs],
+                             device=q.device)
         new = self._cross_edit(q[src], k[src], q[dst], k[dst], v[dst],
                                sdpa_fn)
         return out.index_copy(0, dst, new.to(out.dtype))

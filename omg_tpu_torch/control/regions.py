@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from omg_tpu_torch.nn import layers
+from omg_tpu_torch.utils import profiling
 
 # Fuse when step index i > FUSION_START_STEP (of 50).
 FUSION_START_STEP = 15
@@ -61,8 +62,8 @@ def fuse_region_noise(noise_pred: torch.Tensor, region_preds: torch.Tensor,
     rows 1 and 3 (copy B) take ``fuse_region_edit``; copy A's rows stay."""
     if not active:
         return noise_pred
-    new = fuse_region_edit(noise_pred[[1, 3]], region_preds, masks,
-                           active=True)
+    new = fuse_region_edit(profiling.sync(noise_pred.__getitem__, [1, 3]),
+                           region_preds, masks, active=True)
     return torch.stack([noise_pred[0], new[0], noise_pred[2], new[1]])
 
 
@@ -78,7 +79,8 @@ def make_concept_mask_stack(masks: Sequence[Optional[np.ndarray]],
             rows.append(torch.zeros(latent_hw, dtype=torch.float32,
                                     device=device))
             continue
-        m = torch.as_tensor(np.asarray(m, np.float32), device=device)
+        m = profiling.sync(torch.as_tensor, np.asarray(m, np.float32),
+                           device=device)
         if tuple(m.shape) != tuple(latent_hw):
             m = layers.nearest_resize(m, latent_hw)
         rows.append(m)

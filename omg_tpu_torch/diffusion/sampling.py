@@ -13,6 +13,7 @@ from typing import Callable
 import torch
 
 from omg_tpu_torch.diffusion import schedulers
+from omg_tpu_torch.utils import profiling
 
 # model_fn(latents, timestep, step_index) -> epsilon prediction, same shape.
 ModelFn = Callable[[torch.Tensor, int, int], torch.Tensor]
@@ -25,7 +26,7 @@ def denoise_loop(sched: schedulers.Schedule, model_fn: ModelFn,
     re-noises from seed 0, one draw per row (``schedulers.step_noise``),
     as the JAX loop does from its state's default key."""
     x, state = latents, schedulers.init_state(0)
-    for i in range(sched.num_steps):
+    for i in profiling.steps(0, sched.num_steps):
         x_in = schedulers.scale_model_input(sched, x, i)
         eps = model_fn(x_in, int(sched.timesteps[i]), i)
         x, state = schedulers.step(sched, state, eps, i, x)
@@ -37,6 +38,10 @@ def cfg_combine(noise_pred: torch.Tensor,
     """CFG over a [2B, ...] (uncond; cond) batch:
     uncond + g * (cond - uncond), g in the prediction's dtype."""
     uncond, cond = noise_pred.chunk(2, dim=0)
-    g = torch.as_tensor(guidance_scale, device=noise_pred.device,
-                        dtype=noise_pred.dtype)
+    g = guidance_scale
+    if torch.is_tensor(g) and g.is_cuda:
+        g = g.to(device=noise_pred.device, dtype=noise_pred.dtype)
+    else:                   # a host value: a blocking copy to a card
+        g = profiling.sync(torch.as_tensor, g, device=noise_pred.device,
+                           dtype=noise_pred.dtype)
     return uncond + g * (cond - uncond)

@@ -32,6 +32,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from omg_tpu_torch.utils import profiling
+
 KINDS = ("euler", "ddim", "dpmpp_2m", "lcm")
 SPACINGS = ("leading", "trailing", "linspace")
 # The salt of LCM's noise seed (JAX: fold_in(key, 777)).
@@ -137,15 +139,16 @@ def scale_model_input(sched: Schedule, latents: torch.Tensor,
     unit-variance already."""
     if not _sigma_space(sched):
         return latents
-    sigma = sched.sigmas[i].to(device=latents.device, dtype=latents.dtype)
+    sigma = profiling.sync(sched.sigmas[i].to, device=latents.device,
+                           dtype=latents.dtype)
     return latents / torch.sqrt(sigma * sigma + 1.0)
 
 
 def scale_initial_noise(sched: Schedule, noise: torch.Tensor) -> torch.Tensor:
     if not _sigma_space(sched):
         return noise
-    return noise * sched.init_noise_sigma.to(device=noise.device,
-                                             dtype=noise.dtype)
+    return noise * profiling.sync(sched.init_noise_sigma.to,
+                                  device=noise.device, dtype=noise.dtype)
 
 
 def step_noise(noise_seed: int, i: int, shape: tuple,
@@ -157,7 +160,8 @@ def step_noise(noise_seed: int, i: int, shape: tuple,
                              digest_size=8).digest()
     g = torch.Generator("cpu").manual_seed(
         int.from_bytes(digest, "little") & (2 ** 63 - 1))
-    return torch.randn(shape, generator=g, dtype=torch.float32).to(device)
+    noise = torch.randn(shape, generator=g, dtype=torch.float32)
+    return profiling.sync(noise.to, device)
 
 
 def _euler(sched: Schedule, eps, i, x) -> torch.Tensor:
@@ -263,8 +267,8 @@ def add_noise(sched: Schedule, x0: torch.Tensor, noise: torch.Tensor,
               i: int) -> torch.Tensor:
     """Forward-noise x0 to step i, in each schedule's sample space."""
     if _sigma_space(sched):
-        return x0 + sched.sigmas[i].to(device=x0.device,
-                                       dtype=x0.dtype) * noise
+        return x0 + profiling.sync(sched.sigmas[i].to, device=x0.device,
+                                   dtype=x0.dtype) * noise
     a = sched.alphas_cumprod[int(sched.timesteps[i])]
     return (torch.sqrt(a).item() * x0.float()
             + torch.sqrt(1 - a).item() * noise.float()).to(x0.dtype)

@@ -19,6 +19,7 @@ import torch
 
 from omg_tpu_torch.models.resampler import Resampler
 from omg_tpu_torch.nn import layers
+from omg_tpu_torch.utils import profiling
 
 # 5-keypoint face skeleton: eyes, nose, mouth corners; every limb ends at
 # the nose (index 2).
@@ -81,8 +82,8 @@ def kps_image_to_cond(img: np.ndarray, device="cuda") -> torch.Tensor:
     card unless the caller asks for the CPU (diffusers' ControlNet
     conditioning normalization)."""
     device = layers.target_device(device, "kps_image_to_cond")
-    return torch.as_tensor(np.asarray(img, np.float32),
-                           device=device)[None] / 255.0
+    return profiling.sync(torch.as_tensor, np.asarray(img, np.float32),
+                          device=device)[None] / 255.0
 
 
 class FaceEmbedder(Protocol):
@@ -140,8 +141,8 @@ def encode_face_tokens(resampler: Resampler,
 
     Row 0 is the unconditional branch: the resampler applied to a zeros
     embedding, not zero tokens."""
-    emb = torch.as_tensor(embedding, dtype=torch.float32,
-                          device=resampler.latents.device)
+    emb = profiling.sync(torch.as_tensor, embedding, dtype=torch.float32,
+                         device=resampler.latents.device)
     emb = emb.reshape(1, -1, resampler.cfg.embedding_dim)
     return resampler(torch.cat([torch.zeros_like(emb), emb]))
 

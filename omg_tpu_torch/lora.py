@@ -157,20 +157,33 @@ def scale_lora(tree: Optional[dict], s: float) -> Optional[dict]:
     return {k: {**leaf, "scale": leaf["scale"] * s} for k, leaf in tree.items()}
 
 
+class LaneStack(dict):
+    """``stack_loras``'s result: the stacked leaves by module path, and
+    ``live``, per path whether each lane holds an adapter's delta rather
+    than the zero pad (known on the host; ``layers.Linear`` counts it)."""
+
+    def __init__(self, leaves: dict, live: list):
+        super().__init__(leaves)
+        self.live = live
+
+
 def stack_loras(trees: Sequence[Optional[dict]], *,
-                repeat: int = 1) -> Optional[dict]:
+                repeat: int = 1) -> Optional[LaneStack]:
     """Stack adapters into per-lane deltas for one batched forward.
 
     Leaves become ``{"down": [L*repeat, in, r], "up": [L*repeat, r, out],
     "scale": [L*repeat]}`` with L = len(trees); lane ``i*repeat + j`` runs
     tree i. Ranks are zero-padded to the largest, and paths missing from a
-    tree (or a None tree) contribute zero deltas."""
+    tree (or a None tree) contribute zero deltas, which ``live`` leaves
+    out."""
     if all(t is None for t in trees):
         return None
     keys = sorted({k for t in trees if t is not None for k in t})
-    out = {}
+    out, lane_live = {}, {}
     for key in keys:
         leaves = [None if t is None else t.get(key) for t in trees]
+        lane_live[key] = tuple(n is not None for n in leaves
+                               for _ in range(repeat))
         live = [n for n in leaves if n is not None]
         d0, u0 = live[0]["down"], live[0]["up"]
         rmax = max(n["down"].shape[-1] for n in live)
@@ -191,7 +204,7 @@ def stack_loras(trees: Sequence[Optional[dict]], *,
             scales += [s] * repeat
         out[key] = {"down": torch.stack(downs), "up": torch.stack(ups),
                     "scale": torch.stack(scales)}
-    return out
+    return LaneStack(out, lane_live)
 
 
 def align_loras(trees: Sequence[Optional[dict]]) -> list:
@@ -209,13 +222,15 @@ def align_loras(trees: Sequence[Optional[dict]]) -> list:
              for k, lf in stacked.items()} for i in range(len(trees))]
 
 
-def lane_slice(stacked: Optional[dict], lo: int, hi: int) -> Optional[dict]:
+def lane_slice(stacked: Optional[LaneStack], lo: int,
+               hi: int) -> Optional[LaneStack]:
     """Lanes [lo, hi) of a ``stack_loras`` result: the rows one rank keeps
     when a batch's lanes split over ranks."""
     if stacked is None:
         return None
-    return {k: {role: leaf[lo:hi] for role, leaf in lf.items()}
-            for k, lf in stacked.items()}
+    return LaneStack({k: {role: leaf[lo:hi] for role, leaf in lf.items()}
+                      for k, lf in stacked.items()},
+                     {k: v[lo:hi] for k, v in stacked.live.items()})
 
 
 def merge_loras(trees: Sequence[Optional[dict]],

@@ -36,6 +36,7 @@ from torch import nn
 from omg_tpu_torch.config import ControlNetConfig
 from omg_tpu_torch.models import unet as unet_lib
 from omg_tpu_torch.nn import layers
+from omg_tpu_torch.utils import profiling
 
 
 class ConditioningEmbedding(nn.Module):
@@ -120,6 +121,7 @@ class ControlNetModel(nn.Module):
         self.controlnet_mid_block = layers.Conv2d(mid_ch, mid_ch, 1, **kw)
         layers.set_lora_keys(self)
 
+    @profiling.spanned("controlnet")
     def forward(self, sample: torch.Tensor, timestep,
                 encoder_hidden_states: torch.Tensor,
                 cond_image: torch.Tensor, *, text_embeds: torch.Tensor,
@@ -158,8 +160,12 @@ class ControlNetModel(nn.Module):
             x = mid.attentions[0](x, ctx, None, None, seq)
         x = mid.resnets[1](x, temb, seq)
 
-        scale = torch.as_tensor(conditioning_scale, device=x.device).to(
-            x.dtype)
+        scale = conditioning_scale
+        if torch.is_tensor(scale) and scale.is_cuda:
+            scale = scale.to(x.device)
+        else:                   # a host value: a blocking copy to a card
+            scale = profiling.sync(torch.as_tensor, scale, device=x.device)
+        scale = scale.to(x.dtype)
         n = len(residuals)
         if guess_mode:
             ramp = torch.logspace(-1.0, 0.0, n + 1, dtype=torch.float32,

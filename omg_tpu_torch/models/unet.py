@@ -44,6 +44,7 @@ from torch import nn
 from omg_tpu_torch.config import UNetConfig
 from omg_tpu_torch.nn import layers
 from omg_tpu_torch.nn.attention import IPKV, Attention
+from omg_tpu_torch.utils import profiling
 
 
 class IPInputs:
@@ -223,6 +224,7 @@ class UNet2DConditionModel(nn.Module):
         return time_embeddings(self, self.cfg, timestep, text_embeds,
                                time_ids)
 
+    @profiling.spanned("unet", timed=True)
     def forward(self, sample: torch.Tensor, timestep,
                 encoder_hidden_states: torch.Tensor, *,
                 text_embeds: torch.Tensor, time_ids: torch.Tensor,
@@ -291,6 +293,7 @@ class UNet2DConditionModel(nn.Module):
         x = torch.nn.functional.silu(self.conv_norm_out(x, seq))
         return self.conv_out(x, seq).permute(0, 2, 3, 1)
 
+    @profiling.spanned("unet", timed=True)
     def apply_shallow(self, sample: torch.Tensor, timestep,
                       encoder_hidden_states: torch.Tensor, *,
                       text_embeds: torch.Tensor, time_ids: torch.Tensor,
@@ -340,8 +343,8 @@ def time_embeddings(model: nn.Module, cfg: UNetConfig, timestep,
     ControlNet's). The sinusoids run in fp32 and are cast to the model
     dtype before the two MLPs, as in the JAX package."""
     b = text_embeds.shape[0]
-    t = torch.as_tensor(timestep, dtype=torch.float32,
-                        device=text_embeds.device).expand(b)
+    t = profiling.sync(torch.as_tensor, timestep, dtype=torch.float32,
+                       device=text_embeds.device).expand(b)
     t_emb = layers.timestep_embedding(t, cfg.block_out_channels[0])
     te = model.time_embedding
     temb = te.linear_2(torch.nn.functional.silu(

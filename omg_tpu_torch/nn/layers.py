@@ -47,6 +47,7 @@ from torch import nn
 
 from omg_tpu_torch.ops import quant
 from omg_tpu_torch.parallel import comm
+from omg_tpu_torch.utils import profiling
 
 
 def target_device(device, who: str) -> torch.device:
@@ -112,13 +113,25 @@ class Linear(nn.Module):
         """The base product ``x @ W.T``, without LoRA or bias."""
         return F.linear(x, self.weight)
 
+    def counted_delta(self, leaf: dict, x: torch.Tensor,
+                      lora: dict) -> torch.Tensor:
+        """``lora_delta(leaf, x)``, counted per lane: ``lora.lane_deltas``
+        each row of x it is computed for, ``lora.live_lane_deltas`` those
+        whose adapter is not a ``stack_loras`` zero pad (``lora.live``)."""
+        n, live = x.shape[0], getattr(lora, "live", None)
+        profiling.count("lora.lane_deltas", n)
+        profiling.count("lora.live_lane_deltas",
+                        n if live is None else sum(live[self.lora_key]))
+        return lora_delta(leaf, x)
+
     def forward(self, x: torch.Tensor, lora: Optional[dict] = None):
         leaf = self.lora_leaf(lora)
         rows = self.tp is not None and self.tp.dim == 1
         if leaf is None and not self.quantized and not rows:
             return F.linear(x, self.weight, self.bias)
         y = self.matmul(x)
-        delta = lora_delta(leaf, x) if leaf is not None else None
+        delta = (self.counted_delta(leaf, x, lora) if leaf is not None
+                 else None)
         if rows and self.quantized:
             # the int8 product comes back summed (its int32 sums are)
             if delta is not None:
@@ -346,5 +359,6 @@ def nearest_resize(x: torch.Tensor, size: tuple) -> torch.Tensor:
     for ax, n_out in zip(axes, size):
         ratio = np.float32(x.shape[ax] / n_out)
         rows = np.floor(np.arange(n_out, dtype=np.float32) * ratio)
-        idx.append(torch.as_tensor(rows.astype(np.int64), device=x.device))
+        idx.append(profiling.sync(torch.as_tensor, rows.astype(np.int64),
+                                  device=x.device))
     return x.index_select(axes[0], idx[0]).index_select(axes[1], idx[1])

@@ -88,6 +88,14 @@ from omg_tpu_torch.control import regions
 from omg_tpu_torch.diffusion import sampling, schedulers
 from omg_tpu_torch.parallel import comm, mesh as mesh_lib
 from omg_tpu_torch.pipelines import sdxl
+from omg_tpu_torch.utils import profiling
+
+
+def _rows(t: torch.Tensor, idx: list) -> torch.Tensor:
+    """``t[idx]`` for a list of rows: the index goes to the card in a
+    blocking copy."""
+    return profiling.sync(t.__getitem__, idx)
+
 
 class ControlNetInputs(NamedTuple):
     """One ControlNet's weights and conditioning for a denoise run.
@@ -146,8 +154,8 @@ def _cn_scale(cn: ControlNetInputs, step_i: Optional[int], num_steps: int,
                                    per_lane(cn.guidance_end))]
     if not any(scales):
         return None
-    return torch.tensor(scales, dtype=torch.float32,
-                        device=device)[:, None, None, None]
+    return profiling.sync(torch.tensor, scales, dtype=torch.float32,
+                          device=device)[:, None, None, None]
 
 
 def _controlnet_residuals(cns: Sequence[ControlNetInputs], lin: torch.Tensor,
@@ -192,7 +200,7 @@ def _controlnet_residuals(cns: Sequence[ControlNetInputs], lin: torch.Tensor,
             local = [r - lo for r in cond_rows if lo <= r < lo + b]
             if not local:
                 continue
-            rows = torch.as_tensor(local, device=lin.device)
+            rows = profiling.sync(torch.as_tensor, local, device=lin.device)
             n = len(local)
             ehs = cn.encoder_hidden_states
             if ehs is not None:
@@ -287,8 +295,8 @@ def _concept_cn_residuals(concept_controlnets: Sequence, concept_inputs,
     return template.params(
         rl, t, torch.cat(ehs_rows)[lo:hi], torch.cat(conds)[lo:hi],
         text_embeds=tembeds, time_ids=tids,
-        conditioning_scale=lane_scale[lo:hi].to(rl.device)[:, None, None,
-                                                            None],
+        conditioning_scale=profiling.sync(lane_scale[lo:hi].to,
+                                          rl.device)[:, None, None, None],
         guess_mode=template.guess_mode)
 
 
@@ -472,7 +480,7 @@ def denoise_multiconcept(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     seed, the request's seed, as the fast paths take it (the JAX
     ``noise_key``), so both draw one stream."""
     x, st = latents, schedulers.init_state(noise_seed)
-    for i in range(sched.num_steps):
+    for i in profiling.steps(0, sched.num_steps):
         x, st = multiconcept_step(
             cfg, sched, unet, x, st, i, base_inputs, controller,
             concept_inputs, concept_loras, masks, stage2,
@@ -624,7 +632,7 @@ def _denoise_cfg_range_spatial(sched: schedulers.Schedule, unet,
         x = latents[:, seq.index * rows:(seq.index + 1) * rows]
     st = state
     dc = _DeepCache(cache_interval, i0)
-    for i in range(i0, i1):
+    for i in profiling.steps(i0, i1):
         t = int(sched.timesteps[i])
         lin = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
         mine = lin[lo:hi]
@@ -670,9 +678,9 @@ def _denoise_cfg_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     the DeepCache spec (``_DeepCache``); shallow steps skip the
     ControlNets."""
     rows = [0, 2]
-    embeds2 = base_inputs.prompt_embeds[rows]
-    tembeds2 = base_inputs.text_embeds[rows]
-    tids2 = base_inputs.time_ids[rows]
+    embeds2 = _rows(base_inputs.prompt_embeds, rows)
+    tembeds2 = _rows(base_inputs.text_embeds, rows)
+    tids2 = _rows(base_inputs.time_ids, rows)
     if spatial is not None:
         if record_traj:
             raise ValueError("the spatial stage-1 layout records no "
@@ -684,7 +692,7 @@ def _denoise_cfg_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     traj = []
     x, st = latents, state
     dc = _DeepCache(cache_interval, i0)
-    for i in range(i0, i1):
+    for i in profiling.steps(i0, i1):
         if record_traj:
             traj.append(x)
         t = int(sched.timesteps[i])
@@ -727,13 +735,13 @@ def _denoise_mc_range_traj(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx = \
         _concept_lane_conditioning(concept_inputs, concept_loras, 3)
     ipk = concept_ip_adapters[0] if concept_ip_adapters else None
-    embeds = torch.cat([base_inputs.prompt_embeds[bidx], c_embeds])
-    tembeds = torch.cat([base_inputs.text_embeds[bidx], c_tembeds])
-    tids = torch.cat([base_inputs.time_ids[bidx], c_tids])
+    embeds = torch.cat([_rows(base_inputs.prompt_embeds, bidx), c_embeds])
+    tembeds = torch.cat([_rows(base_inputs.text_embeds, bidx), c_tembeds])
+    tids = torch.cat([_rows(base_inputs.time_ids, bidx), c_tids])
     masks = masks.to(latent_b.dtype)
     x, st = latent_b, state
     dc = _DeepCache(cache_interval, i0)
-    for i in range(i0, sched.num_steps):
+    for i in profiling.steps(i0, sched.num_steps):
         t = int(sched.timesteps[i])
         lin_a = schedulers.scale_model_input(sched, a_traj[i - i0], i)
         lin_b = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
@@ -811,7 +819,7 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
             "stage 2 is a plain CFG denoise; run it unsharded)")
     x, st = latents, state
     if K == 0:
-        for i in range(i0, sched.num_steps):
+        for i in profiling.steps(i0, sched.num_steps):
             x, st = multiconcept_step(
                 cfg, sched, unet, x, st, i, base_inputs, controller, (), (),
                 masks, True, fusion_start=fusion_start,
@@ -836,7 +844,7 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     c_lo, c_hi = max(lo, 4) - 4, max(hi, 4) - 4
     masks = masks.to(latents.dtype)
     dc = _DeepCache(cache_interval, i0)
-    for i in range(i0, sched.num_steps):
+    for i in profiling.steps(i0, sched.num_steps):
         t = int(sched.timesteps[i])
         lin4 = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
         rows = torch.cat([lin4[b_lo:b_hi],
@@ -900,9 +908,9 @@ def sample_stage1_cached(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     the suffix, each phased from its own start."""
     device = base_inputs.prompt_embeds.device
     if initial_noise is not None:
-        lat = schedulers.scale_initial_noise(sched, torch.tensor(
-            np.asarray(initial_noise, np.float32), device=device).to(
-                cfg.unet.dtype))
+        lat = schedulers.scale_initial_noise(sched, profiling.sync(
+            torch.tensor, np.asarray(initial_noise, np.float32),
+            device=device).to(cfg.unet.dtype))
     else:
         lat = sdxl.prepare_latents(generator, 1, height, width, sched,
                                    cfg.unet.dtype, device)
@@ -971,7 +979,7 @@ def _denoise_cropped_batch(
     R, K = len(xs), len(concept_inputs_r[0])
     bidx = [2, 1, 3]    # [cond_A, uncond_B, cond_B] of the 4-row layout
     b_embeds, b_tembeds, b_tids = (
-        torch.cat([getattr(b, f)[bidx] for b in base_inputs_r])
+        torch.cat([_rows(getattr(b, f), bidx) for b in base_inputs_r])
         for f in ("prompt_embeds", "text_embeds", "time_ids"))
     c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx = \
         _concept_lane_conditioning(
@@ -982,7 +990,7 @@ def _denoise_cropped_batch(
     ws = frame[1] // K
     masks_r = [m.to(xs[0].dtype) for m in masks_r]
     pairs = [(3 * r, 3 * r + 2) for r in range(R)]
-    for i in range(i0, sched.num_steps):
+    for i in profiling.steps(i0, sched.num_steps):
         t = int(sched.timesteps[i])
         lin_b = [schedulers.scale_model_input(sched, torch.cat([x, x]), i)
                  for x in xs]
@@ -1209,9 +1217,9 @@ def sample_stage(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule, unet, *,
     validate_concept_controlnets(concept_controlnets)
     device = base_inputs.prompt_embeds.device
     if initial_noise is not None:
-        lat = schedulers.scale_initial_noise(sched, torch.tensor(
-            np.asarray(initial_noise, np.float32), device=device).to(
-                cfg.unet.dtype))
+        lat = schedulers.scale_initial_noise(sched, profiling.sync(
+            torch.tensor, np.asarray(initial_noise, np.float32),
+            device=device).to(cfg.unet.dtype))
     else:
         lat = sdxl.prepare_latents(generator, 1, height, width, sched,
                                    cfg.unet.dtype, device)
@@ -1276,23 +1284,26 @@ def sample_stage1_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     R = len(seeds)
     device = base_inputs_r[0].prompt_embeds.device
     if initial_noise is not None:
-        xs = [schedulers.scale_initial_noise(sched, torch.tensor(
-            np.asarray(n, np.float32), device=device).to(cfg.unet.dtype))
+        xs = [schedulers.scale_initial_noise(sched, profiling.sync(
+            torch.tensor, np.asarray(n, np.float32),
+            device=device).to(cfg.unet.dtype))
             for n in initial_noise]
     else:
         xs = [sdxl.prepare_latents(
             torch.Generator("cpu").manual_seed(int(s)), 1, height, width,
             sched, cfg.unet.dtype, device) for s in seeds]
     states = [schedulers.init_state(int(s)) for s in seeds]
-    embeds = torch.cat([b.prompt_embeds[[0, 2]] for b in base_inputs_r])
-    tembeds = torch.cat([b.text_embeds[[0, 2]] for b in base_inputs_r])
-    tids = torch.cat([b.time_ids[[0, 2]] for b in base_inputs_r])
+    embeds = torch.cat([_rows(b.prompt_embeds, [0, 2])
+                        for b in base_inputs_r])
+    tembeds = torch.cat([_rows(b.text_embeds, [0, 2])
+                         for b in base_inputs_r])
+    tids = torch.cat([_rows(b.time_ids, [0, 2]) for b in base_inputs_r])
     cn = _base_cn_lanes(base_cn_params, base_cn_conds_r, 2)
     boundary = min(fusion_start + 1, sched.num_steps)
     trajs: list = [[] for _ in range(R)]
     caches: list = [None] * R
     dc = _DeepCache(cache_interval, 0)
-    for i in range(sched.num_steps):
+    for i in profiling.steps(0, sched.num_steps):
         if i == boundary:
             caches = [StageCache(x, st) for x, st in zip(xs, states)]
             dc = _DeepCache(cache_interval, boundary)
@@ -1380,7 +1391,7 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
 
     def lane_cat(field):
         return torch.cat([
-            torch.cat([getattr(base_inputs_r[r], field)[bidx]]
+            torch.cat([_rows(getattr(base_inputs_r[r], field), bidx)]
                       + [getattr(ci, field) for ci in concept_inputs_r[r]])
             for r in range(R)])
     embeds, tembeds, tids = (lane_cat(f) for f in
@@ -1429,7 +1440,7 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     xs = [c.latents for c in cache_r]
     states = [c.sched_state for c in cache_r]
     dc = _DeepCache(cache_interval, boundary)
-    for i in range(boundary, sched.num_steps):
+    for i in profiling.steps(boundary, sched.num_steps):
         t = int(sched.timesteps[i])
         lanes = []
         for r in range(R):
@@ -1444,14 +1455,15 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                 if controller is not None else None)
         def residuals():
             return _lane_residuals(
-                _controlnet_residuals(base_cn, lanes[base_rows], t,
-                                      embeds[base_rows], tembeds[base_rows],
-                                      tids[base_rows], step_i=i,
+                _controlnet_residuals(base_cn, _rows(lanes, base_rows), t,
+                                      _rows(embeds, base_rows),
+                                      _rows(tembeds, base_rows),
+                                      _rows(tids, base_rows), step_i=i,
                                       num_steps=sched.num_steps),
-                _controlnet_residuals(concept_cn, lanes[concept_rows], t,
-                                      embeds[concept_rows],
-                                      tembeds[concept_rows],
-                                      tids[concept_rows], step_i=i,
+                _controlnet_residuals(concept_cn, _rows(lanes, concept_rows),
+                                      t, _rows(embeds, concept_rows),
+                                      _rows(tembeds, concept_rows),
+                                      _rows(tids, concept_rows), step_i=i,
                                       num_steps=sched.num_steps),
                 3, 2 * K)
         eps_all = dc.step(unet, i, lanes, t, embeds, residuals,

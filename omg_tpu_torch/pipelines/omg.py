@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
-import time
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -55,6 +54,7 @@ from omg_tpu_torch.diffusion import schedulers
 from omg_tpu_torch.ops import quant
 from omg_tpu_torch.parallel import mesh as mesh_lib
 from omg_tpu_torch.pipelines import multiconcept, sdxl
+from omg_tpu_torch.utils import profiling
 
 # mask_provider(image_uint8 [H, W, 3], class_text) -> [H, W] {0,1} or None
 MaskProvider = Callable[[np.ndarray, str], Optional[np.ndarray]]
@@ -76,7 +76,8 @@ class GenerationResult:
     stage2: Optional[np.ndarray]        # same, or None if no masks found
     masks: List[Optional[np.ndarray]]   # per-concept pixel masks
     # host-clock seconds per phase ("encode", "stage1", "masks",
-    # "stage2", "decode"); each phase ends with the device idle
+    # "stage2", "decode"): the request's phase spans
+    # (utils/profiling.Phases), each ended with the device idle
     timings: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -114,21 +115,9 @@ def _given(value) -> bool:
     return value is not None and value is not False
 
 
-class _Clock:
-    """Phase timer on the host clock; synchronizes a CUDA device before
-    each reading, so a phase's time includes its device work."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.timings: dict = {}
-        self._t = time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.timings[name] = self.timings.get(name, 0.0) + now - self._t
-        self._t = now
+def _engine_device(engine: "OMG", *args, **kwargs) -> torch.device:
+    """The device of a call's request record: the engine's."""
+    return engine.device
 
 
 @dataclasses.dataclass
@@ -240,8 +229,8 @@ class OMG:
         """``te_lora``: (encoder-1, encoder-2) LoRA dicts for region
         prompts."""
         def ids(tok, text):
-            return torch.as_tensor(tok([text]), dtype=torch.long,
-                                   device=self.device)
+            return profiling.sync(torch.as_tensor, tok([text]),
+                                  dtype=torch.long, device=self.device)
 
         ep, pp = sdxl.encode_tokens(self.cfg, self.params,
                                     ids(self.tokenizer, prompt),
@@ -342,6 +331,7 @@ class OMG:
                                                    self.concept_lora_scale))
         return region_specs, concept_inputs, loras_final
 
+    @profiling.requested("omg.generate", _engine_device)
     def generate(self, prompt: str, *, negative_prompt: str = "",
                  prompt_rewrite: str = "",
                  concept_loras: Sequence[Optional[dict]] = (),
@@ -375,7 +365,8 @@ class OMG:
         self._check_cn_geometry(controlnet_params if use_cn else None,
                                 instantid)
         device = self.device
-        clock = _Clock(device)
+        phases = profiling.Phases(device)
+        phases.next("encode")
         steps = num_steps or self.num_steps
         fusion_start = _fusion_start(steps, fusion_start)
         sched = schedulers.make_schedule(scheduler or self.scheduler, steps)
@@ -405,7 +396,8 @@ class OMG:
         if use_cn:
             base_cns.append(multiconcept.ControlNetInputs(
                 params=controlnet_params,
-                cond_image=torch.as_tensor(
+                cond_image=profiling.sync(
+                    torch.as_tensor,
                     np.asarray(spatial_condition, np.float32),
                     device=device)[None] / 255.0,
                 scale=float(controlnet_scale),
@@ -417,7 +409,7 @@ class OMG:
             [prompt, prompt], steps, cross_replace_steps=1.0,
             self_replace_steps=0.4, width=width // 32, height=height // 32,
             tokenizer=self.tokenizer, device=device)
-        clock.lap("encode")
+        phases.next("stage1")
 
         # --- stage 1 (dedup fast path) ---------------------------------
         lane_sharding = spatial = None
@@ -438,16 +430,20 @@ class OMG:
             record_trajectory=self.mesh is None,
             initial_noise=initial_noise, base_controlnets=base_cns,
             noise_seed=seed, cache_interval=eff_interval)
-        clock.lap("stage1")
+        phases.next("decode", timed=True)
         img1 = self._decode(lat1)
-        clock.lap("decode")
 
         # --- masks -----------------------------------------------------
+        phases.next("masks")
         if masks is None:
             masks = self._predict_masks(img1[1], prompt, len(region_specs),
                                         detection_classes)
         masks = list(masks)
-        clock.lap("masks")
+        fuse = any(m is not None for m in masks)
+        if fuse:
+            phases.next("stage2")
+        else:
+            phases.end()
 
         # IdentityNet conditions: the keypoints of the faces on the stage-1
         # image, at canvas coordinates; an explicit face_kps_image wins
@@ -468,7 +464,7 @@ class OMG:
         # each range, so the stage cache is whole on every rank: the
         # lane-split stage 2 starts from replicated latents.
         img2 = None
-        if any(m is not None for m in masks):
+        if fuse:
             mask_stack = regions_lib.make_concept_mask_stack(
                 masks, (height // 8, width // 8), len(region_specs),
                 device=device)
@@ -493,11 +489,11 @@ class OMG:
                                   self.cfg, width // 8, len(region_specs))),
                 cache_interval=(eff_interval if len(region_specs) > 0
                                 else 0))
-            clock.lap("stage2")
+            phases.next("decode", timed=True)
             img2 = self._decode(lat2)
-            clock.lap("decode")
+            phases.end()
         return GenerationResult(stage1=img1, stage2=img2, masks=masks,
-                                timings=clock.timings)
+                                timings=phases.timings)
 
     def _decode(self, latents: torch.Tensor) -> np.ndarray:
         # under a mesh, H splits over every rank when it divides
@@ -505,10 +501,12 @@ class OMG:
                    and latents.shape[1] % self.mesh.size == 0 else None)
         img = sdxl.decode_latents(self.cfg, self.params.vae, latents,
                                   spatial=spatial)
-        return (img * 255).to(torch.uint8).cpu().numpy()
+        img = (img * 255).to(torch.uint8)
+        return profiling.sync(img.cpu).numpy()
 
     # --------------------------------------------------- batched serving
 
+    @profiling.requested("omg.generate_batch", _engine_device)
     def generate_batch(self, requests: Sequence[dict]
                        ) -> List[GenerationResult]:
         """R compatible requests as one stage-1 and one stage-2 program:
@@ -573,7 +571,8 @@ class OMG:
                              "steps/scheduler/fusion_start/cache_interval "
                              "(bucket them)")
         device = self.device
-        clock = _Clock(device)
+        phases = profiling.Phases(device)
+        phases.next("encode")
         sched = schedulers.make_schedule(sched_name, steps)
         tids = sdxl.add_time_ids((height, width), (0, 0), (height, width),
                                  device=device)
@@ -605,8 +604,8 @@ class OMG:
             """uint8 images (None: zeros) -> [R, 1, H, W, C] in [0, 1]."""
             c = next(x for x in images if x is not None).shape[-1]
             return torch.stack([
-                torch.as_tensor(np.asarray(x, np.float32),
-                                device=device)[None] / 255.0
+                profiling.sync(torch.as_tensor, np.asarray(x, np.float32),
+                               device=device)[None] / 255.0
                 if x is not None else
                 torch.zeros((1, height, width, c), device=device)
                 for x in images])
@@ -622,7 +621,7 @@ class OMG:
                  for r, h in zip(requests, has)],
                 [float(r["control_guidance_start"]) for r in requests],
                 [float(r["control_guidance_end"]) for r in requests])
-        clock.lap("encode")
+        phases.next("stage1")
 
         lat1_r, caches = multiconcept.sample_stage1_batch(
             self.cfg, sched, self.params.unet,
@@ -630,18 +629,19 @@ class OMG:
             height=height, width=width, fusion_start=fusion_start,
             base_cn_params=cn_params, base_cn_conds_r=base_cn_conds,
             cache_interval=eff_interval)
-        clock.lap("stage1")
+        phases.next("decode", timed=True)
         img1s = [self._decode(lat) for lat in lat1_r]
-        clock.lap("decode")
+        phases.next("masks")
         masks_r = [self._predict_masks(
             img1[1], r["prompt"], len(sp), r["detection_classes"])
             for img1, r, sp in zip(img1s, requests, specs)]
-        clock.lap("masks")
         results = [GenerationResult(stage1=img1, stage2=None, masks=m)
                    for img1, m in zip(img1s, masks_r)]
         live2 = [any(m is not None for m in ms) for ms in masks_r]
         if max_k == 0 or not any(live2):
-            return self._with_timings(results, clock)
+            phases.end()
+            return self._with_timings(results, phases)
+        phases.next("stage2")
 
         # InstantID stage 2: the shared IP layers, and the IdentityNet on
         # the keypoints of each request's own stage-1 faces
@@ -697,12 +697,12 @@ class OMG:
             concept_cn_conds_r=concept_cn_conds,
             base_cn_params=cn_params, base_cn_conds_r=base_cn_conds,
             cache_interval=eff_interval)
-        clock.lap("stage2")
+        phases.next("decode", timed=True)
         results = [dataclasses.replace(res, stage2=self._decode(lat))
                    if live else res
                    for res, lat, live in zip(results, lat2_r, live2)]
-        clock.lap("decode")
-        return self._with_timings(results, clock)
+        phases.end()
+        return self._with_timings(results, phases)
 
     def _request_args(self, request: dict) -> dict:
         """A request dict with every ``generate`` default filled in, so
@@ -714,6 +714,6 @@ class OMG:
         return dict(args.arguments)
 
     @staticmethod
-    def _with_timings(results: list, clock: _Clock) -> list:
-        return [dataclasses.replace(r, timings=dict(clock.timings))
+    def _with_timings(results: list, phases: profiling.Phases) -> list:
+        return [dataclasses.replace(r, timings=dict(phases.timings))
                 for r in results]

@@ -16,6 +16,7 @@ from omg_tpu_torch import config as cfglib
 from omg_tpu_torch.diffusion import sampling, schedulers
 from omg_tpu_torch.models import clip, unet, vae
 from omg_tpu_torch.parallel import comm
+from omg_tpu_torch.utils import profiling
 
 
 class SDXLParams(NamedTuple):
@@ -75,7 +76,8 @@ def add_time_ids(original_size: tuple, crops_coords_top_left: tuple,
                  target_size: tuple, device=None) -> torch.Tensor:
     """SDXL micro-conditioning vector [1, 6]."""
     ids = list(original_size) + list(crops_coords_top_left) + list(target_size)
-    return torch.tensor([ids], dtype=torch.float32, device=device)
+    return profiling.sync(torch.tensor, [ids], dtype=torch.float32,
+                          device=device)
 
 
 class DenoiseInputs(NamedTuple):
@@ -95,8 +97,9 @@ def make_inputs(embeds_pos: torch.Tensor, pooled_pos: torch.Tensor,
         prompt_embeds=torch.cat([embeds_neg, embeds_pos]),
         text_embeds=torch.cat([pooled_neg, pooled_pos]),
         time_ids=time_ids.expand(2 * b, 6).contiguous(),
-        guidance_scale=torch.tensor(guidance_scale, dtype=torch.float32,
-                                    device=embeds_pos.device))
+        guidance_scale=profiling.sync(torch.tensor, guidance_scale,
+                                      dtype=torch.float32,
+                                      device=embeds_pos.device))
 
 
 def denoise(cfg: SDXLConfig, sched: schedulers.Schedule,
@@ -125,7 +128,7 @@ def prepare_latents(generator: torch.Generator, batch: int, height: int,
     noise = torch.randn((batch, height // 8, width // 8, 4),
                         generator=generator, dtype=torch.float32)
     return schedulers.scale_initial_noise(
-        sched, noise.to(device=device, dtype=dtype))
+        sched, profiling.sync(noise.to, device=device, dtype=dtype))
 
 
 def decode_latents(cfg: SDXLConfig, vae_model: vae.AutoencoderKL,
@@ -162,6 +165,13 @@ def decode_latents(cfg: SDXLConfig, vae_model: vae.AutoencoderKL,
     return torch.clamp(img.float() / 2 + 0.5, 0.0, 1.0)
 
 
+def _unet_device(cfg: SDXLConfig, params: SDXLParams,
+                 **kwargs) -> torch.device:
+    """The device of ``text_to_image``'s request record: the UNet's."""
+    return next(params.unet.parameters()).device
+
+
+@profiling.requested("sdxl.text_to_image", _unet_device)
 def text_to_image(cfg: SDXLConfig, params: SDXLParams, *,
                   ids1_pos: torch.Tensor, ids2_pos: torch.Tensor,
                   ids1_neg: torch.Tensor, ids2_neg: torch.Tensor,
@@ -173,17 +183,22 @@ def text_to_image(cfg: SDXLConfig, params: SDXLParams, *,
     of both tokenizers for the prompt and the negative prompt -> images
     [B, H, W, 3] in [0, 1], decoded in fp32. ``generator`` draws the
     initial noise (``prepare_latents``); the ids move to the UNet's
-    device."""
+    device. The call is one request of ``utils/profiling`` (spans
+    ``encode``, ``denoise`` and a timed ``decode``)."""
     device = next(params.unet.parameters()).device
-    ids = [x.to(device) for x in (ids1_pos, ids2_pos, ids1_neg, ids2_neg)]
-    embeds_pos, pooled_pos = encode_tokens(cfg, params, ids[0], ids[1])
-    embeds_neg, pooled_neg = encode_tokens(cfg, params, ids[2], ids[3])
-    tids = add_time_ids((height, width), (0, 0), (height, width),
-                        device=device)
-    inputs = make_inputs(embeds_pos, pooled_pos, embeds_neg, pooled_neg,
-                         tids, guidance_scale)
-    sched = schedulers.make_schedule(scheduler, steps)
-    latents = prepare_latents(generator, embeds_pos.shape[0], height, width,
-                              sched, cfg.unet.dtype, device=device)
-    latents = denoise(cfg, sched, params.unet, latents, inputs, lora=lora)
-    return decode_latents(cfg, params.vae, latents)
+    with profiling.span("encode"):
+        ids = [profiling.sync(x.to, device)
+               for x in (ids1_pos, ids2_pos, ids1_neg, ids2_neg)]
+        embeds_pos, pooled_pos = encode_tokens(cfg, params, ids[0], ids[1])
+        embeds_neg, pooled_neg = encode_tokens(cfg, params, ids[2], ids[3])
+        tids = add_time_ids((height, width), (0, 0), (height, width),
+                            device=device)
+        inputs = make_inputs(embeds_pos, pooled_pos, embeds_neg, pooled_neg,
+                             tids, guidance_scale)
+    with profiling.span("denoise"):
+        sched = schedulers.make_schedule(scheduler, steps)
+        latents = prepare_latents(generator, embeds_pos.shape[0], height,
+                                  width, sched, cfg.unet.dtype, device=device)
+        latents = denoise(cfg, sched, params.unet, latents, inputs, lora=lora)
+    with profiling.span("decode", timed=True):
+        return decode_latents(cfg, params.vae, latents)

@@ -125,7 +125,9 @@ ANOTHER_WAY = {
         "start_server": "not ported: the XLA profiler server (ROADMAP "
                         "header)",
         "compiled_peak_bytes": "not ported: torch.cuda.max_memory_allocated "
-                               "(ROADMAP header)"},
+                               "(ROADMAP header)",
+        "device_memory_stats": "removed: nothing in the port, the server or "
+                               "the benchmark read it"},
 }
 EVERY_FILE = {"Array": "torch.Tensor", "Params": "nn.Module",
               "apply": "the module's forward"}

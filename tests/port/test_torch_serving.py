@@ -528,8 +528,6 @@ def test_profiling_trace_and_metrics():
     assert s["fails"]["n"] == 1 and s["ok"]["n"] == 3
     m.count("c", 2)
     assert m.summary()["counters"] == {"c": 2}
-    if not torch.cuda.is_available():
-        assert profiling.device_memory_stats() == {}
 
 
 def _tiny_preprocessor_files(root):
