@@ -10,6 +10,9 @@ The controller is host-side data plus a per-step view:
     output as sdpa(q_A, k_A, M @ (α ⊙ V)) + sdpa(q_B, k_B, (1-α) ⊙ V).
 
 The step index is a Python int here, so the window test is a host branch.
+The lane indices the edits gather and scatter by go to the card once per
+controller and lane layout (``P2PControl.lane_index``), so a step makes no
+host-device copy.
 
 Request-batched stage 2 (``OMG.generate_batch``): the lanes of several
 requests sit side by side, and ``at_step(i, pairs=...)`` edits one
@@ -148,6 +151,9 @@ class P2PControl:
     self_start: int             # step bounds for self-attn replace
     self_end: int
     self_seq_limit: int         # replace self-attn only if Nq <= limit
+    # lane_index's memo: (pairs, batch, device) -> the index on the card
+    _lane_index: dict = dataclasses.field(default_factory=dict,
+                                          compare=False, repr=False)
 
     @classmethod
     def build(cls, prompts: Sequence[str], num_steps: int, *,
@@ -179,6 +185,24 @@ class P2PControl:
         the single pair."""
         return P2PStepControl(self, step, src_lane=src_lane,
                               dst_lane=dst_lane, lanes=lanes, pairs=pairs)
+
+    def lane_index(self, pairs: tuple, batch: int, device) -> torch.Tensor:
+        """[src lanes; dst lanes; self-replace rows] of the (src, dst)
+        ``pairs`` in a ``batch``-lane batch, int64 on ``device``: the rows
+        are the identity with each dst lane reading its src lane. One
+        blocking copy the first time a layout asks, then the memo's."""
+        key = (pairs, batch, torch.device(device))
+        idx = self._lane_index.get(key)
+        if idx is None:
+            rows = list(range(batch))
+            for s, d in pairs:
+                rows[d] = s
+            idx = profiling.sync(torch.as_tensor,
+                                 [s for s, _ in pairs]
+                                 + [d for _, d in pairs] + rows,
+                                 device=device)
+            self._lane_index[key] = idx
+        return idx
 
 
 def _substitute(t: torch.Tensor, row: int, new: torch.Tensor) -> torch.Tensor:
@@ -212,6 +236,12 @@ class P2PStepControl:
     def _in_window(self) -> bool:
         return self.ctl.self_start <= self.step < self.ctl.self_end
 
+    def _index(self, t: torch.Tensor) -> tuple:
+        """(src lanes, dst lanes, self-replace rows) of a batch ``t``."""
+        idx = self.ctl.lane_index(self.pairs, t.shape[0], t.device)
+        p = len(self.pairs)
+        return idx[:p], idx[p:2 * p], idx[2 * p:]
+
     def self_lane_qk(self, q: torch.Tensor, k: torch.Tensor) -> tuple:
         """Self-attn replace: dst lane takes the src lane's q and k inside
         the window. q, k: [B, H, N, D]."""
@@ -219,11 +249,8 @@ class P2PStepControl:
             return self.self_lane_qk_sharded(q, k)
         if not self._in_window():
             return q, k
-        rows = list(range(q.shape[0]))
-        for s, d in self.pairs:
-            rows[d] = s
-        idx = profiling.sync(torch.as_tensor, rows, device=q.device)
-        return q.index_select(0, idx), k.index_select(0, idx)
+        rows = self._index(q)[2]
+        return q.index_select(0, rows), k.index_select(0, rows)
 
     def _cross_edit(self, q_s, k_s, q_d, k_d, v_d, sdpa_fn) -> torch.Tensor:
         """The dst lanes' rewritten cross-attn outputs [P, H, Nq, D] from
@@ -246,10 +273,7 @@ class P2PStepControl:
         out/q/k/v: [B, H, N(q/k), D]; sdpa_fn(q, k, v) -> attention out."""
         if self.lanes is not None:
             return self.cross_lane_out_sharded(out, q, k, v, sdpa_fn)
-        src = profiling.sync(torch.as_tensor, [s for s, _ in self.pairs],
-                             device=q.device)
-        dst = profiling.sync(torch.as_tensor, [d for _, d in self.pairs],
-                             device=q.device)
+        src, dst, _ = self._index(q)
         new = self._cross_edit(q[src], k[src], q[dst], k[dst], v[dst],
                                sdpa_fn)
         return out.index_copy(0, dst, new.to(out.dtype))

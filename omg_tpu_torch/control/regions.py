@@ -62,8 +62,8 @@ def fuse_region_noise(noise_pred: torch.Tensor, region_preds: torch.Tensor,
     rows 1 and 3 (copy B) take ``fuse_region_edit``; copy A's rows stay."""
     if not active:
         return noise_pred
-    new = fuse_region_edit(profiling.sync(noise_pred.__getitem__, [1, 3]),
-                           region_preds, masks, active=True)
+    new = fuse_region_edit(noise_pred[1::2], region_preds, masks,
+                           active=True)
     return torch.stack([noise_pred[0], new[0], noise_pred[2], new[1]])
 
 

@@ -36,12 +36,14 @@ def denoise_loop(sched: schedulers.Schedule, model_fn: ModelFn,
 def cfg_combine(noise_pred: torch.Tensor,
                 guidance_scale: float | torch.Tensor) -> torch.Tensor:
     """CFG over a [2B, ...] (uncond; cond) batch:
-    uncond + g * (cond - uncond), g in the prediction's dtype."""
+    uncond + g * (cond - uncond), g in the prediction's dtype. A host
+    scale (a number, or a CPU tensor beside a card's prediction) is filled
+    on the prediction's device: no copy."""
     uncond, cond = noise_pred.chunk(2, dim=0)
     g = guidance_scale
-    if torch.is_tensor(g) and g.is_cuda:
+    if torch.is_tensor(g) and g.device.type == noise_pred.device.type:
         g = g.to(device=noise_pred.device, dtype=noise_pred.dtype)
-    else:                   # a host value: a blocking copy to a card
-        g = profiling.sync(torch.as_tensor, g, device=noise_pred.device,
-                           dtype=noise_pred.dtype)
+    else:
+        g = torch.full((), float(g), dtype=noise_pred.dtype,
+                       device=noise_pred.device)
     return uncond + g * (cond - uncond)

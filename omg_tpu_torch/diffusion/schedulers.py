@@ -136,11 +136,13 @@ def scale_model_input(sched: Schedule, latents: torch.Tensor,
                       i: int) -> torch.Tensor:
     """Sigma-space schedules divide by sqrt(sigma^2 + 1), in the latents'
     dtype, so the UNet sees a ~unit-variance input; DDIM/LCM samples are
-    unit-variance already."""
+    unit-variance already. The sigma is filled on the latents' device from
+    the host's fp32 value, which rounds to their dtype as the fp32 tensor
+    does: no copy."""
     if not _sigma_space(sched):
         return latents
-    sigma = profiling.sync(sched.sigmas[i].to, device=latents.device,
-                           dtype=latents.dtype)
+    sigma = torch.full((), float(sched.sigmas[i]), dtype=latents.dtype,
+                       device=latents.device)
     return latents / torch.sqrt(sigma * sigma + 1.0)
 
 

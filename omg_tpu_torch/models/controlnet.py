@@ -161,11 +161,11 @@ class ControlNetModel(nn.Module):
         x = mid.resnets[1](x, temb, seq)
 
         scale = conditioning_scale
-        if torch.is_tensor(scale) and scale.is_cuda:
-            scale = scale.to(x.device)
-        else:                   # a host value: a blocking copy to a card
-            scale = profiling.sync(torch.as_tensor, scale, device=x.device)
-        scale = scale.to(x.dtype)
+        if not torch.is_tensor(scale):      # a host number: a fill, no copy
+            scale = torch.full((), float(scale), device=x.device)
+        elif scale.device.type != x.device.type:
+            scale = profiling.sync(scale.to, x.device)  # a blocking copy
+        scale = scale.to(device=x.device, dtype=x.dtype)
         n = len(residuals)
         if guess_mode:
             ramp = torch.logspace(-1.0, 0.0, n + 1, dtype=torch.float32,

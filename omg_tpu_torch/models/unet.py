@@ -341,10 +341,11 @@ def time_embeddings(model: nn.Module, cfg: UNetConfig, timestep,
     """Timestep + SDXL text_time micro-conditioning -> [B, temb] through
     ``model``'s ``time_embedding``/``add_embedding`` MLPs (the UNet's or a
     ControlNet's). The sinusoids run in fp32 and are cast to the model
-    dtype before the two MLPs, as in the JAX package."""
+    dtype before the two MLPs, as in the JAX package. ``timestep``: a host
+    number, filled on the device (no copy)."""
     b = text_embeds.shape[0]
-    t = profiling.sync(torch.as_tensor, timestep, dtype=torch.float32,
-                       device=text_embeds.device).expand(b)
+    t = torch.full((), float(timestep), dtype=torch.float32,
+                   device=text_embeds.device).expand(b)
     t_emb = layers.timestep_embedding(t, cfg.block_out_channels[0])
     te = model.time_embedding
     temb = te.linear_2(torch.nn.functional.silu(

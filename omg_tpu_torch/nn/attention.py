@@ -39,7 +39,6 @@ from omg_tpu_torch.nn import layers
 from omg_tpu_torch.ops import flash_attention as fa
 from omg_tpu_torch.ops import quant
 from omg_tpu_torch.parallel import comm
-from omg_tpu_torch.utils import profiling
 
 # Sequence-sharded self-attentions that ran the plain version (CPU
 # tensors, or shapes the sequence-local gate refuses); K1b launches are
@@ -197,9 +196,8 @@ class Attention(nn.Module):
         if ip is not None and ip_context is not None:
             ip_out = sdpa(qh, self._split_heads(ip.to_k_ip(ip_context)),
                           self._split_heads(ip.to_v_ip(ip_context)))
-            out = out + profiling.sync(torch.as_tensor, ip_scale,
-                                       dtype=out.dtype,
-                                       device=out.device) * ip_out
+            out = out + torch.full((), float(ip_scale), dtype=out.dtype,
+                                   device=out.device) * ip_out
 
         b, h, n, d = out.shape
         out = out.transpose(1, 2).reshape(b, n, h * d)

@@ -1413,8 +1413,12 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                          else zeros for ci in concept_inputs_r[r]])
             for r in range(R)])
 
-    base_rows = [r * L + j for r in range(R) for j in range(3)]
-    concept_rows = [r * L + j for r in range(R) for j in range(3, L)]
+    # the base and concept lanes' rows, on the card once for every step
+    rows = profiling.sync(
+        torch.as_tensor, [r * L + j for r in range(R) for j in range(3)]
+        + [r * L + j for r in range(R) for j in range(3, L)],
+        device=cache_r[0].latents.device)
+    base_rows, concept_rows = rows[:3 * R], rows[3 * R:]
     base_cn = _base_cn_lanes(base_cn_params, base_cn_conds_r, 3)
     concept_cn = ()
     if concept_cn_params is not None and concept_cn_conds_r is not None:
@@ -1455,15 +1459,14 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                 if controller is not None else None)
         def residuals():
             return _lane_residuals(
-                _controlnet_residuals(base_cn, _rows(lanes, base_rows), t,
-                                      _rows(embeds, base_rows),
-                                      _rows(tembeds, base_rows),
-                                      _rows(tids, base_rows), step_i=i,
+                _controlnet_residuals(base_cn, lanes[base_rows], t,
+                                      embeds[base_rows], tembeds[base_rows],
+                                      tids[base_rows], step_i=i,
                                       num_steps=sched.num_steps),
-                _controlnet_residuals(concept_cn, _rows(lanes, concept_rows),
-                                      t, _rows(embeds, concept_rows),
-                                      _rows(tembeds, concept_rows),
-                                      _rows(tids, concept_rows), step_i=i,
+                _controlnet_residuals(concept_cn, lanes[concept_rows], t,
+                                      embeds[concept_rows],
+                                      tembeds[concept_rows],
+                                      tids[concept_rows], step_i=i,
                                       num_steps=sched.num_steps),
                 3, 2 * K)
         eps_all = dc.step(unet, i, lanes, t, embeds, residuals,

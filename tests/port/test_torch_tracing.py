@@ -21,7 +21,6 @@ import torch
 from omg_tpu_torch import config
 from omg_tpu_torch import lora as lora_lib
 from omg_tpu_torch.models import controlnet
-from omg_tpu_torch.models import unet as unet_lib
 from omg_tpu_torch.nn import layers
 from omg_tpu_torch.pipelines import multiconcept, omg, sdxl
 from omg_tpu_torch.text.tokenizer import ToyTokenizer
@@ -188,6 +187,10 @@ def test_generate_batch_span_tree(tiny):
     assert {req.total(s, "lora.lane_deltas") for s in s2} == {14 * n_leaves}
     assert {req.total(s, "lora.live_lane_deltas") for s in s2} == {
         8 * n_leaves}
+    # no step copies to the card but P2P's one upload of the two pairs'
+    # lane index
+    assert {req.total(s, "sync") for s in stage_steps(req, "stage1")} == {0}
+    assert [req.total(s, "sync") for s in s2] == [1] + [0] * (len(s2) - 1)
     # a single request runs serially: a generate span inside the batch's
     with torch.inference_mode():
         eng.generate_batch([request(loras)])
@@ -215,26 +218,19 @@ def test_timings_are_the_phase_spans(tiny):
 
 
 def test_sync_counts_and_live_lora_lanes(tiny):
-    """Per stage-1 step: the sigma, the UNet's timestep and the guidance
-    scale go to the card (3). Per stage-2 step: two sigmas, the timestep,
-    P2P's source and destination rows at every cross-attention, the
-    guidance scale, and in the self-replace window the row index of every
-    edited self-attention. SDXL: 3, and 144 (204 in the window)."""
+    """No step copies to the card: the sigma, the UNet's timestep and the
+    guidance scale are filled on the device, and P2P's lane indices go
+    there once a request, in one copy, when the first stage-2 step's first
+    edited attention asks for them (``P2PControl.lane_index``)."""
     eng, loras = tiny
     generate(eng, loras)
     req = last("omg.generate")
-    u = eng.cfg.unet
-    n_cross = unet_lib.num_cross_attention_layers(u)
-    d = u.transformer_layers_per_block[-1]
-    n_self = (2 * u.layers_per_block + 2) * d   # the deepest level's
-    window = range(0, int(STEPS * 0.4))
     assert [req.total(s, "sync") for s in stage_steps(req, "stage1")] == \
-        [3] * STEPS
-    assert [req.total(s, "sync") for s in stage_steps(req, "stage2")] == [
-        4 + 2 * n_cross + (n_self if i in window else 0)
-        for i in range(FUSION + 1, STEPS)]
-    assert all(req.total(s, "sync_wait_ns") > 0
-               for s in stage_steps(req, "stage2"))
+        [0] * STEPS
+    s2 = stage_steps(req, "stage2")
+    assert [req.total(s, "sync") for s in s2] == [1] + [0] * (len(s2) - 1)
+    assert req.total(s2[0], "sync_wait_ns") > 0
+    assert all(req.total(s, "sync_wait_ns") == 0 for s in s2[1:])
     # K = 2: 3 base lanes carry the zero pad, 4 concept lanes an adapter
     (stage2,) = req.children(req.root, "stage2")
     lanes = req.total(stage2, "lora.lane_deltas")
@@ -297,9 +293,9 @@ def test_text_to_image_span_tree(tiny):
     for s in steps:
         (u,) = req.children(s)
         assert u.name == "unet"
-        # the sigma and the timestep; the guidance scale is made on the
-        # device, which on the CPU is the host: it counts here only
-        assert req.total(s, "sync") == 3
+        # the sigma and the timestep are filled on the device, and the
+        # guidance scale is there already
+        assert req.total(s, "sync") == 0
         assert u.counters["lora.live_lane_deltas"] == \
             u.counters["lora.lane_deltas"] == 4 * len(loras[0]["unet"])
 
@@ -380,7 +376,9 @@ def test_spans_are_profiler_ranges_on_its_clock(tiny):
 def test_no_uncounted_sync_on_the_card(entry, monkeypatch):
     """Under CUDA's sync debug mode, every synchronizing call that a tiny
     request makes from the program's code is made in ``profiling.sync``
-    (the phases' ``torch.cuda.synchronize`` does not warn)."""
+    (the phases' ``torch.cuda.synchronize`` does not warn), and none is
+    made inside a denoise step but P2P's one upload of its lane indices
+    in an OMG request."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: sync debug mode is CUDA's")
     dev = torch.device("cuda")
@@ -398,13 +396,17 @@ def test_no_uncounted_sync_on_the_card(entry, monkeypatch):
 
     run()                                   # warm
     torch.cuda.synchronize()
-    sites = []
+    sites, in_step = [], []
 
     def show(message, category, filename, lineno, file=None, line=None):
         if "synchronizing" in str(message):
             program = [f for f in traceback.extract_stack()
                        if "omg_tpu_torch" in f.filename]
             sites.append(program[-1] if program else None)
+            req = profiling._LOCAL.request
+            if req is not None and any(s.name == "step" for s in req.open):
+                in_step.append(program[-2].name if len(program) > 1
+                               else None)
 
     with warnings.catch_warnings():
         warnings.simplefilter("always")
@@ -421,3 +423,8 @@ def test_no_uncounted_sync_on_the_card(entry, monkeypatch):
     assert mine and not outside, outside
     req = profiling.REQUESTS[-1]
     assert req.total(req.root, "sync") >= len(mine)
+    assert set(in_step) <= ({"lane_index"} if entry != "text_to_image"
+                            else set()), in_step
+    steps = [s for s in req.spans if s.name == "step"]
+    assert sum(req.total(s, "sync") for s in steps) == \
+        (0 if entry == "text_to_image" else 1)
