@@ -1597,8 +1597,9 @@ def write_xl1(path: str, device) -> int:
 def write_instantid(root: str, device, cfg, rec: dict) -> tuple:
     """(d)'s inputs from phase 8's seeds: an IdentityNet directory (seed
     33, bf16), an ``ip-adapter.bin`` in the upstream nested layout with IP
-    keys 1, 3, 5, ... (the resampler seed 31, the IP layers seed 32, fp16
-    as published) and two face PNGs with ``.arcface.npy`` sidecars."""
+    keys 1, 3, 5, ... in diffusers' order, down, up, mid (the resampler
+    seed 31, the IP layers seed 32, fp16 as published) and two face PNGs
+    with ``.arcface.npy`` sidecars."""
     idnet = os.path.join(root, "ControlNetModel")
     os.makedirs(idnet)
     _write_json(os.path.join(idnet, "config.json"), CONTROLNET_JSON)
@@ -1614,9 +1615,11 @@ def write_instantid(root: str, device, cfg, rec: dict) -> tuple:
                                  cfg.unet)
     nested = {"image_proj": {k: v.half().cpu()
                              for k, v in rs.state_dict().items()},
-              "ip_adapter": {f"{2 * int(k.split('.')[0]) + 1}."
-                             f"{k.split('.', 1)[1]}": v.half().cpu()
-                             for k, v in ip.state_dict().items()}}
+              "ip_adapter": {f"{2 * slot + 1}.{name}.weight":
+                             getattr(ip[pos], name).weight.half().cpu()
+                             for slot, pos in enumerate(
+                                 unet_lib.ip_file_order(cfg.unet))
+                             for name in ("to_k_ip", "to_v_ip")}}
     adapter = os.path.join(root, "ip-adapter.bin")
 
     def save():

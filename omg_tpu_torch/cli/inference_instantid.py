@@ -108,6 +108,7 @@ def main(argv=None):
     adapter_sd = convert.load_state_dict(args.face_adapter_path)
     rs_cfg = convert.infer_resampler_cfg(adapter_sd, dtype=cfg.unet.dtype)
     adapter = convert.convert_ip_adapter(adapter_sd, rs_cfg,
+                                         unet_cfg=cfg.unet,
                                          dtype=cfg.unet.dtype, device=device)
     iid = omg_lib.InstantIDModels(
         resampler_cfg=rs_cfg, resampler_params=adapter["image_proj"],

@@ -130,6 +130,7 @@ def build_server(args, mesh=None):
         adapter_sd = convert.load_state_dict(args.face_adapter_path)
         rs_cfg = convert.infer_resampler_cfg(adapter_sd, dtype=cfg.unet.dtype)
         adapter = convert.convert_ip_adapter(adapter_sd, rs_cfg,
+                                             unet_cfg=cfg.unet,
                                              dtype=cfg.unet.dtype,
                                              device=device)
         idnet_cfg = idnet = None

@@ -279,15 +279,18 @@ def convert_dpt(sd_or_path, cfg: Optional[dpt.DPTConfig] = None, *,
 
 
 def convert_ip_adapter(sd_or_path, cfg: Optional[ResamplerConfig] = None,
-                       *, dtype=torch.bfloat16, device="cuda") -> dict:
+                       *, unet_cfg: Optional[UNetConfig] = None,
+                       dtype=torch.bfloat16, device="cuda") -> dict:
     """InstantID / IP-Adapter ``.bin`` (nested or flat) -> {"image_proj":
     ``Resampler``, "ip_adapter": ``ModuleList`` of ``IPKV`` in attn2
     traversal order}. The file numbers its IP layers 1, 3, 5, ... (every
-    other attention processor is a cross-attention); they are taken in
-    that order. The resampler's weights load as they are (upstream's
-    attention scale, ``models/resampler.py``). ``cfg``: the resampler's
-    geometry, read off the file when None; ``dtype`` is the IP layers'
-    (the UNet's)."""
+    other attention processor is a cross-attention) in diffusers'
+    ``attn_processors`` order, down, up, mid; they are put in the
+    forward's order, down, mid, up, for the UNet of ``unet_cfg``
+    (SDXL's when None; ``unet.ip_file_order``). The resampler's weights
+    load as they are (upstream's attention scale,
+    ``models/resampler.py``). ``cfg``: the resampler's geometry, read off
+    the file when None; ``dtype`` is the IP layers' (the UNet's)."""
     device = layers.target_device(device, "convert_ip_adapter")
     sd = as_state_dict(sd_or_path)
     if cfg is None:
@@ -299,13 +302,19 @@ def convert_ip_adapter(sd_or_path, cfg: Optional[ResamplerConfig] = None,
         if k.startswith("ip_adapter."):
             idx, name = k[len("ip_adapter."):].split(".", 1)
             by_layer.setdefault(int(idx), {})[name] = v
-    order = sorted(by_layer)
+    in_file = [by_layer[i] for i in sorted(by_layer)]
+    order = unet.ip_file_order(unet_cfg or UNetConfig())
+    if len(order) != len(in_file):
+        raise ValueError(f"the adapter has {len(in_file)} IP layers; the "
+                         f"UNet has {len(order)} cross-attentions")
+    walk = [None] * len(order)
+    for slot, pos in enumerate(order):
+        walk[pos] = in_file[slot]
     ip = nn.ModuleList([attention.IPKV(
-        int(by_layer[i]["to_k_ip.weight"].shape[1]),
-        int(by_layer[i]["to_k_ip.weight"].shape[0]), dtype=dtype,
-        device=device) for i in order])
-    copy_into(ip, {f"{n}.{name}": by_layer[i][name]
-                   for n, i in enumerate(order) for name in by_layer[i]})
+        int(w["to_k_ip.weight"].shape[1]), int(w["to_k_ip.weight"].shape[0]),
+        dtype=dtype, device=device) for w in walk])
+    copy_into(ip, {f"{n}.{name}": w[name]
+                   for n, w in enumerate(walk) for name in w})
     return {"image_proj": copy_into(resampler.Resampler(cfg, device),
                                     image_proj),
             "ip_adapter": ip}

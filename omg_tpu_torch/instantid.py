@@ -144,7 +144,8 @@ def encode_face_tokens(resampler: Resampler,
     emb = profiling.sync(torch.as_tensor, embedding, dtype=torch.float32,
                          device=resampler.latents.device)
     emb = emb.reshape(1, -1, resampler.cfg.embedding_dim)
-    return resampler(torch.cat([torch.zeros_like(emb), emb]))
+    with profiling.span("resampler"):
+        return resampler(torch.cat([torch.zeros_like(emb), emb]))
 
 
 def analyze_faces(image_rgb: np.ndarray):

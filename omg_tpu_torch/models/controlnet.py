@@ -121,7 +121,7 @@ class ControlNetModel(nn.Module):
         self.controlnet_mid_block = layers.Conv2d(mid_ch, mid_ch, 1, **kw)
         layers.set_lora_keys(self)
 
-    @profiling.spanned("controlnet")
+    @profiling.spanned("controlnet", timed=True)
     def forward(self, sample: torch.Tensor, timestep,
                 encoder_hidden_states: torch.Tensor,
                 cond_image: torch.Tensor, *, text_embeds: torch.Tensor,

@@ -383,6 +383,21 @@ def num_cross_attention_layers(cfg: UNetConfig) -> int:
             + (cfg.layers_per_block + 1) * sum(depths))
 
 
+def ip_file_order(cfg: UNetConfig) -> list:
+    """The traversal index of each IP layer of an IP-Adapter file, in the
+    file's order: diffusers' ``attn_processors``, which lists the down
+    blocks' attn2, then the up blocks', then the mid block's
+    (``UNet2DConditionModel`` registers ``up_blocks`` before
+    ``mid_block``), where the forward takes down, mid, up."""
+    depths = list(cfg.transformer_layers_per_block)
+    n_down = cfg.layers_per_block * sum(depths)
+    n_mid = depths[-1]
+    n_up = (cfg.layers_per_block + 1) * sum(depths)
+    return (list(range(n_down))
+            + list(range(n_down + n_mid, n_down + n_mid + n_up))
+            + list(range(n_down, n_down + n_mid)))
+
+
 def init_ip_layers(generator: torch.Generator, cfg: UNetConfig,
                    device=None) -> nn.ModuleList:
     """Random IP-Adapter projections for every attn2 of a UNet of ``cfg``,

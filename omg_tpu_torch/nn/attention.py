@@ -39,6 +39,7 @@ from omg_tpu_torch.nn import layers
 from omg_tpu_torch.ops import flash_attention as fa
 from omg_tpu_torch.ops import quant
 from omg_tpu_torch.parallel import comm
+from omg_tpu_torch.utils import profiling
 
 # Sequence-sharded self-attentions that ran the plain version (CPU
 # tensors, or shapes the sequence-local gate refuses); K1b launches are
@@ -194,6 +195,7 @@ class Attention(nn.Module):
         if p2p_active and is_cross:
             out = p2p.cross_lane_out(out, qh, kh, vh, sdpa)
         if ip is not None and ip_context is not None:
+            profiling.count("ip.kv_projections", 2)     # to_k_ip, to_v_ip
             ip_out = sdpa(qh, self._split_heads(ip.to_k_ip(ip_context)),
                           self._split_heads(ip.to_v_ip(ip_context)))
             out = out + torch.full((), float(ip_scale), dtype=out.dtype,

@@ -65,8 +65,9 @@ def files(tmp_path_factory):
     ip = unet.init_ip_layers(g, config.tiny_unet())
     adapter = str(root / "ip-adapter.bin")
     torch.save({"image_proj": rs.state_dict(), "ip_adapter": {
-        f"{2 * int(k.split('.')[0]) + 1}.{k.split('.', 1)[1]}": v
-        for k, v in ip.state_dict().items()}}, adapter)
+        f"{2 * slot + 1}.{name}.weight": getattr(ip[pos], name).weight
+        for slot, pos in enumerate(unet.ip_file_order(config.tiny_unet()))
+        for name in ("to_k_ip", "to_v_ip")}}, adapter)
     faces = []
     for i in range(2):
         face = str(root / f"face{i}.png")

@@ -146,26 +146,40 @@ def test_load_controlnet_equals_jax(tmp_path):
     _assert_state_equal(model.state_dict(), want.state_dict())
 
 
+def ip_file_dict(ip, ucfg) -> dict:
+    """The ``ip_adapter`` half of an adapter file holding the traversal-
+    order layers ``ip``: keys 1, 3, 5, ... in diffusers'
+    ``attn_processors`` order, down, up, mid."""
+    return {f"{2 * slot + 1}.{name}.weight": getattr(ip[pos], name).weight
+            for slot, pos in enumerate(unet.ip_file_order(ucfg))
+            for name in ("to_k_ip", "to_v_ip")}
+
+
 def write_ip_adapter_bin(path, seed=6):
     """A tiny InstantID ``ip-adapter.bin`` in the upstream nested layout:
     the resampler under ``image_proj``, the IP projections of the tiny
-    UNet's four attn2 under ``ip_adapter`` with the keys 1, 3, 5, 7."""
+    UNet's four attn2 under ``ip_adapter`` with the keys 1, 3, 5, 7 in
+    diffusers' order -> (path, the IP layers in traversal order)."""
     g = torch.Generator().manual_seed(seed)
     rs = resampler.init_params(g, config.tiny_resampler())
     ip = unet.init_ip_layers(g, config.tiny_unet())
-    nested = {"image_proj": rs.state_dict(), "ip_adapter": {
-        f"{2 * int(k.split('.')[0]) + 1}.{k.split('.', 1)[1]}": v
-        for k, v in ip.state_dict().items()}}
+    nested = {"image_proj": rs.state_dict(),
+              "ip_adapter": ip_file_dict(ip, config.tiny_unet())}
     torch.save(nested, str(path))
-    return str(path)
+    return str(path), ip
 
 
 def test_ip_adapter_equals_jax(tmp_path):
-    path = write_ip_adapter_bin(tmp_path / "ip-adapter.bin")
+    """The port against the JAX converter, which takes the file's layers in
+    the forward's traversal order (a defect of the reference, ROADMAP §3):
+    the port's layer ``ip_file_order[s]`` is JAX's layer s, and the port
+    holds the layers that were written, each in its place."""
+    path, ip = write_ip_adapter_bin(tmp_path / "ip-adapter.bin")
     rs_cfg = convert.infer_resampler_cfg(path, dtype=torch.float32)
     assert rs_cfg == config.tiny_resampler()
-    got = convert.convert_ip_adapter(path, rs_cfg, dtype=torch.float32,
-                                     device="cpu")
+    got = convert.convert_ip_adapter(path, rs_cfg,
+                                     unet_cfg=config.tiny_unet(),
+                                     dtype=torch.float32, device="cpu")
     jsd = jconvert.load_state_dict(path)
     jad = jconvert.convert_ip_adapter(jsd, dtype=jnp.float32)
     jrs = jconvert.infer_resampler_cfg(jsd, dtype=jnp.float32)
@@ -177,12 +191,80 @@ def test_ip_adapter_equals_jax(tmp_path):
         _without_none(np_tree(jad["image_proj"])), rs_cfg, device="cpu")
     want_ip = from_jax.ip_layers_from_jax(np_tree(jad["ip_adapter"]),
                                           config.tiny_unet(), device="cpu")
+    order = unet.ip_file_order(config.tiny_unet())
+    assert order != sorted(order)
     _assert_state_equal(got["image_proj"].state_dict(),
                         want_rs.state_dict())
-    _assert_state_equal(got["ip_adapter"].state_dict(),
-                        want_ip.state_dict())
+    _assert_state_equal(
+        got["ip_adapter"].state_dict(),
+        {f"{order[int(k.split('.')[0])]}.{k.split('.', 1)[1]}": v
+         for k, v in want_ip.state_dict().items()})
+    _assert_state_equal(got["ip_adapter"].state_dict(), ip.state_dict())
     assert len(got["ip_adapter"]) == unet.num_cross_attention_layers(
         config.tiny_unet())
+
+
+def test_ip_adapter_file_order_at_sdxl_widths():
+    """An SDXL adapter file lists its 70 IP layers as diffusers'
+    ``attn_processors`` does: down blocks (640 x 4, 1280 x 20), up blocks
+    (1280 x 30, 640 x 6), mid block (1280 x 10). Read in that order, each
+    lands on an attn2 of its own width (traversal order: down, mid, up);
+    read in traversal order, a 640-wide layer would meet a 1280-wide
+    attention. The context width is cut to 8 here: the converter reads
+    each layer's shape off the file."""
+    ucfg = config.sdxl_unet()
+    order = unet.ip_file_order(ucfg)
+    assert order == (list(range(24)) + list(range(34, 70))
+                     + list(range(24, 34)))
+    file_widths = [640] * 4 + [1280] * 20 + [1280] * 30 + [640] * 6 + \
+        [1280] * 10
+    rcfg = config.ResamplerConfig(dim=8, depth=1, dim_head=4, heads=2,
+                                  num_queries=2, embedding_dim=4,
+                                  output_dim=8, ff_mult=1,
+                                  dtype=torch.float32)
+    sd = {f"image_proj.{k}": torch.zeros(v.shape) for k, v in
+          resampler.Resampler(rcfg, device="meta").state_dict().items()}
+    for slot, c in enumerate(file_widths):
+        for name in ("to_k_ip", "to_v_ip"):
+            sd[f"ip_adapter.{2 * slot + 1}.{name}.weight"] = torch.zeros(c, 8)
+    got = convert.convert_ip_adapter(sd, rcfg, dtype=torch.float32,
+                                     device="cpu")["ip_adapter"]
+    assert [m.to_k_ip.weight.shape[0] for m in got] == \
+        [640] * 4 + [1280] * 20 + [1280] * 10 + [1280] * 30 + [640] * 6
+    with pytest.raises(ValueError, match="70 cross-attentions"):
+        convert.convert_ip_adapter(
+            {k: v for k, v in sd.items() if not k.startswith(
+                "ip_adapter.139.")}, rcfg, dtype=torch.float32,
+            device="cpu")
+
+
+def test_ip_adapter_in_file_order_drives_a_two_width_unet(tmp_path):
+    """A UNet with attention at two widths (32 and 64): an adapter written
+    in diffusers' order converts to the traversal-order layers, and the
+    forward with them equals the forward with the layers that were
+    written."""
+    ucfg = dataclasses.replace(config.tiny_unet(),
+                               transformer_layers_per_block=(1, 1))
+    g = torch.Generator().manual_seed(2)
+    model = unet.init_params(g, ucfg, device="cpu")
+    ip = unet.init_ip_layers(g, ucfg, device="cpu")
+    rs = resampler.init_params(g, config.tiny_resampler(), device="cpu")
+    path = str(tmp_path / "ip-adapter.bin")
+    torch.save({"image_proj": rs.state_dict(),
+                "ip_adapter": ip_file_dict(ip, ucfg)}, path)
+    got = convert.convert_ip_adapter(path, config.tiny_resampler(),
+                                     unet_cfg=ucfg, dtype=torch.float32,
+                                     device="cpu")["ip_adapter"]
+    x = torch.randn((2, 8, 8, 4), generator=g)
+    ctx = torch.randn((2, 77, ucfg.cross_attention_dim), generator=g)
+    kw = dict(text_embeds=torch.randn((2, 16), generator=g),
+              time_ids=torch.zeros((2, 6)),
+              ip_context=torch.randn((2, 4, ucfg.cross_attention_dim),
+                                     generator=g), ip_scale=0.8)
+    with torch.no_grad():
+        want = model(x, 3, ctx, ip_adapter=ip, **kw)
+        out = model(x, 3, ctx, ip_adapter=got, **kw)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
 
 
 # upstream keys that have no module in the port, with their tree paths
