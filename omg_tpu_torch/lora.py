@@ -167,15 +167,29 @@ class LaneStack(dict):
         self.live = live
 
 
-def stack_loras(trees: Sequence[Optional[dict]], *,
-                repeat: int = 1) -> Optional[LaneStack]:
+def prepare(tree: Optional[dict], dtype) -> Optional[layers.LoraFactors]:
+    """A shared adapter (one flat dict for every lane) as the forward
+    reads it: each leaf's factors in the compute dtype ``dtype``, its scale
+    folded into ``up`` (``layers.lora_factors``). A request makes this once
+    at its entry and drops it when it returns."""
+    if tree is None:
+        return None
+    return layers.LoraFactors({k: layers.lora_factors(leaf, dtype)
+                               for k, leaf in tree.items()})
+
+
+def stack_loras(trees: Sequence[Optional[dict]], *, repeat: int = 1,
+                dtype=None):
     """Stack adapters into per-lane deltas for one batched forward.
 
     Leaves become ``{"down": [L*repeat, in, r], "up": [L*repeat, r, out],
     "scale": [L*repeat]}`` with L = len(trees); lane ``i*repeat + j`` runs
     tree i. Ranks are zero-padded to the largest, and paths missing from a
     tree (or a None tree) contribute zero deltas, which ``live`` leaves
-    out."""
+    out. With ``dtype`` the lanes are the forward's factors in that dtype
+    (a ``layers.LoraFactors``, each adapter's leaf cast once and its scale
+    folded into ``up``; a zero-pad lane's factors are zero), and no fp32
+    stack is made."""
     if all(t is None for t in trees):
         return None
     keys = sorted({k for t in trees if t is not None for k in t})
@@ -184,27 +198,35 @@ def stack_loras(trees: Sequence[Optional[dict]], *,
         leaves = [None if t is None else t.get(key) for t in trees]
         lane_live[key] = tuple(n is not None for n in leaves
                                for _ in range(repeat))
-        live = [n for n in leaves if n is not None]
+        made: dict = {}
+        for n in leaves:
+            if n is not None and id(n) not in made:
+                made[id(n)] = (n if dtype is None
+                               else layers.lora_factors(n, dtype))
+        live = list(made.values())
         d0, u0 = live[0]["down"], live[0]["up"]
         rmax = max(n["down"].shape[-1] for n in live)
-        downs, ups, scales = [], [], []
-        for n in leaves:
-            if n is None:
-                d = d0.new_zeros(d0.shape[:-1] + (rmax,))
-                u = u0.new_zeros(u0.shape[:-2] + (rmax,) + u0.shape[-1:])
-                s = torch.zeros((), dtype=torch.float32, device=d0.device)
-            else:
-                r = n["down"].shape[-1]
-                d = torch.nn.functional.pad(n["down"], (0, rmax - r))
-                u = torch.nn.functional.pad(n["up"], (0, 0, 0, rmax - r))
-                s = torch.as_tensor(n["scale"], dtype=torch.float32,
-                                    device=d0.device)
-            downs += [d] * repeat
-            ups += [u] * repeat
-            scales += [s] * repeat
-        out[key] = {"down": torch.stack(downs), "up": torch.stack(ups),
-                    "scale": torch.stack(scales)}
-    return LaneStack(out, lane_live)
+        zero = {"down": d0.new_zeros(d0.shape[:-1] + (rmax,)),
+                "up": u0.new_zeros(u0.shape[:-2] + (rmax,) + u0.shape[-1:])}
+        if dtype is None:
+            zero["scale"] = torch.zeros((), dtype=torch.float32,
+                                        device=d0.device)
+        padded = {}
+        for i, n in made.items():
+            r = n["down"].shape[-1]
+            padded[i] = {
+                "down": torch.nn.functional.pad(n["down"], (0, rmax - r)),
+                "up": torch.nn.functional.pad(n["up"], (0, 0, 0, rmax - r))}
+            if dtype is None:
+                padded[i]["scale"] = torch.as_tensor(
+                    n["scale"], dtype=torch.float32, device=d0.device)
+        lanes = [zero if n is None else padded[id(n)] for n in leaves
+                 for _ in range(repeat)]
+        out[key] = {role: torch.stack([lane[role] for lane in lanes])
+                    for role in zero}
+    if dtype is None:
+        return LaneStack(out, lane_live)
+    return layers.LoraFactors(out, lane_live)
 
 
 def align_loras(trees: Sequence[Optional[dict]]) -> list:
@@ -222,15 +244,14 @@ def align_loras(trees: Sequence[Optional[dict]]) -> list:
              for k, lf in stacked.items()} for i in range(len(trees))]
 
 
-def lane_slice(stacked: Optional[LaneStack], lo: int,
-               hi: int) -> Optional[LaneStack]:
-    """Lanes [lo, hi) of a ``stack_loras`` result: the rows one rank keeps
-    when a batch's lanes split over ranks."""
+def lane_slice(stacked, lo: int, hi: int):
+    """Lanes [lo, hi) of a ``stack_loras`` result, of the same kind: the
+    rows one rank keeps when a batch's lanes split over ranks."""
     if stacked is None:
         return None
-    return LaneStack({k: {role: leaf[lo:hi] for role, leaf in lf.items()}
-                      for k, lf in stacked.items()},
-                     {k: v[lo:hi] for k, v in stacked.live.items()})
+    return type(stacked)({k: {role: leaf[lo:hi] for role, leaf in lf.items()}
+                          for k, lf in stacked.items()},
+                         {k: v[lo:hi] for k, v in stacked.live.items()})
 
 
 def merge_loras(trees: Sequence[Optional[dict]],

@@ -87,15 +87,23 @@ def _plus_lora(y: torch.Tensor, lin: layers.Linear, inp: torch.Tensor,
     return y if leaf is None else y + lin.counted_delta(leaf, inp, lora)
 
 
-def _fused(inp: torch.Tensor, members: tuple) -> tuple:
+def _fused(inp: torch.Tensor, members: tuple,
+           lora: Optional[dict]) -> tuple:
     """One product over the concatenated projections ``members`` (one
     layout: float, or int8 whose per-output-channel scales concatenate
-    exactly) -> each member's output."""
+    exactly), their LoRA deltas in it -> each member's output. A float
+    product takes the members' deltas through one down GEMM and one
+    up GEMM accumulated into it (``layers.lora_group``); an int8 one
+    adds each member's delta to its chunk."""
     if members[0].quantized:
         y = quant.int8_matmul(inp, torch.cat([m.weight_q for m in members]),
                               torch.cat([m.w_scale for m in members]))
-    else:
-        y = F.linear(inp, torch.cat([m.weight for m in members]))
+        return tuple(_plus_lora(c, m, inp, lora) for c, m in
+                     zip(y.chunk(len(members), dim=-1), members))
+    y = F.linear(inp, torch.cat([m.weight for m in members]))
+    group = layers.lora_group(members, lora, inp)
+    if group is not None:
+        layers.add_lora_(y, inp, *group)
     return y.chunk(len(members), dim=-1)
 
 
@@ -163,17 +171,12 @@ class Attention(nn.Module):
                                               self.to_v)}) == 1
         if fusable and not is_cross and same_qkv:
             # one [C, 3*inner] product for q, k and v (same input)
-            q, k, v = _fused(x, (self.to_q, self.to_k, self.to_v))
-            q = _plus_lora(q, self.to_q, x, lora)
-            k = _plus_lora(k, self.to_k, x, lora)
-            v = _plus_lora(v, self.to_v, x, lora)
+            q, k, v = _fused(x, (self.to_q, self.to_k, self.to_v), lora)
         elif fusable and is_cross and \
                 self.to_k.quantized == self.to_v.quantized:
             # one [C_ctx, 2*inner] product for k and v over the context
             q = self.to_q(x, lora)
-            k, v = _fused(ctx, (self.to_k, self.to_v))
-            k = _plus_lora(k, self.to_k, ctx, lora)
-            v = _plus_lora(v, self.to_v, ctx, lora)
+            k, v = _fused(ctx, (self.to_k, self.to_v), lora)
         else:
             q = self.to_q(x, lora)
             k = self.to_k(ctx, lora)

@@ -77,6 +77,100 @@ def lora_delta(leaf: dict, x: torch.Tensor) -> torch.Tensor:
     return delta * scale
 
 
+def lora_factors(leaf: dict, dtype) -> dict:
+    """A leaf's factors in ``dtype``: ``down``, and ``up`` with the scale
+    folded in (multiplied in fp32, then cast), so that
+    ``(x @ down) @ up`` is ``lora_delta(leaf, x)``."""
+    up = leaf["up"].float()
+    scale = torch.as_tensor(leaf["scale"], dtype=torch.float32,
+                            device=up.device)
+    if up.dim() == 3:
+        scale = scale.reshape(-1, 1, 1)
+    return {"down": leaf["down"].to(dtype), "up": (up * scale).to(dtype)}
+
+
+class LoraFactors(dict):
+    """An adapter as the forward reads it: per module path the factors of
+    ``lora_factors`` in the compute dtype, per lane when 3-D. A request
+    makes it once (``lora.prepare``, ``lora.stack_loras(dtype=...)``) and
+    drops it when it returns. ``live``: as ``lora.LaneStack``'s (None for
+    a shared adapter); ``groups``: the factors of projections fused into
+    one product (``lora_group``), made on first use."""
+
+    def __init__(self, leaves: dict, live: Optional[dict] = None):
+        super().__init__(leaves)
+        self.live = live
+        self.groups: dict = {}
+
+
+def factors_of(leaf: dict, lora: dict, dtype) -> dict:
+    """``leaf`` of ``lora`` as factors: a ``LoraFactors``' own, else made
+    in ``dtype`` on the spot."""
+    return leaf if isinstance(lora, LoraFactors) else lora_factors(leaf,
+                                                                   dtype)
+
+
+def add_lora_(y: torch.Tensor, x: torch.Tensor, down: torch.Tensor,
+              up: torch.Tensor) -> torch.Tensor:
+    """``y += (x @ down) @ up`` in place, the second product accumulated
+    into y by its GEMM (beta = 1): no pass over y of its own. y: a
+    product of x, [.., out]; a 3-D ``down`` is per lane (x [B, N, in])."""
+    xd = torch.matmul(x, down)
+    if up.dim() == 3:
+        return y.baddbmm_(xd, up)
+    y.view(-1, y.shape[-1]).addmm_(xd.reshape(-1, xd.shape[-1]), up)
+    return y
+
+
+def lora_group(members: tuple, lora: Optional[dict], x: torch.Tensor):
+    """The LoRA of the projections ``members`` fused into one product of
+    x (their outputs concatenated): None where no member has a leaf, else
+    ``(down, up)`` with ``(x @ down) @ up`` the members' deltas, side by
+    side. ``down`` is the members' down-projections concatenated, ``up``
+    block-diagonal (a member without a leaf: zero blocks). Counted as each
+    member's own (``Linear.count``). A ``LoraFactors`` keeps a group's
+    factors for the request after its first use."""
+    if lora is None:
+        return None
+    leaves = [m.lora_leaf(lora) for m in members]
+    if all(leaf is None for leaf in leaves):
+        return None
+    for m, leaf in zip(members, leaves):
+        if leaf is not None:
+            m.count(x, lora, in_gemm=True)
+    key = tuple(m.lora_key for m in members)
+    kept = lora.groups.get(key) if isinstance(lora, LoraFactors) else None
+    if kept is not None:
+        return kept
+    fs = [None if leaf is None else factors_of(leaf, lora, x.dtype)
+          for leaf in leaves]
+    ref = next(f for f in fs if f is not None)
+    lead = ref["down"].shape[:-2]
+    ranks = [0 if f is None else f["down"].shape[-1] for f in fs]
+    widths = [m.weight.shape[0] for m in members]
+    down = ref["down"].new_zeros(lead + (x.shape[-1], sum(ranks)))
+    up = ref["up"].new_zeros(lead + (sum(ranks), sum(widths)))
+    r0 = c0 = 0
+    for f, r, c in zip(fs, ranks, widths):
+        if f is not None:
+            down[..., r0:r0 + r] = f["down"]
+            up[..., r0:r0 + r, c0:c0 + c] = f["up"]
+        r0, c0 = r0 + r, c0 + c
+    if isinstance(lora, LoraFactors):
+        lora.groups[key] = (down, up)
+        if all(m.tp is None for m in members):
+            # the members' own factors become views of the group's, so
+            # that the request holds each factor once
+            r0 = c0 = 0
+            for m, f, r, c in zip(members, fs, ranks, widths):
+                if f is not None:
+                    lora[m.lora_key] = {
+                        "down": down[..., r0:r0 + r],
+                        "up": up[..., r0:r0 + r, c0:c0 + c]}
+                r0, c0 = r0 + r, c0 + c
+    return down, up
+
+
 class TPSplit(NamedTuple):
     """A ``Linear``'s tensor-parallel split: ``dim`` 0 splits its output
     columns, 1 its input rows; ``split``: that axis's
@@ -87,7 +181,16 @@ class TPSplit(NamedTuple):
 
 
 class Linear(nn.Module):
-    """``x @ W.T`` plus this layer's LoRA delta, then the bias."""
+    """``x @ W.T`` plus this layer's LoRA delta, then the bias.
+
+    A float layer that holds its whole input axis adds the delta inside
+    the GEMMs: the bias in the base product's epilogue, then ``x @ down``
+    and ``(x @ down) @ up`` accumulated into the product (``add_lora_``),
+    from factors the request prepared once (``LoraFactors``; a raw leaf
+    is made into factors on the spot). An int8 layer, whose product comes
+    back dequantized, and a row-split one, whose partial products are
+    summed over the group before the bias, add the delta as a tensor of
+    its own."""
 
     quantized = False
 
@@ -113,22 +216,40 @@ class Linear(nn.Module):
         """The base product ``x @ W.T``, without LoRA or bias."""
         return F.linear(x, self.weight)
 
-    def counted_delta(self, leaf: dict, x: torch.Tensor,
-                      lora: dict) -> torch.Tensor:
-        """``lora_delta(leaf, x)``, counted per lane: ``lora.lane_deltas``
-        each row of x it is computed for, ``lora.live_lane_deltas`` those
-        whose adapter is not a ``stack_loras`` zero pad (``lora.live``)."""
+    def count(self, x: torch.Tensor, lora: dict, in_gemm: bool) -> None:
+        """Count this layer's delta per lane: ``lora.lane_deltas`` each
+        row of x, ``lora.live_lane_deltas`` those whose adapter is not a
+        ``stack_loras`` zero pad (``lora.live``), and
+        ``lora.gemm_accumulated`` each row whose delta a GEMM accumulates
+        into the product."""
         n, live = x.shape[0], getattr(lora, "live", None)
         profiling.count("lora.lane_deltas", n)
         profiling.count("lora.live_lane_deltas",
                         n if live is None else sum(live[self.lora_key]))
-        return lora_delta(leaf, x)
+        if in_gemm:
+            profiling.count("lora.gemm_accumulated", n)
+
+    def counted_delta(self, leaf: dict, x: torch.Tensor,
+                      lora: dict) -> torch.Tensor:
+        """This layer's delta as a tensor of its own, counted
+        (``count``): ``lora_delta`` of a raw leaf, ``(x @ down) @ up`` of
+        a ``LoraFactors``' one."""
+        self.count(x, lora, in_gemm=False)
+        if not isinstance(lora, LoraFactors):
+            return lora_delta(leaf, x)
+        f = factors_of(leaf, lora, x.dtype)
+        return torch.matmul(torch.matmul(x, f["down"]), f["up"])
 
     def forward(self, x: torch.Tensor, lora: Optional[dict] = None):
         leaf = self.lora_leaf(lora)
         rows = self.tp is not None and self.tp.dim == 1
-        if leaf is None and not self.quantized and not rows:
-            return F.linear(x, self.weight, self.bias)
+        if not self.quantized and not rows:
+            y = F.linear(x, self.weight, self.bias)
+            if leaf is None:
+                return y
+            self.count(x, lora, in_gemm=True)
+            f = factors_of(leaf, lora, x.dtype)
+            return add_lora_(y, x, f["down"], f["up"])
         y = self.matmul(x)
         delta = (self.counted_delta(leaf, x, lora) if leaf is not None
                  else None)

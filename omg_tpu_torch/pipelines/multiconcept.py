@@ -382,12 +382,13 @@ def make_concept_inputs(embeds_pos, pooled_pos, embeds_neg, pooled_neg,
 
 
 def _concept_lane_conditioning(concept_inputs, concept_loras,
-                               n_base_rows: int) -> tuple:
+                               n_base_rows: int, dtype) -> tuple:
     """(embeds, text_embeds, time_ids) over the 2K concept lanes, then the
     LoRA and the IP tokens over ``n_base_rows`` base lanes (no adapter,
     zero tokens) followed by the concept lanes (concept k on lanes 2k,
     2k+1; zero tokens for a concept without a face). The IP tokens are
-    None when no concept has any."""
+    None when no concept has any. The LoRA is the lanes' factors in the
+    UNet's compute dtype ``dtype`` (``lora.stack_loras``)."""
     K = len(concept_inputs)
     c_embeds = torch.cat([ci.prompt_embeds for ci in concept_inputs])
     c_tembeds = torch.cat([ci.text_embeds for ci in concept_inputs])
@@ -396,7 +397,7 @@ def _concept_lane_conditioning(concept_inputs, concept_loras,
         [None] * n_base_rows
         + [(concept_loras[k].get("unet", concept_loras[k])
             if concept_loras[k] is not None else None)
-           for k in range(K) for _ in range(2)])
+           for k in range(K) for _ in range(2)], dtype=dtype)
     ip_ctx = None
     with_ip = [ci.ip_context for ci in concept_inputs
                if ci.ip_context is not None]
@@ -448,7 +449,8 @@ def multiconcept_step(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
         if active:
             rl2 = lin[3:4].expand((2 * K,) + tuple(lin.shape[1:]))
             embeds, tembeds, tids, lane_lora, ip_ctx = \
-                _concept_lane_conditioning(concept_inputs, concept_loras, 0)
+                _concept_lane_conditioning(concept_inputs, concept_loras, 0,
+                                           unet.cfg.dtype)
             k_down, k_mid = _concept_cn_residuals(
                 concept_controlnets, concept_inputs, rl2, t, tembeds, tids,
                 step_i=i, num_steps=sched.num_steps)
@@ -733,7 +735,8 @@ def _denoise_mc_range_traj(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     K = len(concept_inputs)
     bidx = [2, 1, 3]    # [cond_A, uncond_B, cond_B] of the 4-row layout
     c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx = \
-        _concept_lane_conditioning(concept_inputs, concept_loras, 3)
+        _concept_lane_conditioning(concept_inputs, concept_loras, 3,
+                                   unet.cfg.dtype)
     ipk = concept_ip_adapters[0] if concept_ip_adapters else None
     embeds = torch.cat([_rows(base_inputs.prompt_embeds, bidx), c_embeds])
     tembeds = torch.cat([_rows(base_inputs.text_embeds, bidx), c_tembeds])
@@ -826,7 +829,8 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                 base_controlnets=base_controlnets)
         return x
     c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx = \
-        _concept_lane_conditioning(concept_inputs, concept_loras, 4)
+        _concept_lane_conditioning(concept_inputs, concept_loras, 4,
+                                   unet.cfg.dtype)
     embeds = torch.cat([base_inputs.prompt_embeds, c_embeds])
     tembeds = torch.cat([base_inputs.text_embeds, c_tembeds])
     tids = torch.cat([base_inputs.time_ids, c_tids])
@@ -984,7 +988,7 @@ def _denoise_cropped_batch(
     c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx = \
         _concept_lane_conditioning(
             [ci for cl in concept_inputs_r for ci in cl],
-            [lo for ll in concept_loras_r for lo in ll], 0)
+            [lo for ll in concept_loras_r for lo in ll], 0, unet.cfg.dtype)
     ipk = concept_ip_adapters[0] if concept_ip_adapters else None
     frame = tuple(xs[0].shape[1:])
     ws = frame[1] // K
@@ -1400,7 +1404,8 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
         lora for r in range(R) for lora in
         [None] * 3 + [(concept_loras_r[r][k].get("unet", concept_loras_r[r][k])
                        if concept_loras_r[r][k] is not None else None)
-                      for k in range(K) for _ in range(2)]])
+                      for k in range(K) for _ in range(2)]],
+        dtype=unet.cfg.dtype)
     ipk = concept_ip_adapters[0] if concept_ip_adapters else None
     ip_ctx = None
     with_ip = [ci.ip_context for cl in concept_inputs_r for ci in cl

@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from omg_tpu_torch import config as cfglib
+from omg_tpu_torch import lora as lora_lib
 from omg_tpu_torch.diffusion import sampling, schedulers
 from omg_tpu_torch.models import clip, unet, vae
 from omg_tpu_torch.parallel import comm
@@ -183,8 +184,10 @@ def text_to_image(cfg: SDXLConfig, params: SDXLParams, *,
     of both tokenizers for the prompt and the negative prompt -> images
     [B, H, W, 3] in [0, 1], decoded in fp32. ``generator`` draws the
     initial noise (``prepare_latents``); the ids move to the UNet's
-    device. The call is one request of ``utils/profiling`` (spans
-    ``encode``, ``denoise`` and a timed ``decode``)."""
+    device. ``lora``: one adapter for every lane, made into the UNet's
+    factors once for the request (``lora.prepare``). The call is one
+    request of ``utils/profiling`` (spans ``encode``, ``denoise`` and a
+    timed ``decode``)."""
     device = next(params.unet.parameters()).device
     with profiling.span("encode"):
         ids = [profiling.sync(x.to, device)
@@ -199,6 +202,7 @@ def text_to_image(cfg: SDXLConfig, params: SDXLParams, *,
         sched = schedulers.make_schedule(scheduler, steps)
         latents = prepare_latents(generator, embeds_pos.shape[0], height,
                                   width, sched, cfg.unet.dtype, device=device)
-        latents = denoise(cfg, sched, params.unet, latents, inputs, lora=lora)
+        latents = denoise(cfg, sched, params.unet, latents, inputs,
+                          lora=lora_lib.prepare(lora, cfg.unet.dtype))
     with profiling.span("decode", timed=True):
         return decode_latents(cfg, params.vae, latents)

@@ -55,7 +55,7 @@ def _unet_forward(cfg: sdxl.SDXLConfig, unet, sched, *, height: int,
                                               for r in range(R)])
         if sample_lora is not None:
             kw["lora"] = lora_lib.stack_loras(
-                ([None] * 3 + [sample_lora] * (2 * K)) * R)
+                ([None] * 3 + [sample_lora] * (2 * K)) * R, dtype=u.dtype)
         if ip_layers is not None:
             kw.update(ip_adapter=ip_layers, ip_scale=ip_scale,
                       ip_context=zeros(lanes, ip_tokens,

@@ -6,10 +6,12 @@ import numpy as np
 import pytest
 import torch
 
+from omg_tpu import lora as jlora
 from omg_tpu.control import p2p as jp2p
 from omg_tpu.nn import attention as jattention
 from omg_tpu.nn import layers as jlayers
 from omg_tpu_torch import from_jax
+from omg_tpu_torch import lora as lora_lib
 from omg_tpu_torch.control import p2p
 from omg_tpu_torch.nn import attention, layers
 
@@ -49,6 +51,101 @@ def test_linear_with_lora(per_lane, bias):
     np.testing.assert_allclose(
         lin(t(x), {"other": {}}).numpy(),
         np.asarray(jlayers.linear(to_jax(p), jnp.asarray(x))), atol=ATOL)
+
+
+def _lane_trees(rng, d_in, d_out):
+    """Three lanes' adapters in the JAX layout: rank 4, none (the zero
+    pad), rank 2 (padded to 4 in the stack)."""
+    return [lora_leaf(rng, d_in, d_out, rank=4, scale=0.7), None,
+            lora_leaf(rng, d_in, d_out, rank=2, scale=1.3)]
+
+
+@pytest.mark.parametrize("form", ["shared", "lanes"])
+@pytest.mark.parametrize("bias", [False, True])
+def test_linear_with_lora_in_gemm(form, bias):
+    """The factors a request prepares once (``lora.prepare``, or
+    ``stack_loras(dtype=...)`` over adapters of different ranks and a
+    zero-pad lane) accumulated into the product, against JAX's delta; the
+    zero-pad lane is the plain product exactly, and a second call with
+    the same factors gives the same result."""
+    rng = np.random.default_rng(6)
+    p = {"weight": normal(rng, 12, 20)}
+    if bias:
+        p["bias"] = normal(rng, 20)
+    x = normal(rng, 3, 5, 12)
+    lin = _linear(p, "lin")
+    if form == "shared":
+        leaf = lora_leaf(rng, 12, 20, scale=0.7)
+        jleaf = to_jax(leaf)
+        lora = lora_lib.prepare(from_jax.lora_from_jax(
+            {"lin": leaf}, device="cpu"), torch.float32)
+    else:
+        trees = [None if lf is None else {"lin": lf}
+                 for lf in _lane_trees(rng, 12, 20)]
+        jleaf = jlora.stack_loras([None if tr is None else to_jax(tr)
+                                   for tr in trees])["lin"]
+        lora = lora_lib.stack_loras(
+            [from_jax.lora_from_jax(tr, device="cpu") for tr in trees],
+            dtype=torch.float32)
+        assert lora["lin"]["down"].shape == (3, 12, 4)
+    assert isinstance(lora, layers.LoraFactors)
+    want = np.asarray(jlayers.linear(to_jax(p), jnp.asarray(x), jleaf))
+    got = lin(t(x), lora)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    assert torch.equal(lin(t(x), lora), got)
+    if form == "lanes":
+        assert torch.equal(got[1], lin(t(x))[1])
+
+
+def _mha_lora(rng, cross, members, form):
+    """(JAX LoRA tree for ``jattention.mha``, the port's LoRA): a leaf on
+    every projection, or on to_q, to_v and to_out only (fused q/k/v and
+    k/v groups with a member that has none); raw leaves, one prepared
+    adapter, or three stacked lanes of ranks 4, none and 2."""
+    kin = 12 if cross else 32
+    names = (("to_q", 32), ("to_k", kin), ("to_v", kin), ("to_out", 32))
+    keep = [n for n, _ in names
+            if members == "all" or n in ("to_q", "to_v", "to_out")]
+    if form != "lanes":
+        tree = {n: lora_leaf(rng, d, 32, scale=0.7) for n, d in names
+                if n in keep}
+        tl = from_jax.lora_from_jax(tree, device="cpu")
+        return to_jax(tree), (tl if form == "raw"
+                              else lora_lib.prepare(tl, torch.float32))
+    per = {n: _lane_trees(rng, d, 32) for n, d in names if n in keep}
+    trees = [None if i == 1 else {n: per[n][i] for n in keep}
+             for i in range(3)]
+    jl = jlora.stack_loras([None if tr is None else to_jax(tr)
+                            for tr in trees])
+    return jl, lora_lib.stack_loras(
+        [from_jax.lora_from_jax(tr, device="cpu") for tr in trees],
+        dtype=torch.float32)
+
+
+@pytest.mark.parametrize("cross", [False, True])
+@pytest.mark.parametrize("members", ["all", "some"])
+@pytest.mark.parametrize("form", ["raw", "shared", "lanes"])
+def test_mha_with_lora_in_gemm(cross, members, form):
+    """The fused q/k/v (self) and k/v (cross) products with their
+    members' deltas accumulated into them, some members without a leaf,
+    against JAX. A second call reuses the group's factors and gives the
+    same result; the zero-pad lane is the plain attention exactly."""
+    rng, jp, mod, _ = _mha_pair(7, cross)
+    x = normal(rng, 3, 10, 32)
+    ctx = normal(rng, 3, 7, 12) if cross else None
+    jl, lora = _mha_lora(rng, cross, members, form)
+    want = jattention.mha(to_jax(jp), jnp.asarray(x), num_heads=4,
+                          context=None if ctx is None else jnp.asarray(ctx),
+                          lora=jl)
+    tctx = None if ctx is None else t(ctx)
+    got = mod(t(x), tctx, lora=lora)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    assert torch.equal(mod(t(x), tctx, lora=lora), got)
+    if form != "raw":
+        fused = ("to_k", "to_v") if cross else ("to_q", "to_k", "to_v")
+        assert list(lora.groups) == [fused]
+    if form == "lanes":
+        assert torch.equal(got[1], mod(t(x), tctx)[1])
 
 
 @pytest.mark.parametrize("which", ["group", "layer"])

@@ -22,6 +22,7 @@ from omg_tpu_torch import config
 from omg_tpu_torch import lora as lora_lib
 from omg_tpu_torch.models import controlnet
 from omg_tpu_torch.nn import layers
+from omg_tpu_torch.parallel import comm, mesh
 from omg_tpu_torch.pipelines import multiconcept, omg, sdxl
 from omg_tpu_torch.text.tokenizer import ToyTokenizer
 from omg_tpu_torch.utils import profiling
@@ -269,7 +270,64 @@ def test_lora_lanes_are_counted_where_the_deltas_run(tiny):
                 lin(x, lora_lib.lane_slice(stack, lo, lo + 2))
         (span,) = profiling.REQUESTS[-1].spans
         assert span.counters == {"lora.lane_deltas": 2,
-                                 "lora.live_lane_deltas": live}
+                                 "lora.live_lane_deltas": live,
+                                 "lora.gemm_accumulated": 2}
+
+
+@pytest.mark.parametrize("entry", ["generate", "generate_batch",
+                                   "text_to_image"])
+def test_lora_deltas_accumulate_in_the_gemm(tiny, entry):
+    """Every lane delta of stage 2 (``text_to_image``: of its denoise) is
+    added by the accumulate of a GEMM: ``lora.gemm_accumulated`` counts
+    what ``lora.lane_deltas`` counts."""
+    eng, loras = tiny
+    if entry == "text_to_image":
+        text_to_image(eng.cfg, eng.params, lora=loras[0]["unet"])
+        req, phase = last("sdxl.text_to_image"), "denoise"
+    else:
+        if entry == "generate":
+            generate(eng, loras)
+        else:
+            with torch.inference_mode():
+                eng.generate_batch([request(loras, seed=s) for s in (3, 4)])
+        req, phase = last(f"omg.{entry}"), "stage2"
+    (span,) = req.children(req.root, phase)
+    lanes = req.total(span, "lora.lane_deltas")
+    assert lanes > 0 and req.total(span, "lora.gemm_accumulated") == lanes
+
+
+@pytest.mark.parametrize("layout", ["int8", "rows"])
+def test_no_gemm_accumulate_off_the_float_path(layout):
+    """A W8A8 projection (its product comes back dequantized) and a
+    row-split one (its partial products are summed over the group before
+    the bias; here a group of one rank) add each delta as a tensor of its
+    own: ``lora.gemm_accumulated`` stays 0, the lane counts as before."""
+    with torch.inference_mode():
+        eng, loras = build(torch.device("cpu"),
+                           **({"quantize": "int8"} if layout == "int8"
+                              else {}))
+    unet = eng.params.unet
+    if layout == "int8":
+        assert all(isinstance(m, layers.QuantLinear)
+                   for m in unet.modules() if isinstance(m, layers.Linear)
+                   and m.lora_key in loras[0]["unet"])
+    else:
+        one = comm.Group((0,), 0)
+        for m in unet.modules():
+            if isinstance(m, layers.Linear) and m.lora_key.endswith(
+                    "to_out.0"):
+                m.tp = layers.TPSplit(1, mesh.Split(m.weight.shape[1], one))
+        loras = [{"unet": {k: v for k, v in lo["unet"].items()
+                           if k.endswith("to_out.0")}} for lo in loras]
+    generate(eng, loras)
+    req = last("omg.generate")
+    (stage2,) = req.children(req.root, "stage2")
+    n_leaves = len(loras[0]["unet"])
+    assert req.total(stage2, "lora.lane_deltas") == \
+        7 * n_leaves * (STEPS - FUSION - 1)
+    assert 7 * req.total(stage2, "lora.live_lane_deltas") == \
+        4 * req.total(stage2, "lora.lane_deltas")
+    assert req.total(stage2, "lora.gemm_accumulated") == 0
 
 
 def text_to_image(cfg, params, lora=None, steps=3):
