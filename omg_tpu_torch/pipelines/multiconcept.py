@@ -55,9 +55,9 @@ The approximate modes (opt-in, as in JAX):
     ``apply_shallow`` from it, and skip the ControlNet forwards. The cache
     is per lane, so it splits with the lanes and rows of the mesh layouts
     and spans the request axis of the batched programs.
-  * the concept-crop strips (``concept_crop``,
-    ``_denoise_mc_range_traj_cropped``): stage 2's base rows full-frame,
-    each concept's lanes on its vertical strip of the latent.
+  * the concept-crop strips (``concept_crop``, ``_denoise_cropped_batch``):
+    stage 2's base rows full-frame, each concept's lanes on its vertical
+    strip of the latent.
 Both are host control flow here: the JAX package's ``lax.cond`` dispatch
 becomes a Python branch per step.
 
@@ -70,8 +70,9 @@ geometry, step count and scheduler) run as one UNet forward per step over
 their lanes side by side, 2R in stage 1 and R(3+2K) in stage 2, each
 request's lanes contiguous. CFG, region fusion and the scheduler step run
 on each request's slice of the eps, with its own guidance scale and
-scheduler state (DPM++2M's previous x0, LCM's seed), so each request
-follows ``generate``'s arithmetic. A shared ControlNet or IdentityNet runs
+scheduler state (DPM++2M's previous x0, LCM's seed). ``generate`` runs the
+same loops (``_denoise_cfg_batch``, ``_denoise_traj_batch``,
+``_denoise_cropped_batch``) with R = 1. A shared ControlNet or IdentityNet runs
 once over the lanes it serves with per-lane scales; lanes without a
 condition get scale 0, an exact no-op.
 """
@@ -246,7 +247,9 @@ def _concept_cn_residuals(concept_controlnets: Sequence, concept_inputs,
     """ControlNet residuals over the 2K concept lanes in one forward, or
     (None, None) when no concept has one. ``rl``, ``tembeds`` and
     ``tids`` hold the concept lanes [lo, lo + B) (all 2K unless a mesh
-    rank holds a share of them).
+    rank holds a share of them). R requests side by side give their
+    concepts in turn (request r's concept k is pair rK + k), and so one
+    forward over their 2KR concept lanes.
 
     Concepts without a ControlNet get zero-scale lanes (an exact no-op);
     each concept's scale (times its guidance-window gate) applies to its
@@ -381,33 +384,47 @@ def make_concept_inputs(embeds_pos, pooled_pos, embeds_neg, pooled_neg,
         ip_context=ip_context)
 
 
-def _concept_lane_conditioning(concept_inputs, concept_loras,
-                               n_base_rows: int, dtype) -> tuple:
-    """(embeds, text_embeds, time_ids) over the 2K concept lanes, then the
-    LoRA and the IP tokens over ``n_base_rows`` base lanes (no adapter,
-    zero tokens) followed by the concept lanes (concept k on lanes 2k,
-    2k+1; zero tokens for a concept without a face). The IP tokens are
-    None when no concept has any. The LoRA is the lanes' factors in the
-    UNet's compute dtype ``dtype`` (``lora.stack_loras``)."""
-    K = len(concept_inputs)
-    c_embeds = torch.cat([ci.prompt_embeds for ci in concept_inputs])
-    c_tembeds = torch.cat([ci.text_embeds for ci in concept_inputs])
-    c_tids = torch.cat([ci.time_ids for ci in concept_inputs])
+def _base_rows(base_inputs_r: Sequence[BaseInputs], rows: list) -> list:
+    """Each request's (embeds, text_embeds, time_ids) on ``rows`` of its
+    4-row layout (one blocking copy of the index each)."""
+    return [tuple(_rows(x, rows) for x in (b.prompt_embeds, b.text_embeds,
+                                           b.time_ids))
+            for b in base_inputs_r]
+
+
+def _concept_lane_conditioning(concept_inputs_r, concept_loras_r, dtype,
+                               base_rows_r: Optional[list] = None) -> tuple:
+    """The lane conditioning of R requests side by side, each request's
+    lanes its base lanes, then its 2K concept lanes (concept k on lanes
+    2k, 2k+1) -> (embeds, text_embeds, time_ids, LoRA, IP tokens).
+
+    ``base_rows_r``: per request, its base lanes' (embeds, text_embeds,
+    time_ids); they take no adapter and zero IP tokens. None: concept
+    lanes only. The IP tokens are None when no concept has any (zero
+    tokens for a concept without a face). The LoRA is the lanes' factors
+    in the UNet's compute dtype ``dtype`` (``lora.stack_loras``)."""
+    base_r = base_rows_r or [None] * len(concept_inputs_r)
+    n_base = 0 if base_rows_r is None else base_rows_r[0][0].shape[0]
+    fields = [torch.cat([x for b, cl in zip(base_r, concept_inputs_r)
+                         for x in ([] if b is None else [b[f]])
+                         + [getattr(ci, name) for ci in cl]])
+              for f, name in enumerate(("prompt_embeds", "text_embeds",
+                                        "time_ids"))]
     lane_lora = lora_lib.stack_loras(
-        [None] * n_base_rows
-        + [(concept_loras[k].get("unet", concept_loras[k])
-            if concept_loras[k] is not None else None)
-           for k in range(K) for _ in range(2)], dtype=dtype)
+        [lora for ll in concept_loras_r for lora in
+         [None] * n_base + [(lo.get("unet", lo) if lo is not None else None)
+                            for lo in ll for _ in range(2)]], dtype=dtype)
     ip_ctx = None
-    with_ip = [ci.ip_context for ci in concept_inputs
+    with_ip = [ci.ip_context for cl in concept_inputs_r for ci in cl
                if ci.ip_context is not None]
     if with_ip:
         zeros = torch.zeros_like(with_ip[0])
+        base_ip = zeros[:1].expand((n_base,) + tuple(zeros.shape[1:]))
         ip_ctx = torch.cat(
-            [zeros[:1].expand((n_base_rows,) + tuple(zeros.shape[1:]))]
-            + [ci.ip_context if ci.ip_context is not None else zeros
-               for ci in concept_inputs])
-    return c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx
+            [x for cl in concept_inputs_r for x in
+             [base_ip] + [ci.ip_context if ci.ip_context is not None
+                          else zeros for ci in cl]])
+    return (*fields, lane_lora, ip_ctx)
 
 
 def multiconcept_step(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
@@ -449,7 +466,7 @@ def multiconcept_step(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
         if active:
             rl2 = lin[3:4].expand((2 * K,) + tuple(lin.shape[1:]))
             embeds, tembeds, tids, lane_lora, ip_ctx = \
-                _concept_lane_conditioning(concept_inputs, concept_loras, 0,
+                _concept_lane_conditioning([concept_inputs], [concept_loras],
                                            unet.cfg.dtype)
             k_down, k_mid = _concept_cn_residuals(
                 concept_controlnets, concept_inputs, rl2, t, tembeds, tids,
@@ -476,13 +493,17 @@ def denoise_multiconcept(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                          ip_scale: float = 1.0,
                          base_controlnets: Sequence = (),
                          concept_controlnets: Sequence = (),
-                         noise_seed: Optional[int] = None) -> torch.Tensor:
-    """Every step of one stage by ``multiconcept_step`` from ``latents``
+                         noise_seed: Optional[int] = None, i0: int = 0,
+                         state: Optional[schedulers.SchedulerState] = None
+                         ) -> torch.Tensor:
+    """Steps [i0, S) of one stage by ``multiconcept_step`` from ``latents``
     [2, h, w, 4] -> the final latents. ``noise_seed``: LCM's re-noise
     seed, the request's seed, as the fast paths take it (the JAX
-    ``noise_key``), so both draw one stream."""
-    x, st = latents, schedulers.init_state(noise_seed)
-    for i in profiling.steps(0, sched.num_steps):
+    ``noise_key``), so both draw one stream. ``state``: the scheduler
+    state at step ``i0`` in place of a fresh one."""
+    x = latents
+    st = schedulers.init_state(noise_seed) if state is None else state
+    for i in profiling.steps(i0, sched.num_steps):
         x, st = multiconcept_step(
             cfg, sched, unet, x, st, i, base_inputs, controller,
             concept_inputs, concept_loras, masks, stage2,
@@ -670,7 +691,8 @@ def _denoise_cfg_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                        spatial: Optional[Spatial] = None,
                        base_controlnets: Sequence = (),
                        cache_interval=0) -> tuple:
-    """Plain b=1 CFG denoise over steps [i0, i1) on rows [uncond, cond].
+    """Plain b=1 CFG denoise over steps [i0, i1) on rows [uncond, cond]:
+    one request of ``_denoise_cfg_batch``.
 
     ``record_traj`` also returns each step's input latent stacked
     [i1-i0, 1, h, w, 4] (copy A's stage-2 lane inputs). ``spatial``: the
@@ -679,10 +701,7 @@ def _denoise_cfg_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     (row 1 is the conditional one for guess mode). ``cache_interval``:
     the DeepCache spec (``_DeepCache``); shallow steps skip the
     ControlNets."""
-    rows = [0, 2]
-    embeds2 = _rows(base_inputs.prompt_embeds, rows)
-    tembeds2 = _rows(base_inputs.text_embeds, rows)
-    tids2 = _rows(base_inputs.time_ids, rows)
+    embeds2, tembeds2, tids2 = lanes = _cfg_lanes([base_inputs])
     if spatial is not None:
         if record_traj:
             raise ValueError("the spatial stage-1 layout records no "
@@ -691,91 +710,145 @@ def _denoise_cfg_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
             sched, unet, latents, state, embeds2, tembeds2, tids2,
             base_inputs.guidance_scale, i0=i0, i1=i1, spatial=spatial,
             base_controlnets=base_controlnets, cache_interval=cache_interval)
-    traj = []
-    x, st = latents, state
+    (x,), (st,), trajs = _denoise_cfg_batch(
+        sched, unet, [latents], [state], lanes, [base_inputs.guidance_scale],
+        i0=i0, i1=i1, record_traj=record_traj,
+        base_controlnets=base_controlnets, cache_interval=cache_interval)
+    return (x, st, trajs[0]) if record_traj else (x, st)
+
+
+def _cfg_lanes(base_inputs_r: Sequence[BaseInputs]) -> tuple:
+    """(embeds, text_embeds, time_ids) of R requests' CFG lanes
+    [uncond_0, cond_0, uncond_1, ...]: rows 0 and 2 of each 4-row
+    layout."""
+    return tuple(torch.cat(f) for f in zip(*_base_rows(base_inputs_r,
+                                                       [0, 2])))
+
+
+def _denoise_cfg_batch(sched: schedulers.Schedule, unet, xs: list,
+                       states: list, lanes: tuple, guidance_r: Sequence, *,
+                       i0: int, i1: int, record_traj: bool = False,
+                       base_controlnets: Sequence = (),
+                       cache_interval=0) -> tuple:
+    """Stage 1's CFG denoise of R requests over steps [i0, i1): their 2R
+    lanes [uncond_0, cond_0, uncond_1, ...] as one forward per step, then
+    per request CFG at its ``guidance_r`` scale and its scheduler step
+    -> (xs, states, trajs). ``xs``/``states``: each request's latent
+    [1, h, w, 4] and scheduler state at step ``i0`` (updated in place);
+    ``lanes``: ``_cfg_lanes``. ``record_traj``: ``trajs`` holds each
+    request's step inputs [i1-i0, 1, h, w, 4], else None.
+    ``base_controlnets`` run on the 2R lanes (the odd ones conditional);
+    ``cache_interval``: DeepCache (``_DeepCache``)."""
+    R = len(xs)
+    embeds, tembeds, tids = lanes
+    cond_rows = tuple(range(1, 2 * R, 2))
+    trajs: list = [[] for _ in range(R)]
     dc = _DeepCache(cache_interval, i0)
     for i in profiling.steps(i0, i1):
         if record_traj:
-            traj.append(x)
+            for r in range(R):
+                trajs[r].append(xs[r])
         t = int(sched.timesteps[i])
-        lin = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
-        eps = dc.step(unet, i, lin, t, embeds2, lambda: _controlnet_residuals(
-            base_controlnets, lin, t, embeds2, tembeds2, tids2, step_i=i,
-            num_steps=sched.num_steps, cond_rows=(1,)),
-            text_embeds=tembeds2, time_ids=tids2)
-        guided = sampling.cfg_combine(eps, base_inputs.guidance_scale)
-        x, st = schedulers.step(sched, st, guided, i, x,
-                                shared_batch_noise=True)
+        lin = schedulers.scale_model_input(
+            sched, torch.cat([x for x in xs for _ in range(2)]), i)
+        eps = dc.step(unet, i, lin, t, embeds, lambda: _controlnet_residuals(
+            base_controlnets, lin, t, embeds, tembeds, tids, step_i=i,
+            num_steps=sched.num_steps, cond_rows=cond_rows),
+            text_embeds=tembeds, time_ids=tids)
+        for r in range(R):
+            guided = sampling.cfg_combine(eps[2 * r:2 * r + 2], guidance_r[r])
+            xs[r], states[r] = schedulers.step(sched, states[r], guided, i,
+                                               xs[r], shared_batch_noise=True)
     if not record_traj:
-        return x, st
-    traj = (torch.stack(traj) if traj else
-            latents.new_zeros((0,) + tuple(latents.shape)))
-    return x, st, traj
+        return xs, states, None
+    return xs, states, [torch.stack(tr) if tr else
+                        x.new_zeros((0,) + tuple(x.shape))
+                        for tr, x in zip(trajs, xs)]
 
 
-def _denoise_mc_range_traj(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
-                           unet, latent_b: torch.Tensor,
-                           state: schedulers.SchedulerState,
-                           a_traj: torch.Tensor, base_inputs: BaseInputs,
-                           controller, concept_inputs, concept_loras,
-                           masks: torch.Tensor, *, i0: int,
-                           fusion_start: int = regions.FUSION_START_STEP,
-                           concept_ip_adapters: Sequence = (),
-                           ip_scale: float = 1.0,
-                           base_controlnets: Sequence = (),
-                           concept_controlnets: Sequence = (),
-                           cache_interval=0) -> torch.Tensor:
-    """Stage-2 suffix over steps [i0, S) with copy A as one
-    trajectory-fed lane: lanes [cond_A, uncond_B, cond_B, c1_unc,
-    c1_cond, c2_unc, ...]. latent_b: [1, h, w, 4] -> copy B's final.
+def _split_lanes(x: torch.Tensor, R: int, n: int) -> tuple:
+    """The lanes of R requests side by side -> (each request's first
+    ``n`` lanes, the rest of each), request by request; views when
+    R = 1."""
+    x = x.unflatten(0, (R, -1))
+    return x[:, :n].flatten(0, 1), x[:, n:].flatten(0, 1)
 
-    The base ControlNets run on lanes [:3] (rows 0 and 2 conditional), the
-    concept ControlNets (IdentityNet) on the 2K concept lanes.
-    ``cache_interval``: DeepCache over all 3+2K lanes."""
-    K = len(concept_inputs)
-    bidx = [2, 1, 3]    # [cond_A, uncond_B, cond_B] of the 4-row layout
-    c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx = \
-        _concept_lane_conditioning(concept_inputs, concept_loras, 3,
-                                   unet.cfg.dtype)
+
+def _denoise_traj_batch(
+        sched: schedulers.Schedule, unet, xs: list, states: list,
+        trajs: Sequence[torch.Tensor], base_inputs_r: Sequence[BaseInputs],
+        controller, concept_inputs_r, concept_loras_r,
+        masks_r: Sequence[torch.Tensor], *, i0: int, fusion_start: int,
+        concept_ip_adapters: Sequence = (), ip_scale: float = 1.0,
+        base_controlnets: Sequence = (),
+        concept_controlnets_r: Optional[Sequence] = None,
+        cache_interval=0) -> list:
+    """The stage-2 suffix of R requests over steps [i0, S) with copy A as
+    a trajectory-fed lane -> each request's copy-B final. Request r's
+    lanes [cond_A, uncond_B, cond_B, c1_unc, c1_cond, c2_unc, ...] sit
+    side by side with the others' in one forward per step; P2P reads its
+    lane 0 and edits its lane 2. Then per request, in order: region
+    fusion with its ``masks_r`` [K, h, w], CFG and its scheduler step.
+    ``xs``/``states``: copy B's latents [1, h, w, 4] and scheduler states
+    at step ``i0`` (updated in place); ``trajs``: copy A's recorded
+    inputs from ``i0``. ``base_controlnets`` run on the 3R base lanes
+    (each request's 0 and 2 conditional); ``concept_controlnets_r``, per
+    request a ``ControlNetInputs`` or None for each concept (or () for
+    every request), on the 2KR concept lanes in one forward.
+    ``cache_interval``: DeepCache over all lanes."""
+    R, K = len(xs), len(concept_inputs_r[0])
+    L = 3 + 2 * K
+    embeds, tembeds, tids, lane_lora, ip_ctx = _concept_lane_conditioning(
+        concept_inputs_r, concept_loras_r, unet.cfg.dtype,
+        _base_rows(base_inputs_r, [2, 1, 3]))   # [cond_A, uncond_B, cond_B]
     ipk = concept_ip_adapters[0] if concept_ip_adapters else None
-    embeds = torch.cat([_rows(base_inputs.prompt_embeds, bidx), c_embeds])
-    tembeds = torch.cat([_rows(base_inputs.text_embeds, bidx), c_tembeds])
-    tids = torch.cat([_rows(base_inputs.time_ids, bidx), c_tids])
-    masks = masks.to(latent_b.dtype)
-    x, st = latent_b, state
+    concepts = [ci for cl in concept_inputs_r for ci in cl]
+    concept_cns = [cn for cl in concept_controlnets_r or () for cn in cl]
+    has_cn = bool(base_controlnets) or any(cn is not None
+                                           for cn in concept_cns)
+    cond_rows = tuple(j for r in range(R) for j in (3 * r, 3 * r + 2))
+    pairs = [(r * L, r * L + 2) for r in range(R)]
+    masks_r = [m.to(xs[0].dtype) for m in masks_r]
     dc = _DeepCache(cache_interval, i0)
     for i in profiling.steps(i0, sched.num_steps):
         t = int(sched.timesteps[i])
-        lin_a = schedulers.scale_model_input(sched, a_traj[i - i0], i)
-        lin_b = schedulers.scale_model_input(sched, torch.cat([x, x]), i)
-        lanes = torch.cat([lin_a, lin_b,
-                           lin_b[1:2].expand((2 * K,) + lin_b.shape[1:])])
-        ctrl = (controller.at_step(i, src_lane=0, dst_lane=2)
+        lanes = []
+        for r in range(R):
+            lin_a = schedulers.scale_model_input(sched, trajs[r][i - i0], i)
+            lin_b = schedulers.scale_model_input(
+                sched, torch.cat([xs[r], xs[r]]), i)
+            lanes += [lin_a, lin_b,
+                      lin_b[1:2].expand((2 * K,) + lin_b.shape[1:])]
+        lanes = torch.cat(lanes)
+        ctrl = (controller.at_step(i, pairs=pairs)
                 if controller is not None else None)
 
         def residuals():
+            (lb, lc), (eb, _), (tb, tc), (ib, ic) = (
+                _split_lanes(x, R, 3) for x in (lanes, embeds, tembeds, tids))
             return _lane_residuals(
                 _controlnet_residuals(
-                    base_controlnets, lanes[:3], t, embeds[:3], tembeds[:3],
-                    tids[:3], step_i=i, num_steps=sched.num_steps,
-                    cond_rows=(0, 2)),
+                    base_controlnets, lb, t, eb, tb, ib, step_i=i,
+                    num_steps=sched.num_steps, cond_rows=cond_rows),
                 _concept_cn_residuals(
-                    concept_controlnets, concept_inputs, lanes[3:], t,
-                    tembeds[3:], tids[3:], step_i=i,
+                    concept_cns, concepts, lc, t, tc, ic, step_i=i,
                     num_steps=sched.num_steps),
                 3, 2 * K)
-        eps_all = dc.step(unet, i, lanes, t, embeds, residuals,
+        eps_all = dc.step(unet, i, lanes, t, embeds,
+                          residuals if has_cn else None,
                           text_embeds=tembeds, time_ids=tids, lora=lane_lora,
                           control=ctrl, ip_adapter=ipk, ip_context=ip_ctx,
                           ip_scale=ip_scale)
-        edit = eps_all[1:3]                          # [uncond_B, cond_B]
-        region_preds = eps_all[3:].reshape((K, 2) + tuple(latent_b.shape[1:]))
-        fused = regions.fuse_region_edit(edit, region_preds, masks,
-                                         active=i > fusion_start)
-        guided = sampling.cfg_combine(fused, base_inputs.guidance_scale)
-        x, st = schedulers.step(sched, st, guided, i, x,
-                                shared_batch_noise=True)
-    return x
+        for r in range(R):
+            e = eps_all[r * L:(r + 1) * L]
+            region_preds = e[3:].reshape((K, 2) + tuple(xs[r].shape[1:]))
+            fused = regions.fuse_region_edit(e[1:3], region_preds, masks_r[r],
+                                             active=i > fusion_start)
+            guided = sampling.cfg_combine(fused,
+                                          base_inputs_r[r].guidance_scale)
+            xs[r], states[r] = schedulers.step(sched, states[r], guided, i,
+                                               xs[r], shared_batch_noise=True)
+    return xs
 
 
 def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
@@ -795,7 +868,7 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     concept k's (uncond, cond) pair on lanes 4+2k, 4+2k+1, fed copy B's
     latent (row 3). One UNet forward per step; P2P reads lane 2 and edits
     lane 3. latents: [2, h, w, 4] (copy A, copy B) -> the same, final.
-    With no concept it is ``multiconcept_step``'s loop (the 4 base rows).
+    With no concept it is ``denoise_multiconcept`` from step ``i0``.
 
     ``lane_sharding``: the group whose ranks split the 4+2K lanes
     (``tensor_split`` order; at least one lane each). Each rank keeps the
@@ -820,20 +893,16 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
         raise ValueError(
             "lane_sharding requires at least one concept (zero-concept "
             "stage 2 is a plain CFG denoise; run it unsharded)")
-    x, st = latents, state
     if K == 0:
-        for i in profiling.steps(i0, sched.num_steps):
-            x, st = multiconcept_step(
-                cfg, sched, unet, x, st, i, base_inputs, controller, (), (),
-                masks, True, fusion_start=fusion_start,
-                base_controlnets=base_controlnets)
-        return x
-    c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx = \
-        _concept_lane_conditioning(concept_inputs, concept_loras, 4,
-                                   unet.cfg.dtype)
-    embeds = torch.cat([base_inputs.prompt_embeds, c_embeds])
-    tembeds = torch.cat([base_inputs.text_embeds, c_tembeds])
-    tids = torch.cat([base_inputs.time_ids, c_tids])
+        return denoise_multiconcept(
+            cfg, sched, unet, latents, base_inputs, controller, (), (), masks,
+            True, fusion_start=fusion_start,
+            base_controlnets=base_controlnets, i0=i0, state=state)
+    embeds, tembeds, tids, lane_lora, ip_ctx = _concept_lane_conditioning(
+        [concept_inputs], [concept_loras], unet.cfg.dtype,
+        [(base_inputs.prompt_embeds, base_inputs.text_embeds,
+          base_inputs.time_ids)])
+    c_tembeds, c_tids = tembeds[4:], tids[4:]
     ipk = concept_ip_adapters[0] if concept_ip_adapters else None
     n = 4 + 2 * K
     lanes = (mesh_lib.Split(n, lane_sharding) if lane_sharding is not None
@@ -847,6 +916,7 @@ def _denoise_mc_range(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     b_lo, b_hi = min(lo, 4), min(hi, 4)
     c_lo, c_hi = max(lo, 4) - 4, max(hi, 4) - 4
     masks = masks.to(latents.dtype)
+    x, st = latents, state
     dc = _DeepCache(cache_interval, i0)
     for i in profiling.steps(i0, sched.num_steps):
         t = int(sched.timesteps[i])
@@ -934,46 +1004,24 @@ def sample_stage1_cached(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     return duplicate_latents(lat_end), cache
 
 
-def _denoise_mc_range_traj_cropped(
-        cfg: sdxl.SDXLConfig, sched: schedulers.Schedule, unet,
-        latent_b: torch.Tensor, state: schedulers.SchedulerState,
-        a_traj: torch.Tensor, base_inputs: BaseInputs, controller,
-        concept_inputs, concept_loras, masks: torch.Tensor, *, i0: int,
-        fusion_start: int = regions.FUSION_START_STEP,
-        concept_ip_adapters: Sequence = (), ip_scale: float = 1.0,
-        base_controlnets: Sequence = ()) -> torch.Tensor:
-    """APPROXIMATE stage-2 suffix with the concept lanes on vertical
-    strips (opt-in ``concept_crop``). The base rows [cond_A, uncond_B,
-    cond_B] run full-frame with exact P2P (src 0, dst 2) and the base
-    ControlNets (rows 0 and 2 conditional), so their eps equal the exact
-    program's; concept k's (uncond, cond) pair runs on columns
-    [k w/K, (k+1) w/K) of copy B's latent only, and its output is written
-    back into a full-frame region prediction. A concept's self-attention
-    and convs no longer see the other strips. ``masks`` must already be
-    clipped to the strips (``check_crop_strips``). latent_b: [1, h, w, 4]
-    -> copy B's final. One request of ``_denoise_cropped_batch``."""
-    return _denoise_cropped_batch(
-        sched, unet, [latent_b], [state], [a_traj], [base_inputs],
-        controller, [tuple(concept_inputs)], [tuple(concept_loras)], [masks],
-        i0=i0, fusion_start=fusion_start,
-        concept_ip_adapters=concept_ip_adapters, ip_scale=ip_scale,
-        base_controlnets=tuple(base_controlnets), cond_rows=(0, 2))[0]
-
-
 def _denoise_cropped_batch(
         sched: schedulers.Schedule, unet, xs: list, states: list,
         trajs: Sequence[torch.Tensor], base_inputs_r: Sequence[BaseInputs],
         controller, concept_inputs_r, concept_loras_r,
         masks_r: Sequence[torch.Tensor], *, i0: int, fusion_start: int,
         concept_ip_adapters: Sequence = (), ip_scale: float = 1.0,
-        base_controlnets: Sequence = (), cond_rows: tuple = ()) -> list:
-    """The strip suffix of R requests (the JAX ``vmap`` of
+        base_controlnets: Sequence = ()) -> list:
+    """APPROXIMATE stage-2 suffix of R requests with the concept lanes on
+    vertical strips (opt-in ``concept_crop``; the JAX ``vmap`` of
     ``_denoise_mc_range_traj_cropped``) -> each request's copy-B final.
+    The base lanes' eps equal the exact program's; a concept's
+    self-attention and convs no longer see the other strips, and
+    ``masks_r`` must be clipped to them (``check_crop_strips``).
 
     Per step, two UNet forwards for the whole batch: the 3R base lanes
     [cond_A, uncond_B, cond_B] of every request full-frame (P2P editing
     each request's pair (3r, 3r + 2), ``base_controlnets`` on these lanes
-    with ``cond_rows`` conditional), and the 2KR strip lanes, request r's
+    with 3r and 3r + 2 conditional), and the 2KR strip lanes, request r's
     concept k on lanes 2(rK + k), 2(rK + k) + 1 with its LoRA and IP
     tokens. Then per request: the strips written back into a full-frame
     region prediction, fusion with its ``masks_r`` (clipped to the
@@ -981,14 +1029,12 @@ def _denoise_cropped_batch(
     latents [1, h, w, 4] and scheduler states at step ``i0``, per request
     (updated in place); ``trajs``: copy A's recorded inputs from ``i0``."""
     R, K = len(xs), len(concept_inputs_r[0])
-    bidx = [2, 1, 3]    # [cond_A, uncond_B, cond_B] of the 4-row layout
-    b_embeds, b_tembeds, b_tids = (
-        torch.cat([_rows(getattr(b, f), bidx) for b in base_inputs_r])
-        for f in ("prompt_embeds", "text_embeds", "time_ids"))
+    b_embeds, b_tembeds, b_tids = (torch.cat(f) for f in zip(
+        *_base_rows(base_inputs_r, [2, 1, 3])))   # [cond_A, uncond_B, cond_B]
     c_embeds, c_tembeds, c_tids, lane_lora, ip_ctx = \
-        _concept_lane_conditioning(
-            [ci for cl in concept_inputs_r for ci in cl],
-            [lo for ll in concept_loras_r for lo in ll], 0, unet.cfg.dtype)
+        _concept_lane_conditioning(concept_inputs_r, concept_loras_r,
+                                   unet.cfg.dtype)
+    cond_rows = tuple(j for r in range(R) for j in (3 * r, 3 * r + 2))
     ipk = concept_ip_adapters[0] if concept_ip_adapters else None
     frame = tuple(xs[0].shape[1:])
     ws = frame[1] // K
@@ -1108,21 +1154,13 @@ def two_stage_latents(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
         i1=sched.num_steps, record_traj=True, cache_interval=cache_interval)
     if len(concept_inputs) == 0 or traj.shape[0] == 0:
         return duplicate_latents(lat1), duplicate_latents(lat1)
-    K = len(concept_inputs)
-    kw = dict(i0=boundary, fusion_start=fusion_start,
-              concept_ip_adapters=tuple(concept_ip_adapters),
-              ip_scale=ip_scale)
-    if concept_crop:
-        lat2b = _denoise_mc_range_traj_cropped(
-            cfg, sched, unet, lat_b, st_b, traj, base_inputs, controller,
-            tuple(concept_inputs), tuple(concept_loras),
-            check_crop_strips(cfg, masks, K), **kw)
-    else:
-        lat2b = _denoise_mc_range_traj(
-            cfg, sched, unet, lat_b, st_b, traj, base_inputs, controller,
-            tuple(concept_inputs), tuple(concept_loras), masks,
-            cache_interval=cache_interval, **kw)
-    return duplicate_latents(lat1), torch.cat([lat1, lat2b])
+    return duplicate_latents(lat1), sample_stage2_resumed(
+        cfg, sched, unet, StageCache(lat_b, st_b, traj, lat1),
+        base_inputs=base_inputs, controller=controller,
+        concept_inputs=concept_inputs, concept_loras=concept_loras,
+        masks=masks, fusion_start=fusion_start,
+        concept_ip_adapters=concept_ip_adapters, ip_scale=ip_scale,
+        concept_crop=concept_crop, cache_interval=cache_interval)
 
 
 def sample_stage2_resumed(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
@@ -1167,24 +1205,24 @@ def sample_stage2_resumed(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     kw = dict(i0=boundary, fusion_start=fusion_start,
               concept_ip_adapters=tuple(concept_ip_adapters),
               ip_scale=ip_scale, base_controlnets=tuple(base_controlnets))
-    if concept_crop:
-        K = len(concept_inputs)
-        if (cache.a_traj is None or K == 0 or lane_sharding is not None
-                or any(c is not None for c in concept_controlnets)):
-            raise ValueError(_CROP_NEEDS)
-        lat_b = _denoise_mc_range_traj_cropped(
-            cfg, sched, unet, cache.latents, cache.sched_state, cache.a_traj,
-            base_inputs, controller, tuple(concept_inputs),
-            tuple(concept_loras), check_crop_strips(cfg, masks, K), **kw)
-        return torch.cat([cache.a_final, lat_b])
-    if (cache.a_traj is not None and cache.a_traj.shape[0] > 0
-            and lane_sharding is None and len(concept_inputs) > 0):
-        lat_b = _denoise_mc_range_traj(
-            cfg, sched, unet, cache.latents, cache.sched_state, cache.a_traj,
-            base_inputs, controller, tuple(concept_inputs),
-            tuple(concept_loras), masks,
-            concept_controlnets=tuple(concept_controlnets),
-            cache_interval=cache_interval, **kw)
+    K = len(concept_inputs)
+    if concept_crop and (cache.a_traj is None or K == 0
+                         or lane_sharding is not None
+                         or any(c is not None for c in concept_controlnets)):
+        raise ValueError(_CROP_NEEDS)
+    if concept_crop or (cache.a_traj is not None and cache.a_traj.shape[0]
+                        and lane_sharding is None and K > 0):
+        args = (sched, unet, [cache.latents], [cache.sched_state],
+                [cache.a_traj], [base_inputs], controller,
+                [tuple(concept_inputs)], [tuple(concept_loras)])
+        if concept_crop:
+            (lat_b,) = _denoise_cropped_batch(
+                *args, [check_crop_strips(cfg, masks, K)], **kw)
+        else:
+            (lat_b,) = _denoise_traj_batch(
+                *args, [masks],
+                concept_controlnets_r=[tuple(concept_controlnets)],
+                cache_interval=cache_interval, **kw)
         return torch.cat([cache.a_final, lat_b])
     # Both copies from the boundary latents: the state's per-row history
     # (DPM++2M's previous x0) is doubled with them, as in JAX.
@@ -1262,6 +1300,20 @@ def _base_cn_lanes(params, conds_r: Optional[tuple], lanes: int) -> tuple:
         scale=rep(scale), guidance_start=rep(gs), guidance_end=rep(ge)),)
 
 
+def _concept_cn_lanes(params, conds_r: Optional[tuple], R: int) -> list:
+    """A shared IdentityNet's per-request conditioning (per concept None
+    or (cond_image [R, 1, H, W, C], scale [R], ehs [R, 2, T, D] or None))
+    -> per request, a ``ControlNetInputs`` or None for each concept (None
+    where its scale is 0: an exact no-op lane pair)."""
+    if params is None or conds_r is None:
+        return [()] * R
+    return [tuple(
+        None if c is None or not float(c[1][r]) else ControlNetInputs(
+            params, c[0][r], scale=float(c[1][r]),
+            encoder_hidden_states=None if c[2] is None else c[2][r])
+        for c in conds_r) for r in range(R)]
+
+
 def sample_stage1_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                         unet, seeds: Sequence[int],
                         base_inputs_r: Sequence[BaseInputs], *, height: int,
@@ -1278,14 +1330,15 @@ def sample_stage1_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     Request r's initial latents come from a CPU generator seeded with
     ``seeds[r]`` (``generate``'s draw); its scheduler state carries the
     seed (LCM). The 2R lanes [uncond_0, cond_0, uncond_1, ...] run as one
-    forward per step. ``base_cn_params`` + ``base_cn_conds_r``: a shared
+    forward per step (``_denoise_cfg_batch``, over the prefix and then the
+    suffix, as ``sample_stage1_cached`` runs one request).
+    ``base_cn_params`` + ``base_cn_conds_r``: a shared
     spatial ControlNet with per-request conditioning (cond_image
     [R, 1, H, W, C], scale [R], guidance_start [R], guidance_end [R]);
     requests without a condition ride along with scale 0.
     ``cache_interval``: DeepCache over the 2R lanes, phased from each
     range's start. ``initial_noise``: per request, [1, h, w, 4] unit noise
     in place of the seed's draw (the seed still seeds LCM's re-noise)."""
-    R = len(seeds)
     device = base_inputs_r[0].prompt_embeds.device
     if initial_noise is not None:
         xs = [schedulers.scale_initial_noise(sched, profiling.sync(
@@ -1297,42 +1350,21 @@ def sample_stage1_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
             torch.Generator("cpu").manual_seed(int(s)), 1, height, width,
             sched, cfg.unet.dtype, device) for s in seeds]
     states = [schedulers.init_state(int(s)) for s in seeds]
-    embeds = torch.cat([_rows(b.prompt_embeds, [0, 2])
-                        for b in base_inputs_r])
-    tembeds = torch.cat([_rows(b.text_embeds, [0, 2])
-                         for b in base_inputs_r])
-    tids = torch.cat([_rows(b.time_ids, [0, 2]) for b in base_inputs_r])
-    cn = _base_cn_lanes(base_cn_params, base_cn_conds_r, 2)
+    kw = dict(base_controlnets=_base_cn_lanes(base_cn_params,
+                                              base_cn_conds_r, 2),
+              cache_interval=cache_interval)
+    lanes = _cfg_lanes(base_inputs_r)
+    guidance_r = [b.guidance_scale for b in base_inputs_r]
     boundary = min(fusion_start + 1, sched.num_steps)
-    trajs: list = [[] for _ in range(R)]
-    caches: list = [None] * R
-    dc = _DeepCache(cache_interval, 0)
-    for i in profiling.steps(0, sched.num_steps):
-        if i == boundary:
-            caches = [StageCache(x, st) for x, st in zip(xs, states)]
-            dc = _DeepCache(cache_interval, boundary)
-        if i >= boundary:
-            for r in range(R):
-                trajs[r].append(xs[r])
-        t = int(sched.timesteps[i])
-        lin = schedulers.scale_model_input(
-            sched, torch.cat(xs).repeat_interleave(2, 0), i)
-        eps = dc.step(unet, i, lin, t, embeds, lambda: _controlnet_residuals(
-            cn, lin, t, embeds, tembeds, tids, step_i=i,
-            num_steps=sched.num_steps), text_embeds=tembeds, time_ids=tids)
-        for r in range(R):
-            guided = sampling.cfg_combine(eps[2 * r:2 * r + 2],
-                                          base_inputs_r[r].guidance_scale)
-            xs[r], states[r] = schedulers.step(sched, states[r], guided, i,
-                                               xs[r], shared_batch_noise=True)
-    if boundary >= sched.num_steps:
-        caches = [StageCache(x, st) for x, st in zip(xs, states)]
-    out = []
-    for r in range(R):
-        traj = (torch.stack(trajs[r]) if trajs[r] else
-                xs[r].new_zeros((0,) + tuple(xs[r].shape)))
-        out.append(caches[r]._replace(a_traj=traj, a_final=xs[r]))
-    return torch.stack([duplicate_latents(x) for x in xs]), out
+    xs, states, _ = _denoise_cfg_batch(sched, unet, xs, states, lanes,
+                                       guidance_r, i0=0, i1=boundary, **kw)
+    caches = [StageCache(x, st) for x, st in zip(xs, states)]
+    xs, states, trajs = _denoise_cfg_batch(
+        sched, unet, xs, states, lanes, guidance_r, i0=boundary,
+        i1=sched.num_steps, record_traj=True, **kw)
+    caches = [c._replace(a_traj=traj, a_final=x)
+              for c, traj, x in zip(caches, trajs, xs)]
+    return torch.stack([duplicate_latents(x) for x in xs]), caches
 
 
 def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
@@ -1351,10 +1383,12 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
                         cache_interval: int = 0,
                         concept_crop: bool = False) -> torch.Tensor:
     """Batched stage 2 -> [R, 2, h, w, 4]: the 3+2K trajectory program of
-    every request in one forward per step over R(3+2K) lanes, or with
-    ``concept_crop`` the strip program (``_denoise_cropped_batch``: the 3R
-    base lanes and the 2KR strip lanes as two forwards per step; each
-    request's masks clipped to the strips here).
+    every request in one forward per step over R(3+2K) lanes
+    (``_denoise_traj_batch``; ``sample_stage2_resumed`` runs it with
+    R = 1), or with ``concept_crop`` the strip program
+    (``_denoise_cropped_batch``: the 3R base lanes and the 2KR strip lanes
+    as two forwards per step; each request's masks clipped to the strips
+    here).
 
     ``concept_inputs_r``/``concept_loras_r``: [request][concept], every
     request with the same K (pad with neutral concepts and zero masks);
@@ -1379,114 +1413,20 @@ def sample_stage2_batch(cfg: sdxl.SDXLConfig, sched: schedulers.Schedule,
     boundary = min(fusion_start + 1, sched.num_steps)
     if boundary >= sched.num_steps:
         return torch.stack([duplicate_latents(c.a_final) for c in cache_r])
-    if concept_crop:
-        xs = _denoise_cropped_batch(
-            sched, unet, [c.latents for c in cache_r],
+    args = (sched, unet, [c.latents for c in cache_r],
             [c.sched_state for c in cache_r], [c.a_traj for c in cache_r],
             base_inputs_r, controller, concept_inputs_r, concept_loras_r,
-            masks_r, i0=boundary, fusion_start=fusion_start,
-            concept_ip_adapters=concept_ip_adapters, ip_scale=ip_scale,
-            base_controlnets=_base_cn_lanes(base_cn_params, base_cn_conds_r,
-                                            3))
-        return torch.stack([torch.cat([c.a_final, x])
-                            for c, x in zip(cache_r, xs)])
-    L = 3 + 2 * K
-    bidx = [2, 1, 3]    # [cond_A, uncond_B, cond_B] of the 4-row layout
-
-    def lane_cat(field):
-        return torch.cat([
-            torch.cat([_rows(getattr(base_inputs_r[r], field), bidx)]
-                      + [getattr(ci, field) for ci in concept_inputs_r[r]])
-            for r in range(R)])
-    embeds, tembeds, tids = (lane_cat(f) for f in
-                             ("prompt_embeds", "text_embeds", "time_ids"))
-    lane_lora = lora_lib.stack_loras([
-        lora for r in range(R) for lora in
-        [None] * 3 + [(concept_loras_r[r][k].get("unet", concept_loras_r[r][k])
-                       if concept_loras_r[r][k] is not None else None)
-                      for k in range(K) for _ in range(2)]],
-        dtype=unet.cfg.dtype)
-    ipk = concept_ip_adapters[0] if concept_ip_adapters else None
-    ip_ctx = None
-    with_ip = [ci.ip_context for cl in concept_inputs_r for ci in cl
-               if ci.ip_context is not None]
-    if with_ip:
-        zeros = torch.zeros_like(with_ip[0])
-        ip_ctx = torch.cat([
-            torch.cat([zeros[:1].expand((3,) + tuple(zeros.shape[1:]))]
-                      + [ci.ip_context if ci.ip_context is not None
-                         else zeros for ci in concept_inputs_r[r]])
-            for r in range(R)])
-
-    # the base and concept lanes' rows, on the card once for every step
-    rows = profiling.sync(
-        torch.as_tensor, [r * L + j for r in range(R) for j in range(3)]
-        + [r * L + j for r in range(R) for j in range(3, L)],
-        device=cache_r[0].latents.device)
-    base_rows, concept_rows = rows[:3 * R], rows[3 * R:]
-    base_cn = _base_cn_lanes(base_cn_params, base_cn_conds_r, 3)
-    concept_cn = ()
-    if concept_cn_params is not None and concept_cn_conds_r is not None:
-        live = [c for c in concept_cn_conds_r if c is not None]
-        tmpl_cond = live[0][0]
-        conds, scales, ehs_rows = [], [], []
-        for r in range(R):
-            for k in range(K):
-                c = concept_cn_conds_r[k]
-                cond = tmpl_cond[r] if c is None else c[0][r]
-                conds.append(cond.expand((2,) + tuple(cond.shape[1:])))
-                scales += [0.0 if c is None else float(c[1][r])] * 2
-                ehs = (None if c is None or c[2] is None else c[2][r])
-                ehs_rows.append(
-                    ehs if ehs is not None else
-                    concept_inputs_r[r][k].prompt_embeds)
-        concept_cn = (ControlNetInputs(
-            concept_cn_params, torch.cat(conds), scale=scales,
-            encoder_hidden_states=torch.cat(ehs_rows)),)
-
-    pairs = [(r * L, r * L + 2) for r in range(R)]
-    masks_r = masks_r.to(cache_r[0].latents.dtype)
-    xs = [c.latents for c in cache_r]
-    states = [c.sched_state for c in cache_r]
-    dc = _DeepCache(cache_interval, boundary)
-    for i in profiling.steps(boundary, sched.num_steps):
-        t = int(sched.timesteps[i])
-        lanes = []
-        for r in range(R):
-            lin_a = schedulers.scale_model_input(
-                sched, cache_r[r].a_traj[i - boundary], i)
-            lin_b = schedulers.scale_model_input(
-                sched, torch.cat([xs[r], xs[r]]), i)
-            lanes += [lin_a, lin_b,
-                      lin_b[1:2].expand((2 * K,) + lin_b.shape[1:])]
-        lanes = torch.cat(lanes)
-        ctrl = (controller.at_step(i, pairs=pairs)
-                if controller is not None else None)
-        def residuals():
-            return _lane_residuals(
-                _controlnet_residuals(base_cn, lanes[base_rows], t,
-                                      embeds[base_rows], tembeds[base_rows],
-                                      tids[base_rows], step_i=i,
-                                      num_steps=sched.num_steps),
-                _controlnet_residuals(concept_cn, lanes[concept_rows], t,
-                                      embeds[concept_rows],
-                                      tembeds[concept_rows],
-                                      tids[concept_rows], step_i=i,
-                                      num_steps=sched.num_steps),
-                3, 2 * K)
-        eps_all = dc.step(unet, i, lanes, t, embeds, residuals,
-                          text_embeds=tembeds, time_ids=tids, lora=lane_lora,
-                          control=ctrl, ip_adapter=ipk, ip_context=ip_ctx,
-                          ip_scale=ip_scale)
-        for r in range(R):
-            e = eps_all[r * L:(r + 1) * L]
-            region_preds = e[3:].reshape((K, 2) + tuple(xs[r].shape[1:]))
-            fused = regions.fuse_region_edit(e[1:3], region_preds,
-                                             masks_r[r],
-                                             active=i > fusion_start)
-            guided = sampling.cfg_combine(fused,
-                                          base_inputs_r[r].guidance_scale)
-            xs[r], states[r] = schedulers.step(sched, states[r], guided, i,
-                                               xs[r], shared_batch_noise=True)
+            masks_r)
+    kw = dict(i0=boundary, fusion_start=fusion_start,
+              concept_ip_adapters=concept_ip_adapters, ip_scale=ip_scale,
+              base_controlnets=_base_cn_lanes(base_cn_params,
+                                              base_cn_conds_r, 3))
+    if concept_crop:
+        xs = _denoise_cropped_batch(*args, **kw)
+    else:
+        xs = _denoise_traj_batch(
+            *args, concept_controlnets_r=_concept_cn_lanes(
+                concept_cn_params, concept_cn_conds_r, R),
+            cache_interval=cache_interval, **kw)
     return torch.stack([torch.cat([c.a_final, x])
                         for c, x in zip(cache_r, xs)])

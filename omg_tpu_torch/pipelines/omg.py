@@ -143,7 +143,7 @@ class OMG:
     # ops/quant.py); "" keeps the weights as they are.
     quantize: str = ""
     # Approximate, opt-in: stage 2's concept lanes on vertical strips
-    # (multiconcept._denoise_mc_range_traj_cropped). A request with
+    # (multiconcept._denoise_cropped_batch). A request with
     # per-concept ControlNets, or whose width does not split, runs exact;
     # generate_batch always runs exact.
     concept_crop: bool = False

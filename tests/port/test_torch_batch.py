@@ -18,7 +18,9 @@ from omg_tpu.pipelines import omg as jomg
 from omg_tpu.pipelines import sdxl as jsdxl
 from omg_tpu_torch import config, from_jax
 from omg_tpu_torch import lora as lora_lib
+from omg_tpu_torch.control import p2p
 from omg_tpu_torch.diffusion import schedulers
+from omg_tpu_torch.models import unet as unet_lib
 from omg_tpu_torch.pipelines import multiconcept, omg, sdxl
 from omg_tpu_torch.text.tokenizer import ToyTokenizer
 
@@ -269,3 +271,87 @@ def test_align_loras_matches_jax():
                                               w[key][role].numpy())
     assert all(float(leaf["scale"]) == 0 for leaf in got[1].values())
     assert lora_lib.align_loras([None, None]) == [None, None]
+
+
+@pytest.mark.parametrize("kind", ["euler", "lcm"])
+@pytest.mark.parametrize("case", ["lora", "instantid"])
+def test_one_request_batch_is_the_serial_program(setup, monkeypatch, case,
+                                                 kind):
+    """``sample_stage1_batch`` + ``sample_stage2_batch`` with one request
+    run ``sample_stage1_cached`` + ``sample_stage2_resumed``'s program:
+    bit-equal latents, the same ``schedulers.step`` calls by step index
+    and the same UNet forwards, 3 + 2K lanes each in stage 2. InstantID:
+    IP tokens and the IdentityNet on the first concept, none on the
+    second (a concept without a face)."""
+    teng, seed, steps, fusion = setup["teng"], 7, 4, 1
+    cfg, sched = sdxl.tiny_config(), schedulers.make_schedule(kind, steps)
+    tids = sdxl.add_time_ids((H, W), (0, 0), (H, W))
+    with torch.no_grad():
+        base = multiconcept.make_base_inputs(
+            *teng.encode("the man and the woman", "bad"), tids, 6.0)
+        tokens = (torch.randn(2, 4, 48,
+                              generator=torch.Generator().manual_seed(seed))
+                  if case == "instantid" else None)
+        concepts = [multiconcept.make_concept_inputs(
+            *teng.encode(p, "bad"), tids, ip_context=ip)
+            for p, ip in (("the man", tokens), ("the woman", None))]
+    loras = setup["tloras"] if case == "lora" else [None, None]
+    masks = torch.zeros(2, H // 8, W // 8)
+    masks[0, :, :W // 16], masks[1, :, W // 16:] = 1.0, 1.0
+    controller = p2p.P2PControl.build(
+        ["the man and the woman"] * 2, steps, cross_replace_steps=1.0,
+        self_replace_steps=0.4, width=W // 32, height=H // 32,
+        tokenizer=teng.tokenizer)
+    serial_kw, batch_kw = {}, {}
+    if case == "instantid":
+        _, tid, _, kimg = _instantid_pair(None)
+        kps = torch.as_tensor(np.asarray(kimg, np.float32))[None] / 255.0
+        serial_kw = dict(
+            concept_ip_adapters=[tid.ip_adapter_layers] * 2, ip_scale=0.8,
+            concept_controlnets=[multiconcept.ControlNetInputs(
+                tid.identitynet_params, kps, 0.9,
+                encoder_hidden_states=tokens), None])
+        batch_kw = dict(
+            concept_ip_adapters=(tid.ip_adapter_layers,), ip_scale=0.8,
+            concept_cn_params=tid.identitynet_params,
+            concept_cn_conds_r=((kps[None], [0.9], tokens[None]), None))
+    calls: dict = {}
+    step, forward = schedulers.step, unet_lib.UNet2DConditionModel.forward
+    monkeypatch.setattr(schedulers, "step", lambda sched, st, eps, i, *a, **k:
+                        calls["steps"].append(i) or step(sched, st, eps, i,
+                                                         *a, **k))
+    monkeypatch.setattr(unet_lib.UNet2DConditionModel, "forward",
+                        lambda self, x, *a, **k: calls["lanes"].append(
+                            x.shape[0]) or forward(self, x, *a, **k))
+
+    def run(batched):
+        calls.update(steps=[], lanes=[])
+        unet = teng.params.unet
+        with torch.no_grad():
+            if batched:
+                lat1, caches = multiconcept.sample_stage1_batch(
+                    cfg, sched, unet, [seed], [base], height=H, width=W,
+                    fusion_start=fusion)
+                lat2 = multiconcept.sample_stage2_batch(
+                    cfg, sched, unet, caches, [base], controller, [concepts],
+                    [loras], masks[None], fusion_start=fusion, **batch_kw)
+                return lat1[0], lat2[0], dict(calls)
+            lat1, cache = multiconcept.sample_stage1_cached(
+                cfg, sched, unet, height=H, width=W, base_inputs=base,
+                generator=torch.Generator().manual_seed(seed),
+                fusion_start=fusion, noise_seed=seed)
+            lat2 = multiconcept.sample_stage2_resumed(
+                cfg, sched, unet, cache, base_inputs=base,
+                controller=controller, concept_inputs=concepts,
+                concept_loras=loras, masks=masks, fusion_start=fusion,
+                **serial_kw)
+            return lat1, lat2, dict(calls)
+
+    s1, s2, serial = run(False)
+    b1, b2, batch = run(True)
+    assert torch.equal(b1, s1) and torch.equal(b2, s2)
+    assert batch == serial
+    assert serial["steps"] == list(range(steps)) + list(range(fusion + 1,
+                                                              steps))
+    assert serial["lanes"] == [2] * steps + [3 + 2 * 2] * (steps - fusion - 1)
+    assert not torch.equal(s2[1], s1[1])     # stage 2 fused the concepts

@@ -167,8 +167,8 @@ def test_generate_with_concept_crop_matches_jax(monkeypatch):
     gen = dict(negative_prompt="ugly", prompt_rewrite=REWRITE, seed=4,
                height=H, width=W, initial_noise=normal(rng, 1, 4, 4, 4))
     ran = []
-    cropped = multiconcept._denoise_mc_range_traj_cropped
-    monkeypatch.setattr(multiconcept, "_denoise_mc_range_traj_cropped",
+    cropped = multiconcept._denoise_cropped_batch
+    monkeypatch.setattr(multiconcept, "_denoise_cropped_batch",
                         lambda *a, **k: ran.append(1) or cropped(*a, **k))
     want = jeng.generate(PROMPT, concept_loras=[to_jax(x) for x in loras],
                          **gen)

@@ -179,14 +179,14 @@ def test_stage2_resumed_takes_the_trajectory_program_when_it_can(cases):
     """A cache with copy A's trajectory and no lane sharding still runs the
     3+2K program (it does not read lanes 0-3 of the 4-row layout)."""
     calls = []
-    real = mc._denoise_mc_range_traj
+    real = mc._denoise_traj_batch
 
     def spy(*args, **kwargs):
         calls.append(1)
         return real(*args, **kwargs)
 
     case = cases["k1"]
-    mc._denoise_mc_range_traj = spy
+    mc._denoise_traj_batch = spy
     try:
         traj = torch.zeros((2, 1, 4, 4, 4))
         cache = mc.StageCache(t(case["cache_latents"]),
@@ -204,5 +204,5 @@ def test_stage2_resumed_takes_the_trajectory_program_when_it_can(cases):
                 concept_loras=[None], masks=t(case["masks"]),
                 fusion_start=1)
     finally:
-        mc._denoise_mc_range_traj = real
+        mc._denoise_traj_batch = real
     assert calls == [1]
