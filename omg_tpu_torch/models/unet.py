@@ -36,6 +36,7 @@ order's tail).
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import torch
@@ -44,6 +45,7 @@ from torch import nn
 from omg_tpu_torch.config import UNetConfig
 from omg_tpu_torch.nn import layers
 from omg_tpu_torch.nn.attention import IPKV, Attention
+from omg_tpu_torch.ops import flash_attention as fa
 from omg_tpu_torch.utils import profiling
 
 
@@ -232,7 +234,8 @@ class UNet2DConditionModel(nn.Module):
                 seq_group=None, down_block_residuals=None,
                 mid_block_residual: Optional[torch.Tensor] = None,
                 ip_adapter=None, ip_context: Optional[torch.Tensor] = None,
-                ip_scale: float = 1.0, return_cache: bool = False):
+                ip_scale: float = 1.0, return_cache: bool = False,
+                graphed: bool = False):
         """sample: [B, h, w, 4] NHWC latents -> eps prediction, same shape.
         ``seq_group``: sample is this rank's block of rows of the latent
         (``parallel.comm.Group``, equal blocks in group order).
@@ -240,7 +243,31 @@ class UNet2DConditionModel(nn.Module):
         residuals, NCHW. ``ip_adapter``: a sequence of ``IPKV``, one per
         attn2 (``num_cross_attention_layers``), with ``ip_context``
         [B, T, cross_attention_dim]. ``return_cache``: (eps, the DeepCache
-        feature entering the last up block, NCHW ``cache_shape``)."""
+        feature entering the last up block, NCHW ``cache_shape``).
+        ``graphed``: the plain forward of CUDA tensors, replayed from its
+        key's CUDA graph (module docstring); the options above do not
+        reach it."""
+        if graphed:
+            return _GRAPHS.setdefault(self, _Graphs()).run(
+                self, timestep,
+                (sample, encoder_hidden_states, text_embeds, time_ids))
+        return self._forward(
+            sample, timestep, encoder_hidden_states, text_embeds=text_embeds,
+            time_ids=time_ids, lora=lora, control=control,
+            seq_group=seq_group, down_block_residuals=down_block_residuals,
+            mid_block_residual=mid_block_residual, ip_adapter=ip_adapter,
+            ip_context=ip_context, ip_scale=ip_scale,
+            return_cache=return_cache)
+
+    def _forward(self, sample: torch.Tensor, timestep,
+                 encoder_hidden_states: torch.Tensor, *,
+                 text_embeds: torch.Tensor, time_ids: torch.Tensor,
+                 lora: Optional[dict] = None, control=None,
+                 seq_group=None, down_block_residuals=None,
+                 mid_block_residual: Optional[torch.Tensor] = None,
+                 ip_adapter=None, ip_context: Optional[torch.Tensor] = None,
+                 ip_scale: float = 1.0, return_cache: bool = False):
+        """The body of ``forward``, outside its span."""
         ctx, seq = encoder_hidden_states, seq_group
         ip = None
         if ip_adapter is not None and ip_context is not None:
@@ -342,10 +369,14 @@ def time_embeddings(model: nn.Module, cfg: UNetConfig, timestep,
     ``model``'s ``time_embedding``/``add_embedding`` MLPs (the UNet's or a
     ControlNet's). The sinusoids run in fp32 and are cast to the model
     dtype before the two MLPs, as in the JAX package. ``timestep``: a host
-    number, filled on the device (no copy)."""
+    number, filled on the device (no copy), or a 0-dim fp32 tensor on the
+    device holding it (a CUDA graph's static input): the same bits."""
     b = text_embeds.shape[0]
-    t = torch.full((), float(timestep), dtype=torch.float32,
-                   device=text_embeds.device).expand(b)
+    if isinstance(timestep, torch.Tensor):
+        t = timestep.expand(b)
+    else:
+        t = torch.full((), float(timestep), dtype=torch.float32,
+                       device=text_embeds.device).expand(b)
     t_emb = layers.timestep_embedding(t, cfg.block_out_channels[0])
     te = model.time_embedding
     temb = te.linear_2(torch.nn.functional.silu(
@@ -358,6 +389,96 @@ def time_embeddings(model: nn.Module, cfg: UNetConfig, timestep,
     aemb = ae.linear_2(torch.nn.functional.silu(
         ae.linear_1(add.to(cfg.dtype))))
     return temb + aemb
+
+
+class _Graphs:
+    """One UNet's graphed forwards by key (``_SEEN`` after the key's eager
+    first call), and the memory pool and the stream their captures
+    share."""
+
+    def __init__(self):
+        self.by_key: dict = {}
+        self.pool = self.stream = None
+
+    def run(self, unet: UNet2DConditionModel, timestep,
+            inputs: tuple) -> torch.Tensor:
+        """The plain forward of ``inputs`` (sample, context, text embeds,
+        time ids) at ``timestep``: eager on its key's first call, captured
+        on its second, replayed from then on."""
+        key = tuple((tuple(x.shape), x.dtype) for x in inputs) + (
+            inputs[0].device,)
+        g = self.by_key.get(key)
+        if g is None:
+            self.by_key[key] = _SEEN
+            sample, ctx, text_embeds, time_ids = inputs
+            return unet._forward(sample, timestep, ctx,
+                                 text_embeds=text_embeds, time_ids=time_ids)
+        if g is _SEEN:
+            g = self.by_key[key] = _Graph(unet, self, timestep, inputs)
+            profiling.count("graph.captures")
+        out = g.replay(timestep, inputs)
+        profiling.count("graph.replays")
+        return out
+
+
+# Weakly keyed by the UNet: its graphs go with it, and a copy of it starts
+# with none.
+_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_SEEN = object()
+
+
+class _Graph:
+    """One captured plain forward: its static inputs (a 0-dim fp32
+    timestep, the sample, the prompt rows), its output, and the K1
+    launches its capture recorded."""
+
+    def __init__(self, unet: UNet2DConditionModel, graphs: _Graphs,
+                 timestep, inputs: tuple):
+        # normal tensors, so that a later call outside inference mode can
+        # write them; no autograd in the captured work
+        with torch.inference_mode(False), torch.no_grad():
+            self.t = torch.full((), float(timestep), dtype=torch.float32,
+                                device=inputs[0].device)
+            self.inputs = tuple(x.clone() for x in inputs)
+            self.src = inputs[1:]       # the prompt rows last copied in
+            self.out, self.k1 = self._capture(unet, graphs)
+
+    def _capture(self, unet: UNet2DConditionModel, graphs: _Graphs) -> tuple:
+        """-> (the output buffer, K1's launches): the forward's body
+        captured into ``self.graph`` in the UNet's pool (nothing runs),
+        its launches recorded and left uncounted until a replay runs
+        them. The capture stream is the UNet's own, so that its cuBLAS
+        workspace is made once; unlike ``torch.cuda.graph``, nothing
+        synchronizes or empties the allocator's cache, which the
+        request's later allocations would then make again."""
+        sample, ctx, text_embeds, time_ids = self.inputs
+        if graphs.pool is None:
+            graphs.pool = torch.cuda.graph_pool_handle()
+            graphs.stream = torch.cuda.Stream(sample.device)
+        self.graph = torch.cuda.CUDAGraph()
+        with fa.recorded() as k1, torch.cuda.stream(graphs.stream):
+            self.graph.capture_begin(graphs.pool,
+                                     capture_error_mode="thread_local")
+            try:
+                out = unet._forward(sample, self.t, ctx,
+                                    text_embeds=text_embeds,
+                                    time_ids=time_ids)
+            finally:
+                self.graph.capture_end()
+        return out, k1
+
+    def replay(self, timestep, inputs: tuple) -> torch.Tensor:
+        """The forward of ``inputs`` at ``timestep`` -> the output buffer."""
+        self.inputs[0].copy_(inputs[0])
+        self.t.fill_(float(timestep))
+        if any(a is not b for a, b in zip(inputs[1:], self.src)):
+            for buf, x in zip(self.inputs[1:], inputs[1:]):
+                buf.copy_(x)
+            self.src = inputs[1:]
+        self.graph.replay()
+        for launch in self.k1:
+            fa.count_launch(*launch)
+        return self.out
 
 
 def init_params(generator: torch.Generator, cfg: UNetConfig,

@@ -19,7 +19,10 @@ Beside the kernel:
     128 at D = 128), the grid, and the tensor maps' dims, byte strides
     and boxes. The kernel takes it as it is; the CPU tests check it.
   * ``use_flash`` — the JAX gate's shape rule, decided by device.
-  * ``LAUNCHES`` — how many times the kernel was launched as K1.
+  * ``LAUNCHES`` — how many times the kernel was launched as K1, each
+    counted by ``count_launch`` (which tools that tally launches by shape
+    wrap); a CUDA graph's capture takes its launches out (``recorded``)
+    and each replay counts them again.
 
 K1b, the sequence-sharded form (``flash_attention_seq_sharded`` in the
 JAX package: a local block of query rows against K/V all-gathered over
@@ -36,6 +39,7 @@ The kernel is compiled with ``nvcc`` from the package's own source into
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -243,7 +247,6 @@ def _check_operand(name: str, t: torch.Tensor, shape: tuple) -> None:
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             seq_local: bool) -> torch.Tensor:
-    global LAUNCHES, SEQ_LAUNCHES
     b, h, nq, d = q.shape
     nk = k.shape[2]
     _check_operand("q", q, (b, h, nq, d))
@@ -267,11 +270,35 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                        f"{-1000 - err}" if err <= -1000
                                        else f"cudaError {err}"))
         raise RuntimeError(f"flash_attention kernel launch failed: {reason}")
+    count_launch(tuple(q.shape), seq_local)
+    return o
+
+
+def count_launch(shape: tuple, seq_local: bool) -> None:
+    """Count one launch with q of ``shape``: in ``SEQ_LAUNCHES`` for K1b,
+    else in ``LAUNCHES``."""
+    global LAUNCHES, SEQ_LAUNCHES
     if seq_local:
         SEQ_LAUNCHES += 1
     else:
         LAUNCHES += 1
-    return o
+
+
+@contextlib.contextmanager
+def recorded():
+    """The block's launches, left uncounted, as a list of (q shape,
+    seq_local): a CUDA graph's capture runs nothing, and each replay
+    passes them to ``count_launch``."""
+    global count_launch
+    launches, outer = [], count_launch
+
+    def record(shape: tuple, seq_local: bool) -> None:
+        launches.append((shape, seq_local))
+    count_launch = record
+    try:
+        yield launches
+    finally:
+        count_launch = outer
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,

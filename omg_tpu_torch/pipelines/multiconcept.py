@@ -64,6 +64,11 @@ becomes a Python branch per step.
 The scheduler state carries LCM's noise seed; every loop steps with
 ``shared_batch_noise``: the batch axis holds copies of one image.
 
+On a card, stage 1's forward without DeepCache or a base ControlNet
+replays a CUDA graph of its key (``_graphs_engage``, ``models/unet.py``'s
+``graphed``): the host issues one launch a step in place of the
+forward's kernels. Every other loop runs eagerly.
+
 Request batching (``sample_stage1_batch``/``sample_stage2_batch``, the
 JAX package's ``vmap`` over requests): R compatible requests (one
 geometry, step count and scheduler) run as one UNet forward per step over
@@ -738,12 +743,15 @@ def _denoise_cfg_batch(sched: schedulers.Schedule, unet, xs: list,
     ``lanes``: ``_cfg_lanes``. ``record_traj``: ``trajs`` holds each
     request's step inputs [i1-i0, 1, h, w, 4], else None.
     ``base_controlnets`` run on the 2R lanes (the odd ones conditional);
-    ``cache_interval``: DeepCache (``_DeepCache``)."""
+    ``cache_interval``: DeepCache (``_DeepCache``). Without either, lanes
+    on a card replay the UNet's CUDA graph of their key
+    (``_graphs_engage``)."""
     R = len(xs)
     embeds, tembeds, tids = lanes
     cond_rows = tuple(range(1, 2 * R, 2))
     trajs: list = [[] for _ in range(R)]
     dc = _DeepCache(cache_interval, i0)
+    graphed = _graphs_engage(xs[0], dc, base_controlnets)
     for i in profiling.steps(i0, i1):
         if record_traj:
             for r in range(R):
@@ -751,10 +759,16 @@ def _denoise_cfg_batch(sched: schedulers.Schedule, unet, xs: list,
         t = int(sched.timesteps[i])
         lin = schedulers.scale_model_input(
             sched, torch.cat([x for x in xs for _ in range(2)]), i)
-        eps = dc.step(unet, i, lin, t, embeds, lambda: _controlnet_residuals(
-            base_controlnets, lin, t, embeds, tembeds, tids, step_i=i,
-            num_steps=sched.num_steps, cond_rows=cond_rows),
-            text_embeds=tembeds, time_ids=tids)
+        if graphed:
+            eps = unet(lin, t, embeds, text_embeds=tembeds, time_ids=tids,
+                       graphed=True)
+        else:
+            eps = dc.step(unet, i, lin, t, embeds,
+                          lambda: _controlnet_residuals(
+                              base_controlnets, lin, t, embeds, tembeds,
+                              tids, step_i=i, num_steps=sched.num_steps,
+                              cond_rows=cond_rows),
+                          text_embeds=tembeds, time_ids=tids)
         for r in range(R):
             guided = sampling.cfg_combine(eps[2 * r:2 * r + 2], guidance_r[r])
             xs[r], states[r] = schedulers.step(sched, states[r], guided, i,
@@ -764,6 +778,15 @@ def _denoise_cfg_batch(sched: schedulers.Schedule, unet, xs: list,
     return xs, states, [torch.stack(tr) if tr else
                         x.new_zeros((0,) + tuple(x.shape))
                         for tr, x in zip(trajs, xs)]
+
+
+def _graphs_engage(x: torch.Tensor, dc: _DeepCache,
+                   base_controlnets: Sequence) -> bool:
+    """Whether stage 1's forwards replay CUDA graphs (``unet.forward``'s
+    ``graphed``): its latents ``x`` on a card, no DeepCache and no base
+    ControlNet. Every step's forward is then the same plain one but for
+    the timestep and the latents."""
+    return x.is_cuda and not dc.on and not base_controlnets
 
 
 def _split_lanes(x: torch.Tensor, R: int, n: int) -> tuple:

@@ -164,24 +164,23 @@ def card(device) -> dict:
 @contextlib.contextmanager
 def k1_launches(out: dict):
     """Fill ``out`` with K1's launches in the block: "launches" (the rise
-    of ``fa.LAUNCHES``) and "by_shape" (by q shape "B,H,N,D"). Count only
-    while one thread launches."""
-    launch = fa._launch
+    of ``fa.LAUNCHES``) and "by_shape" (by q shape "B,H,N,D"), replays
+    of a CUDA graph included. Count only while one thread launches."""
+    count = fa.count_launch
     by_shape = out.setdefault("by_shape", {})
 
-    def tally(q, k, v, *, seq_local):
-        o = launch(q, k, v, seq_local=seq_local)
+    def tally(shape, seq_local):
+        count(shape, seq_local)
         if not seq_local:
-            key = ",".join(map(str, q.shape))
+            key = ",".join(map(str, shape))
             by_shape[key] = by_shape.get(key, 0) + 1
-        return o
 
     start = fa.LAUNCHES
-    fa._launch = tally
+    fa.count_launch = tally
     try:
         yield out
     finally:
-        fa._launch = launch
+        fa.count_launch = count
         out["launches"] = fa.LAUNCHES - start
 
 
