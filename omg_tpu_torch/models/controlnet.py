@@ -135,12 +135,15 @@ class ControlNetModel(nn.Module):
         residual ramp, the shallowest residual scaled by 0.1 rising
         log-linearly to 1.0 at the mid block. ``seq_group``: both hold
         this rank's block of rows (``parallel.comm.Group``, equal blocks in
-        group order), and so do the residuals."""
+        group order), and so do the residuals. Counts
+        ``controlnet.cond_lanes``: the lanes whose condition image goes
+        through the embedder."""
         u, seq = self.cfg.unet, seq_group
         ctx = encoder_hidden_states.to(u.dtype)
         temb = unet_lib.time_embeddings(self, u, timestep, text_embeds,
                                         time_ids)
         x = self.conv_in(sample.permute(0, 3, 1, 2), seq)
+        profiling.count("controlnet.cond_lanes", cond_image.shape[0])
         x = x + self.controlnet_cond_embedding(
             cond_image.permute(0, 3, 1, 2).to(x.dtype), seq).to(x.dtype)
         residuals = [x]

@@ -67,7 +67,8 @@ The scheduler state carries LCM's noise seed; every loop steps with
 On a card, stage 1's forward without DeepCache or a base ControlNet
 replays a CUDA graph of its key (``_graphs_engage``, ``models/unet.py``'s
 ``graphed``): the host issues one launch a step in place of the
-forward's kernels. Every other loop runs eagerly.
+forward's kernels; a stage-1 step on a card that runs eagerly counts
+``graph.eager``. Every other loop runs eagerly.
 
 Request batching (``sample_stage1_batch``/``sample_stage2_batch``, the
 JAX package's ``vmap`` over requests): R compatible requests (one
@@ -745,13 +746,15 @@ def _denoise_cfg_batch(sched: schedulers.Schedule, unet, xs: list,
     ``base_controlnets`` run on the 2R lanes (the odd ones conditional);
     ``cache_interval``: DeepCache (``_DeepCache``). Without either, lanes
     on a card replay the UNet's CUDA graph of their key
-    (``_graphs_engage``)."""
+    (``_graphs_engage``); with one, each step on a card counts
+    ``graph.eager``."""
     R = len(xs)
     embeds, tembeds, tids = lanes
     cond_rows = tuple(range(1, 2 * R, 2))
     trajs: list = [[] for _ in range(R)]
     dc = _DeepCache(cache_interval, i0)
     graphed = _graphs_engage(xs[0], dc, base_controlnets)
+    eager = xs[0].is_cuda and not graphed
     for i in profiling.steps(i0, i1):
         if record_traj:
             for r in range(R):
@@ -763,6 +766,8 @@ def _denoise_cfg_batch(sched: schedulers.Schedule, unet, xs: list,
             eps = unet(lin, t, embeds, text_embeds=tembeds, time_ids=tids,
                        graphed=True)
         else:
+            if eager:
+                profiling.count("graph.eager")
             eps = dc.step(unet, i, lin, t, embeds,
                           lambda: _controlnet_residuals(
                               base_controlnets, lin, t, embeds, tembeds,
