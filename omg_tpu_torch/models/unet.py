@@ -32,6 +32,19 @@ so a shallow step launches no attention kernel and applies no LoRA, IP or
 P2P edit; a geometry whose level 0 has attention takes them there (the IP
 layers of down block 0, then those of the last up block, the traversal
 order's tail).
+
+On a card, ``forward(..., graphed=True)`` replays a CUDA graph of the
+plain forward (no option but ``lora``) per key: the inputs' shapes,
+dtypes and device. A key's first call with given factors runs eagerly
+(it makes their lazily fused groups), its second captures on the UNet's
+own stream and memory pool, and later calls copy the sample, the
+timestep and any new prompt rows into the graph's static inputs and
+replay it. The graph reads the factors where the request keeps them and
+holds them only weakly, so they go when the request drops them; new
+factors at a key, or none after a graph whose factors are gone, are
+captured anew and replace its graph: one capture a request. What the capture counted (K1's launches, the program's
+counters) is counted again at each replay, so a replayed step counts
+what an eager one does.
 """
 
 from __future__ import annotations
@@ -244,13 +257,13 @@ class UNet2DConditionModel(nn.Module):
         attn2 (``num_cross_attention_layers``), with ``ip_context``
         [B, T, cross_attention_dim]. ``return_cache``: (eps, the DeepCache
         feature entering the last up block, NCHW ``cache_shape``).
-        ``graphed``: the plain forward of CUDA tensors, replayed from its
-        key's CUDA graph (module docstring); the options above do not
-        reach it."""
+        ``graphed``: the plain forward of CUDA tensors with ``lora`` (a
+        ``layers.LoraFactors`` or None), replayed from its key's CUDA graph
+        (module docstring); the other options above do not reach it."""
         if graphed:
             return _GRAPHS.setdefault(self, _Graphs()).run(
                 self, timestep,
-                (sample, encoder_hidden_states, text_embeds, time_ids))
+                (sample, encoder_hidden_states, text_embeds, time_ids), lora)
         return self._forward(
             sample, timestep, encoder_hidden_states, text_embeds=text_embeds,
             time_ids=time_ids, lora=lora, control=control,
@@ -392,29 +405,31 @@ def time_embeddings(model: nn.Module, cfg: UNetConfig, timestep,
 
 
 class _Graphs:
-    """One UNet's graphed forwards by key (``_SEEN`` after the key's eager
-    first call), and the memory pool and the stream their captures
-    share."""
+    """One UNet's graphed forwards: per key the graph of the factors it
+    last ran, or a ``_Seen`` after their eager first call; and the memory
+    pool and the stream their captures share."""
 
     def __init__(self):
         self.by_key: dict = {}
         self.pool = self.stream = None
 
-    def run(self, unet: UNet2DConditionModel, timestep,
-            inputs: tuple) -> torch.Tensor:
+    def run(self, unet: UNet2DConditionModel, timestep, inputs: tuple,
+            lora: Optional[layers.LoraFactors]) -> torch.Tensor:
         """The plain forward of ``inputs`` (sample, context, text embeds,
-        time ids) at ``timestep``: eager on its key's first call, captured
-        on its second, replayed from then on."""
+        time ids) at ``timestep`` with ``lora``: eager on its key's first
+        call with these factors, captured on its second, replayed from
+        then on."""
         key = tuple((tuple(x.shape), x.dtype) for x in inputs) + (
             inputs[0].device,)
         g = self.by_key.get(key)
-        if g is None:
-            self.by_key[key] = _SEEN
+        if g is None or g.lora() is not lora:
+            self.by_key[key] = _Seen(lora, g)
             sample, ctx, text_embeds, time_ids = inputs
             return unet._forward(sample, timestep, ctx,
-                                 text_embeds=text_embeds, time_ids=time_ids)
-        if g is _SEEN:
-            g = self.by_key[key] = _Graph(unet, self, timestep, inputs)
+                                 text_embeds=text_embeds, time_ids=time_ids,
+                                 lora=lora)
+        if isinstance(g, _Seen):
+            g = self.by_key[key] = _Graph(unet, self, timestep, inputs, lora)
             profiling.count("graph.captures")
         out = g.replay(timestep, inputs)
         profiling.count("graph.replays")
@@ -424,16 +439,43 @@ class _Graphs:
 # Weakly keyed by the UNet: its graphs go with it, and a copy of it starts
 # with none.
 _GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-_SEEN = object()
+
+
+_GONE = object()
+
+
+def _ref(lora: Optional[layers.LoraFactors]):
+    """A weak reference to a request's factors (or to None), which gives
+    them, None, or ``_GONE`` once they are freed: a graph that reads them
+    never keeps them alive, and one whose factors are gone serves no later
+    call, not even one without factors."""
+    if lora is None:
+        return lambda: None
+    ref = weakref.ref(lora)
+    return lambda: _GONE if (f := ref()) is None else f
+
+
+class _Seen:
+    """A key after its eager first call with ``lora``. It keeps the
+    key's previous graph until the capture replaces it: a memory pool
+    whose graphs are all gone takes no capture until the allocator has
+    freed it."""
+
+    def __init__(self, lora: Optional[layers.LoraFactors], prev):
+        self.lora = _ref(lora)
+        self.prev = prev.prev if isinstance(prev, _Seen) else prev
 
 
 class _Graph:
     """One captured plain forward: its static inputs (a 0-dim fp32
-    timestep, the sample, the prompt rows), its output, and the K1
-    launches its capture recorded."""
+    timestep, the sample, the prompt rows), a weak reference to the
+    factors it reads (``_ref``), its output, and what its capture
+    recorded for each replay to count: K1's launches and the program's
+    counters."""
 
     def __init__(self, unet: UNet2DConditionModel, graphs: _Graphs,
-                 timestep, inputs: tuple):
+                 timestep, inputs: tuple,
+                 lora: Optional[layers.LoraFactors]):
         # normal tensors, so that a later call outside inference mode can
         # write them; no autograd in the captured work
         with torch.inference_mode(False), torch.no_grad():
@@ -441,7 +483,9 @@ class _Graph:
                                 device=inputs[0].device)
             self.inputs = tuple(x.clone() for x in inputs)
             self.src = inputs[1:]       # the prompt rows last copied in
-            self.out, self.k1 = self._capture(unet, graphs)
+            self.lora = _ref(lora)
+            with profiling.recorded() as self.counts:
+                self.out, self.k1 = self._capture(unet, graphs)
 
     def _capture(self, unet: UNet2DConditionModel, graphs: _Graphs) -> tuple:
         """-> (the output buffer, K1's launches): the forward's body
@@ -462,7 +506,7 @@ class _Graph:
             try:
                 out = unet._forward(sample, self.t, ctx,
                                     text_embeds=text_embeds,
-                                    time_ids=time_ids)
+                                    time_ids=time_ids, lora=self.lora())
             finally:
                 self.graph.capture_end()
         return out, k1
@@ -478,6 +522,8 @@ class _Graph:
         self.graph.replay()
         for launch in self.k1:
             fa.count_launch(*launch)
+        for name, n in self.counts.items():
+            profiling.count(name, n)
         return self.out
 
 

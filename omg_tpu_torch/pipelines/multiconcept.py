@@ -66,9 +66,11 @@ The scheduler state carries LCM's noise seed; every loop steps with
 
 On a card, stage 1's forward without DeepCache or a base ControlNet
 replays a CUDA graph of its key (``_graphs_engage``, ``models/unet.py``'s
-``graphed``): the host issues one launch a step in place of the
-forward's kernels; a stage-1 step on a card that runs eagerly counts
-``graph.eager``. Every other loop runs eagerly.
+``graphed``, with no LoRA): the host issues one launch a step in place
+of the forward's kernels; a stage-1 step on a card that runs eagerly
+counts ``graph.eager``. Every other loop here runs eagerly (the plain
+SDXL denoise of ``pipelines/sdxl.py`` graphs its forward with the
+request's LoRA factors, captured once a request).
 
 Request batching (``sample_stage1_batch``/``sample_stage2_batch``, the
 JAX package's ``vmap`` over requests): R compatible requests (one

@@ -4,6 +4,10 @@ latents, the CFG denoise and the VAE decode (fp32, or bf16 on a cast copy
 of the decoder), and ``text_to_image`` (BASELINE config #1) built from
 them. The loop is plain Python over ``sampling.denoise_loop``; every
 self-attention of the UNet at 1024² takes the flash kernel on the card.
+On a card each forward but a run's first replays a CUDA graph that reads
+the run's LoRA factors (``_graphs_engage``, ``models/unet.py``'s
+``graphed``): captured on its second step, once a request, so the host
+issues one launch a step in place of the forward's kernels.
 """
 
 from __future__ import annotations
@@ -103,17 +107,32 @@ def make_inputs(embeds_pos: torch.Tensor, pooled_pos: torch.Tensor,
                                       device=embeds_pos.device))
 
 
+def _graphs_engage(x: torch.Tensor) -> bool:
+    """Whether the denoise's forwards replay CUDA graphs
+    (``unet.forward``'s ``graphed``): its latents ``x`` on a card. Every
+    step's forward is then the same plain one but for the timestep and
+    the latents."""
+    return x.is_cuda
+
+
 def denoise(cfg: SDXLConfig, sched: schedulers.Schedule,
             unet_model: unet.UNet2DConditionModel, latents: torch.Tensor,
             inputs: DenoiseInputs, *, lora: Optional[dict] = None
             ) -> torch.Tensor:
     """The full CFG denoise, latents [B, h, w, 4] -> [B, h, w, 4]: each
     step runs the UNet on [x; x] against the [neg; pos] conditioning and
-    combines the halves."""
+    combines the halves. ``lora``: one adapter for every lane, made into
+    the UNet's factors for the run (``lora.prepare``), which they leave
+    with; on a card the forwards replay a graph that reads them
+    (``_graphs_engage``)."""
+    factors = lora_lib.prepare(lora, cfg.unet.dtype)
+    graphed = _graphs_engage(latents)
+
     def model_fn(x, t, i):
         eps = unet_model(torch.cat([x, x]), t, inputs.prompt_embeds,
                          text_embeds=inputs.text_embeds,
-                         time_ids=inputs.time_ids, lora=lora)
+                         time_ids=inputs.time_ids, lora=factors,
+                         graphed=graphed)
         return sampling.cfg_combine(eps, inputs.guidance_scale)
 
     return sampling.denoise_loop(sched, model_fn, latents)
@@ -184,10 +203,9 @@ def text_to_image(cfg: SDXLConfig, params: SDXLParams, *,
     of both tokenizers for the prompt and the negative prompt -> images
     [B, H, W, 3] in [0, 1], decoded in fp32. ``generator`` draws the
     initial noise (``prepare_latents``); the ids move to the UNet's
-    device. ``lora``: one adapter for every lane, made into the UNet's
-    factors once for the request (``lora.prepare``). The call is one
-    request of ``utils/profiling`` (spans ``encode``, ``denoise`` and a
-    timed ``decode``)."""
+    device. ``lora``: one adapter for every lane (``denoise``'s). The
+    call is one request of ``utils/profiling`` (spans ``encode``,
+    ``denoise`` and a timed ``decode``)."""
     device = next(params.unet.parameters()).device
     with profiling.span("encode"):
         ids = [profiling.sync(x.to, device)
@@ -203,6 +221,6 @@ def text_to_image(cfg: SDXLConfig, params: SDXLParams, *,
         latents = prepare_latents(generator, embeds_pos.shape[0], height,
                                   width, sched, cfg.unet.dtype, device=device)
         latents = denoise(cfg, sched, params.unet, latents, inputs,
-                          lora=lora_lib.prepare(lora, cfg.unet.dtype))
+                          lora=lora)
     with profiling.span("decode", timed=True):
         return decode_latents(cfg, params.vae, latents)

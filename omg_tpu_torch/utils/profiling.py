@@ -16,7 +16,8 @@ from ``time.time_ns()``, the clock of the profiler's timestamps.
     synchronize.
   * ``count`` adds to a counter of the innermost open span; ``sync`` runs
     a blocking host-device operation and counts it there as ``sync``,
-    with the host's wait in it as ``sync_wait_ns``.
+    with the host's wait in it as ``sync_wait_ns``. Inside ``recorded``
+    (a CUDA graph's capture) the counts are kept aside for the replays.
   * ``Phases`` ends each phase of a request with the device idle and
     adds up its host seconds on the monotonic clock
     (``GenerationResult.timings``); ``steps`` is every denoise loop's
@@ -271,11 +272,29 @@ def requested(name: str, device):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to ``name`` in the innermost open span."""
+    """Add ``n`` to ``name`` in the innermost open span (in the block's
+    record inside ``recorded``)."""
+    kept = getattr(_LOCAL, "recorded", None)
+    if kept is not None:
+        kept[name] = kept.get(name, 0) + n
+        return
     req = getattr(_LOCAL, "request", None)
     if req is not None and req.open:
         c = req.open[-1].counters
         c[name] = c.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recorded():
+    """The block's ``count``s on this thread, {name: n}, left out of every
+    span: a CUDA graph's capture runs nothing, and each replay counts
+    them."""
+    outer = getattr(_LOCAL, "recorded", None)
+    _LOCAL.recorded = kept = {}
+    try:
+        yield kept
+    finally:
+        _LOCAL.recorded = outer
 
 
 def sync(fn, *args, **kwargs):
